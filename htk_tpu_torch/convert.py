@@ -1,0 +1,57 @@
+"""Carry a compiled HMM set and a decode network across from htk_tpu.
+
+The JAX package's `CompiledHMMSet` (models/hmmset.py) and `DecodeNetwork`
+(algo/net.py) hold numpy arrays; the port's copies of those modules
+define the same dataclasses. These functions rebuild the port's objects
+from any object with the same attributes (the JAX package's, read as
+numpy arrays), and put them on a device, so that both packages compute
+on identical operands. Nothing here imports htk_tpu.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+from .algo.decode import _net_dev, scorer_for
+from .algo.net import DecodeNetwork
+from .models.hmmset import CompiledHMMSet
+from .ops.outp import GaussianScorer
+
+
+def _carry(cls, src):
+    """Copy every public dataclass field of `cls` from `src`: numpy
+    arrays as fresh arrays, everything else as a deep copy."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name.startswith("_") or not hasattr(src, f.name):
+            continue
+        val = getattr(src, f.name)
+        if isinstance(val, np.ndarray):
+            val = np.array(val, copy=True)
+        else:
+            val = copy.deepcopy(val)
+        kw[f.name] = val
+    return cls(**kw)
+
+
+def compiled_hmmset_from(comp) -> CompiledHMMSet:
+    """The port's CompiledHMMSet from the JAX package's (means, variances,
+    gconsts, state_mix, state_logw, transitions, model tables, ...)."""
+    return _carry(CompiledHMMSet, comp)
+
+
+def decode_network_from(net) -> DecodeNetwork:
+    """The port's DecodeNetwork from the JAX package's (band, a0, aE,
+    trans, start_entry, end_exit, chain and node tables, ...)."""
+    return _carry(DecodeNetwork, net)
+
+
+def to_device(comp: CompiledHMMSet, net: DecodeNetwork, device,
+              precision: str = "highest") -> Tuple[GaussianScorer, dict]:
+    """The device tensors of a carried set and network: the packed
+    Gaussian scorer and the network's tensor cache, as decode uses them."""
+    return scorer_for(comp, device, precision), _net_dev(net, device)

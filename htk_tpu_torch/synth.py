@@ -1,0 +1,276 @@
+"""Synthetic recognition systems written to disk, for smoke runs and tests.
+
+Builds, from a numpy seed, everything HVite `-w` needs, in the port's own
+file writers:
+
+  hmmdefs    a tied-state word-internal triphone set: a pool of `n_tied`
+             shared `n_mix`-mixture diagonal-Gaussian states (~s macros,
+             the decision-tree tying outcome), each triphone a 5-state
+             left-to-right model drawing its 3 emitting states from the
+             pool (the shape of htk_tpu's bench.py config #4)
+  dict       a random 3-5 phone monophone lexicon (HVite expands it to
+             word-internal triphones)
+  hmmlist    the triphone names
+  wdnet.slf  a back-off bigram word network in the shape of HBuild's
+             (htk_tpu/tools/hbuild.py : bigram_lattice): sentence start
+             and end !NULL nodes, one !NULL back-off node, and about
+             `fanout` favoured explicit successors per word
+  *.mfc      utterances synthesised from the state means plus Gaussian
+             noise, 3 frames per state, as MFCC_E_D_A feature files
+  test.scp   the feature files
+
+`random_decode_net` makes the operands of one decode recursion directly
+(a random general net and its observation scores), for holding the
+decode kernel against its plain version.
+
+At the defaults (1,000 words, 40 phones, 2,000 tied 8-mixture states,
+39 dims) this is htk_tpu's BASELINE config #4 system.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from dataclasses import dataclass, field
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+
+from .io.htkfeat import write_htk_file
+from .io.mmf import HMMDef, HMMSet, MixPDF, StateInfo, StreamElem, save_mmf
+from .io.parmkind import str2parmkind
+from .io.slf import LArc, LNode, Lattice, NULL_WORD, write_slf
+from .utils.logmath import LZERO
+
+PARM_KIND = "MFCC_E_D_A"
+FRAME_PERIOD = 100000  # 10 ms in 100 ns units
+NOISE = 1.0  # std of the Gaussian noise added to state means per frame
+
+
+@dataclass
+class System:
+    """Paths of a written system and what its utterances say."""
+
+    root: str
+    hmmdefs: str
+    dict: str
+    hmmlist: str
+    wdnet: str
+    scp: str
+    feats: List[str] = field(default_factory=list)
+    transcripts: List[List[str]] = field(default_factory=list)
+    n_frames: List[int] = field(default_factory=list)
+
+
+def internal_triphones(phones: Sequence[str]) -> List[str]:
+    """Word-internal context names: l-p+r inside, biphones at the edges."""
+    out = []
+    n = len(phones)
+    for k, p in enumerate(phones):
+        l = phones[k - 1] if k > 0 else None
+        r = phones[k + 1] if k < n - 1 else None
+        if l and r:
+            out.append(f"{l}-{p}+{r}")
+        elif r:
+            out.append(f"{p}+{r}")
+        elif l:
+            out.append(f"{l}-{p}")
+        else:
+            out.append(p)
+    return out
+
+
+def left_to_right_transp(nstates: int, self_prob: float = 0.6) -> np.ndarray:
+    """N-state left-to-right transition matrix (entry 1, exit N)."""
+    tp = np.zeros((nstates, nstates), np.float32)
+    tp[0, 1] = 1.0
+    for i in range(1, nstates - 1):
+        tp[i, i] = self_prob
+        tp[i, i + 1] = 1.0 - self_prob
+    return tp
+
+
+def build_hmmset(rng, n_words: int, n_phones: int, n_tied: int, n_mix: int,
+                 dim: int) -> Tuple[HMMSet, Dict[str, List[str]]]:
+    """The tied-state triphone set and the monophone lexicon."""
+    phones = [f"p{i}" for i in range(n_phones)]
+    lex: Dict[str, List[str]] = {}
+    for i in range(n_words):
+        n_ph = int(rng.integers(3, 6))
+        lex[f"w{i}"] = [phones[j] for j in rng.integers(0, n_phones, n_ph)]
+    tri_names = sorted({t for ph in lex.values()
+                        for t in internal_triphones(ph)})
+
+    hset = HMMSet(vec_size=dim, parm_kind=str2parmkind(PARM_KIND))
+    for k in range(n_tied):
+        se = StreamElem(
+            weights=[1.0 / n_mix] * n_mix,
+            mixes=[MixPDF(mean=(rng.normal(size=dim) * 2).astype(np.float32),
+                          var=(0.5 + rng.random(dim)).astype(np.float32))
+                   for _ in range(n_mix)])
+        for mp in se.mixes:
+            mp.fix_gconst()
+        hset.macros["s"][f"st{k}"] = StateInfo(streams=[se])
+    pool = list(hset.macros["s"].values())
+    tp = left_to_right_transp(5)
+    hset.macros["t"]["trP"] = tp
+    for name in tri_names:
+        picks = rng.integers(0, n_tied, 3)
+        hset.hmms[name] = HMMDef(name=name, nstates=5,
+                                 states=[pool[k] for k in picks], transp=tp)
+    return hset, lex
+
+
+def bigram_network(rng, words: List[str], fanout: int) -> Lattice:
+    """Back-off bigram word network (HBuild's layout).
+
+    Node ids: 0 sentence start, 1 back-off, 2 sentence end, words from 3.
+    Unigrams are log(0.5 / V), every back-off weight log(0.5), the
+    explicit bigrams log(0.4 / fanout); sentence entry and exit go
+    through the back-off (log 0.5 + unigram), as for a start word with no
+    explicit bigrams."""
+    V = len(words)
+    uni = math.log(0.5 / V)
+    bow = math.log(0.5)
+    lat = Lattice()
+    for i in range(3):
+        lat.nodes.append(LNode(id=i, word=NULL_WORD))
+    for k, w in enumerate(words):
+        lat.nodes.append(LNode(id=3 + k, word=w))
+
+    def arc(s, e, p):
+        lat.arcs.append(LArc(id=len(lat.arcs), start=s, end=e, lmlike=p))
+
+    for k in range(V):
+        arc(0, 3 + k, bow + uni)
+    for k in range(V):
+        for j in sorted(set(int(x) for x in rng.integers(0, V, fanout))):
+            arc(3 + k, 3 + j, math.log(0.4 / fanout))
+    for k in range(V):
+        arc(3 + k, 1, bow)
+        arc(1, 3 + k, uni)
+    for k in range(V):
+        arc(3 + k, 2, bow + uni)
+    return lat
+
+
+def synth_utterance(rng, hset: HMMSet, lex: Dict[str, List[str]],
+                    words: List[str], min_frames: int,
+                    max_frames: int) -> Tuple[np.ndarray, List[str]]:
+    """Frames walked from state means (first mixture) plus noise, 3 per
+    state, word by word until at least `min_frames`; the result is cut
+    to at most `max_frames` only at a word boundary (words are added
+    while they fit)."""
+    target = int(rng.integers(min_frames, max_frames + 1))
+    frames: List[np.ndarray] = []
+    seq: List[str] = []
+    while True:
+        w = words[int(rng.integers(0, len(words)))]
+        wf = []
+        for tri in internal_triphones(lex[w]):
+            for si in hset.hmms[tri].states:
+                mu = np.asarray(si.streams[0].mixes[0].mean, np.float64)
+                for _ in range(3):
+                    wf.append(mu + NOISE * rng.normal(size=mu.shape))
+        if seq and len(frames) + len(wf) > max_frames:
+            break
+        seq.append(w)
+        frames.extend(wf)
+        if len(frames) >= target:
+            break
+    return np.stack(frames).astype(np.float32), seq
+
+
+def write_system(root: str, n_words: int = 1000, n_phones: int = 40,
+                 n_tied: int = 2000, n_mix: int = 8, dim: int = 39,
+                 n_utts: int = 16, min_frames: int = 440,
+                 max_frames: int = 512, fanout: int = 20, seed: int = 0,
+                 binary_mmf: bool = True) -> System:
+    """Write a complete HVite -w system under `root` (made if missing)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    hset, lex = build_hmmset(rng, n_words, n_phones, n_tied, n_mix, dim)
+    words = list(lex)
+    sysm = System(root=root,
+                  hmmdefs=os.path.join(root, "hmmdefs"),
+                  dict=os.path.join(root, "dict"),
+                  hmmlist=os.path.join(root, "hmmlist"),
+                  wdnet=os.path.join(root, "wdnet.slf"),
+                  scp=os.path.join(root, "test.scp"))
+    save_mmf(hset, sysm.hmmdefs, binary=binary_mmf)
+    with open(sysm.dict, "w") as f:
+        for w in words:
+            f.write(f"{w} {' '.join(lex[w])}\n")
+    with open(sysm.hmmlist, "w") as f:
+        f.write("".join(f"{n}\n" for n in hset.hmms))
+    write_slf(bigram_network(rng, words, fanout), sysm.wdnet)
+
+    kind = str2parmkind(PARM_KIND)
+    for u in range(n_utts):
+        x, seq = synth_utterance(rng, hset, lex, words, min_frames,
+                                 max_frames)
+        path = os.path.join(root, f"utt{u:03d}.mfc")
+        write_htk_file(path, x, FRAME_PERIOD, kind)
+        sysm.feats.append(path)
+        sysm.transcripts.append(seq)
+        sysm.n_frames.append(int(x.shape[0]))
+    with open(sysm.scp, "w") as f:
+        f.write("".join(f"{p}\n" for p in sysm.feats))
+    return sysm
+
+
+def word_accuracy(refs: List[List[str]], hyps: List[List[str]]) -> float:
+    """HResults word accuracy (N - S - D - I) / N, in percent, from a
+    minimum-edit alignment of each reference with its hypothesis."""
+    n = errs = 0
+    for r, h in zip(refs, hyps):
+        d = np.arange(len(h) + 1)
+        for i in range(1, len(r) + 1):
+            prev, d = d, np.empty_like(d)
+            d[0] = i
+            for j in range(1, len(h) + 1):
+                d[j] = min(prev[j] + 1, d[j - 1] + 1,
+                           prev[j - 1] + (r[i - 1] != h[j - 1]))
+        n += len(r)
+        errs += int(d[-1])
+    return 100.0 * (n - errs) / max(n, 1)
+
+
+def random_decode_net(seed: int = 0, Ns: int = 30, Nn: int = 5, K: int = 3,
+                      B: int = 2, T: int = 20, ties: bool = False):
+    """Random decode-recursion operands (numpy, float32 / int32):
+    (node_of_state, outp, band, a0, aE, bonus, trans, start).
+
+    States sort into nodes; band and trans are sparse (LZERO elsewhere);
+    each node is entered at its first state and left at its last; node 0
+    can start. `ties=True` draws every score from {0, -1, -2}, so equal
+    candidates are everywhere and the tie rules of the recursion (first
+    state, first source node, first band offset) decide the records."""
+    rng = np.random.default_rng(seed)
+    node_of_state = np.sort(rng.integers(0, Nn, Ns)).astype(np.int32)
+
+    def score(shape):
+        if ties:
+            return -rng.integers(0, 3, shape).astype(np.float64)
+        return -rng.random(shape)
+
+    if ties:
+        outp = score((B, T, Ns))
+    else:
+        outp = rng.normal(size=(B, T, Ns)) * 2
+    band = np.where(rng.random((K, Ns)) < 0.7, score((K, Ns)), LZERO)
+    band[0] = -1.0 if ties else -0.5
+    trans = np.where(rng.random((Nn, Nn)) < 0.5, score((Nn, Nn)), LZERO)
+    exit_lp = 0.0 if ties else -0.1
+    a0 = np.where(rng.random(Ns) < 0.3, 0.0, LZERO)
+    aE = np.where(rng.random(Ns) < 0.3, 2 * exit_lp, LZERO)
+    start = np.where(rng.random(Nn) < 0.5, 0.0, LZERO)
+    start[0] = 0.0
+    for n in range(Nn):
+        sel = np.where(node_of_state == n)[0]
+        if len(sel):
+            a0[sel[0]] = 0.0
+            aE[sel[-1]] = exit_lp
+    f = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return (node_of_state, f(outp), f(band), f(a0), f(aE), f(np.zeros(Ns)),
+            f(trans), f(start))
