@@ -1,34 +1,64 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: HVite -w recognition.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: HVite -w recognition
+and HERest Baum-Welch training.
 
-Drives htk_tpu_torch's main path, `htk_tpu_torch.tools.hvite.run`, on a
-synthetic system at htk_tpu's BASELINE config #4 widths (1,000-word
-back-off bigram word network, 40 phones, word-internal triphones over
-2,000 tied 8-mixture states, 39-dim MFCC_E_D_A; random weights from a
-numpy seed; 16 utterances of about 500 frames). Phases, each raising on
+Drives htk_tpu_torch's main paths, `htk_tpu_torch.tools.hvite.run` and
+`htk_tpu_torch.tools.herest.run`, on a synthetic system at htk_tpu's
+BASELINE config #4 widths (1,000-word back-off bigram word network, 40
+phones, word-internal triphones over 2,000 tied 8-mixture states, 39-dim
+MFCC_E_D_A; random weights from a numpy seed; 16 utterances of about 500
+frames, with their phone-level transcriptions). Phases, each raising on
 failure:
 
   1. device: a CUDA card is required; its name and power limit are
-     printed; the decode kernel (htk_tpu_torch/csrc/decode_scan.cu) is
-     built from source with nvcc
-  2. kernel against its plain torch version on random nets (several
-     seeds, B > 1, a tie-heavy integer-score case)
-  3. the config-#4 system written with the port's own writers
-  4. HVite on the card: exit 0, one kernel launch per decode bucket,
-     a transcript for every utterance; for one bucket the kernel and the
-     plain version on the same real outp, and the tool's words and times
-     against the plain path's; word accuracy (informational)
-  5. decode-step time and xRT, kernel and plain, at B=8, T=512
-  6. one JSON line of kernels, then the device line last
+     printed; both kernels (htk_tpu_torch/csrc/decode_scan.cu and
+     fb_scans.cu) are built from source with nvcc, in parallel
+  2. the decode kernel against its plain torch version on random nets
+     (several seeds, B > 1, a tie-heavy integer-score case)
+  3. the FB scans kernel against its plain version on random composites
+     (two seeds, B = 4, Q = 50 and Q = 250, whose logA does not fit shared
+     memory; rows with t_real < T and t_real = 0; no beam, a loose beam,
+     one that kills some rows and one that kills all)
+  4. the config-#4 system written with the port's own writers
+  5. HVite on the card: exit 0, one decode launch per bucket, a transcript
+     for every utterance; for one bucket the kernel and the plain version
+     on the same real outp, and the tool's words and times against the
+     plain path's; word accuracy (informational)
+  6. HERest on the card, two iterations (-B, -S train.scp -I train.mlf):
+     exit 0 each, one fb_scans launch per FB batch, the average log prob
+     per frame rising; for the first batch the kernel and the plain
+     version on the same real operands, and the tool path's accumulators
+     against the plain path's; then HVite decodes with the re-estimated
+     MMF (exit 0, word accuracy informational)
+  7. times, kernel and plain taken in turns: the decode step at B=8,
+     T=512, the FB scans on the real bucket (B=8, T=512, Q=192), HERest
+     iterations in utterances and audio seconds per second; under
+     torch.profiler, the device time of the FB kernel's two parts and the
+     device's busy share of a HERest iteration
+  8. one JSON line of kernels, then the device line last
 
-Tolerances: live scores within 1e-5 (the reference's own, and the sums
-are in the same order, so they are in fact equal); every word-link record
-exactly equal.
+Each main path runs with every launch count set to 0 just before it and
+read just after. Tolerances, kernel against plain: decode live scores
+within 1e-5 and every word-link record exactly equal; FB logP within 1e-5
+relative, alphas and betas at t < t_real with the same live sets (above
+LZERO/2) and within 1e-5 |ref| + 1e-4, xi of live utterances within rtol
+1e-4, atol 1e-6; the accumulators of a batch within 1e-2 of each field's
+largest magnitude (alphas of magnitude ~3e4 differ by float32 ulps of the
+sums' order, which moves occupancies by ~1e-3).
+
+`bound_ms` is the larger of the bytes each kernel must move (inputs read
+once, outputs written once) over 3.35 TB/s and its operations over the
+67 TFLOP/s of FP32 outside the tensor cores (H100 SXM data sheet; exp
+and log counted as one operation each); for the FB scans only the live
+(above LZERO/2) cells of logA count, since the others add exactly
+nothing. No single PyTorch call computes either kernel's function, so
+`library_ms` is null.
 
 Usage: python3 chip_smoke.py        (exit 0 only if every phase passed)
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -37,13 +67,17 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from htk_tpu_torch.algo.decode import (_final_records, _finalize,
                                        _net_outp, decode_operands)
+from htk_tpu_torch.algo.fb import _fb_outp
 from htk_tpu_torch.algo.net import compile_network, word_internal_phone_map
+from htk_tpu_torch.algo.trainer import (DeviceCompositeTrainer, _bucket,
+                                        prepare_utterance_ids)
 from htk_tpu_torch.io.dictionary import read_dict
 from htk_tpu_torch.io.htkfeat import read_htk_file
 from htk_tpu_torch.io.mlf import MLF
@@ -51,9 +85,11 @@ from htk_tpu_torch.io.mmf import load_mmf
 from htk_tpu_torch.io.slf import read_slf
 from htk_tpu_torch.models.hmmset import compile_hmmset
 from htk_tpu_torch.ops import decode_scan as ds
-from htk_tpu_torch.synth import (random_decode_net, word_accuracy,
-                                 write_system)
-from htk_tpu_torch.tools import hvite
+from htk_tpu_torch.ops import fb_scans as fbs
+from htk_tpu_torch.synth import (random_decode_net, random_fb_operands,
+                                 word_accuracy, write_system)
+from htk_tpu_torch.tools import herest, hvite
+from htk_tpu_torch.tools._common import DEVICE_ENV
 from htk_tpu_torch.utils.logmath import LZERO
 
 ATOL = 1e-5
@@ -65,6 +101,13 @@ RANDOM_NET = dict(Ns=3000, Nn=200, K=3, B=4, T=48)
 TIMING_B, TIMING_T = 8, 512
 LM_SCALE, WORD_PEN = 8.0, -10.0
 FRAME_S = 0.01
+KERNELS = (ds.KERNEL, fbs.KERNEL)
+HEREST_BATCH = 8
+RANDOM_FB = dict(B=4, T=40, t_real=[40, 33, 20, 0])
+FB_QS = (50, 250)  # Q = 250: logA in global memory
+FB_BEAMS = (None, 10.0, 5.0, 2.0)  # 5 kills some rows, 2 all of them
+ACC_TOL = 1e-2
+HBM_BPS, FP32_OPS = 3.35e12, 67e12  # H100 SXM data sheet
 
 
 def log(msg: str) -> None:
@@ -111,11 +154,91 @@ def random_net(seed, dev, ties, **sizes):
             torch.full((Nn,), -1.0, device=dev), Nn)
 
 
+def reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def compare_scans(got, ref, t_real, what: str) -> float:
+    """FB scans kernel against plain at the tolerances of the module
+    docstring; returns the max |diff| over logP, the live alphas and betas
+    at t < t_real and the xi of live utterances."""
+    al, be, lp, xi = got
+    al_r, be_r, lp_r, xi_r = ref
+    if not torch.allclose(lp, lp_r, rtol=1e-5, atol=0):
+        raise AssertionError(f"{what}: logP {lp.tolist()} != {lp_r.tolist()}")
+    err = float((lp - lp_r).abs().max())
+    for b, tr in enumerate(t_real.tolist()):
+        for g, r, name in ((al[b, :tr], al_r[b, :tr], "alpha"),
+                           (be[b, :tr], be_r[b, :tr], "beta")):
+            live = r > LZERO / 2
+            if not torch.equal(live, g > LZERO / 2):
+                raise AssertionError(f"{what}: row {b}: live {name} sets "
+                                     "differ")
+            d = (g[live] - r[live]).abs()
+            if d.numel() and not bool(
+                    (d <= 1e-5 * r[live].abs() + 1e-4).all()):
+                raise AssertionError(f"{what}: row {b}: {name} max |diff| "
+                                     f"{float(d.max())}")
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        if float(lp_r[b]) > LZERO / 2:  # a failed utterance's xi is unused
+            if not torch.allclose(xi[b], xi_r[b], rtol=1e-4, atol=1e-6):
+                raise AssertionError(f"{what}: row {b}: xi differs by "
+                                     f"{float((xi[b] - xi_r[b]).abs().max())}")
+            err = max(err, float((xi[b] - xi_r[b]).abs().max()))
+    return err
+
+
+def bound(name: str, nbytes: float, ops: float):
+    """(ms, what bounds it): the larger of bytes over HBM bandwidth and
+    operations over the FP32 peak; both are printed."""
+    tb, to = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
+    log(f"{name} bound: bytes {nbytes / 1e6:.3f} MB = {tb:.6f} ms, "
+        f"operations {ops:.4g} = {to:.6f} ms")
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def decode_bound(B, T, Ns, Nn, K):
+    """decode_scan: outp, band, the per-state and per-node vectors and
+    trans in; the (B, T, Nn) records and (B, Ns) finals out. Per frame and
+    utterance an add and a max for each band candidate and word end, four
+    more for each state's combine, and an add and a max for each (i, j)
+    of the cross-word step (none at t = 0)."""
+    nbytes = 4 * (B * T * Ns + K * Ns + 4 * Ns + Nn * Nn + 2 * Nn
+                  + 3 * B * T * Nn + 3 * B * Ns)
+    ops = B * (T * (2 * K + 6) * Ns + (T - 1) * (2 * Nn * Nn + Nn))
+    return bound("decode_scan", nbytes, ops)
+
+
+def fb_bound(outp, logA, t_real):
+    """fb_scans: outp, logA, a0, aE, t_real in; alphas, betas, logP, xi
+    out. Each live cell of logA costs about five operations (add, max,
+    subtract, exp, add) per step of each scan (T steps) and of xi
+    (t_real - 1 steps); each output of a reduction a log and an add."""
+    B, T, Q = outp.shape
+    nnz = (logA > LZERO / 2).sum(dim=(1, 2)).double()
+    steps = 2 * T + (t_real.double() - 1).clamp(min=0)
+    ops = float(5 * (steps * nnz).sum()) + 4 * B * T * Q
+    nbytes = 4 * (3 * B * T * Q + 2 * B * Q * Q + 2 * B * Q + 2 * B)
+    return bound("fb_scans", nbytes, ops)
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """algo/fb runs its scans through the plain version inside."""
+    saved = fbs.fb_scans
+    fbs.fb_scans = fbs.fb_scans_plain
+    try:
+        yield
+    finally:
+        fbs.fb_scans = saved
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is false")
     here = os.path.dirname(os.path.abspath(__file__))
-    if not ds.KERNEL.library_path().startswith(here + os.sep):
+    if not all(k.library_path().startswith(here + os.sep) for k in KERNELS):
         raise RuntimeError(f"chip_smoke: htk_tpu_torch is not the checkout's "
                            f"own ({ds.__file__}, not under {here})")
     log(f"device: {torch.cuda.get_device_name(0)}  "
@@ -124,9 +247,11 @@ def phase_device():
     card = card_line()
     log(card)
     t0 = time.perf_counter()
-    ds.KERNEL.build()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {ds.KERNEL.build_seconds:.2f} s)")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(lambda k: k.build(), KERNELS))
+    log(f"kernel builds: {time.perf_counter() - t0:.2f} s in parallel ("
+        + ", ".join(f"{k.name} nvcc {k.build_seconds:.2f} s"
+                    for k in KERNELS) + ")")
     return card
 
 
@@ -146,24 +271,24 @@ def phase_random_nets(dev) -> float:
     return err
 
 
-def phase_main_path(sysm, root, dev):
+def phase_main_path(sysm, root, dev, mmf=None, what="HVite"):
     cfg = os.path.join(root, "hvite.cfg")
     with open(cfg, "w") as f:
         f.write(f"HREC: DECODEBATCH = {DECODEBATCH}\n")
-    mlf = os.path.join(root, "rec.mlf")
-    argv = ["-T", "1", "-C", cfg, "-w", sysm.wdnet, "-H", sysm.hmmdefs,
+    mlf = os.path.join(root, "rec.mlf" if mmf is None else "rec_trained.mlf")
+    argv = ["-T", "1", "-C", cfg, "-w", sysm.wdnet, "-H", mmf or sysm.hmmdefs,
             "-i", mlf, "-s", str(LM_SCALE), "-p", str(WORD_PEN),
             "-S", sysm.scp, sysm.dict, sysm.hmmlist]
-    ds.KERNEL.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     rc = hvite.run(argv)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     launches = ds.KERNEL.launches
     if rc != 0:
-        raise RuntimeError(f"HVite returned {rc}")
+        raise RuntimeError(f"{what} returned {rc}")
     n_buckets = -(-N_UTTS // DECODEBATCH)
-    log(f"HVite: rc 0 in {wall:.2f} s, decode kernel launches {launches} "
+    log(f"{what}: rc 0 in {wall:.2f} s, decode kernel launches {launches} "
         f"(buckets {n_buckets})")
     if launches != n_buckets:
         raise AssertionError(f"kernel launched {launches} times, expected "
@@ -227,6 +352,188 @@ def phase_real_bucket(sysm, hyps, dev):
     return err, net, comp, feats
 
 
+def phase_random_fb(dev) -> float:
+    err = 0.0
+    for Q in FB_QS:
+        where = ("shared" if fbs.smem_bytes(Q) <= fbs.SMEM_MAX
+                 else "global")
+        for seed in range(2):
+            args = [torch.as_tensor(a, device=dev) for a in
+                    random_fb_operands(seed, Q=Q, **RANDOM_FB)]
+            for beam in FB_BEAMS:
+                what = f"random FB Q={Q} seed={seed} beam={beam}"
+                k = fbs.fb_scans_cuda(*args, beam=beam)
+                p = fbs.fb_scans_plain(*args, beam=beam)
+                torch.cuda.synchronize(dev)
+                e = compare_scans(k, p, args[4], what)
+                dead = int((p[2] <= LZERO / 2).sum())
+                log(f"{what} (logA in {where} memory): agree (max |d| "
+                    f"{e:.3g}; {dead} of {len(p[2])} rows without a path)")
+                err = max(err, e)
+    return err
+
+
+def herest_batches(sysm) -> int:
+    """FB batches of one HERest pass: buckets of (T, K) pads, as
+    DeviceCompositeTrainer forms them, in batches of HEREST_BATCH."""
+    mlf = MLF.load(sysm.train_mlf)
+    counts = {}
+    for path, n in zip(sysm.feats, sysm.n_frames):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        key = (_bucket(n), _bucket(len(mlf.lookup(f"*/{stem}.lab").names()),
+                                   8))
+        counts[key] = counts.get(key, 0) + 1
+    return sum(-(-c // HEREST_BATCH) for c in counts.values())
+
+
+def phase_herest(sysm, root, card, dev):
+    """Two HERest iterations on the card; returns (fb_scans launches, the
+    last MMF, logP per frame and wall seconds of each iteration)."""
+    n_batches = herest_batches(sysm)
+    audio_s = sum(sysm.n_frames) * FRAME_S
+    mmf, lps, walls, launches = sysm.hmmdefs, [], [], 0
+    for it in (1, 2):
+        out = os.path.join(root, f"hmm{it}")
+        os.makedirs(out)
+        cfg, metrics = (os.path.join(out, "herest.cfg"),
+                        os.path.join(out, "metrics.jsonl"))
+        with open(cfg, "w") as f:
+            f.write(f"HTKTPU: METRICS = {metrics}\n")
+        argv = ["-T", "1", "-B", "-b", str(HEREST_BATCH), "-C", cfg, "-H",
+                mmf, "-M", out, "-S", sysm.train_scp, "-I", sysm.train_mlf,
+                sysm.hmmlist]
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = herest.run(argv)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        n = fbs.KERNEL.launches
+        if rc != 0:
+            raise RuntimeError(f"HERest iteration {it} returned {rc}")
+        if n != n_batches:
+            raise AssertionError(f"HERest iteration {it}: fb_scans launched "
+                                 f"{n} times, expected {n_batches}")
+        with open(metrics) as f:
+            lps.append(json.loads(f.read().splitlines()[-1])
+                       ["logp_per_frame"])
+        walls.append(wall)
+        launches += n
+        mmf = os.path.join(out, os.path.basename(sysm.hmmdefs))
+        log(f"HERest iteration {it} on {card}: rc 0 in {wall:.3f} s "
+            f"({N_UTTS / wall:.2f} utt/s, {audio_s / wall:.1f} s of audio "
+            f"per s), fb_scans launches {n} (FB batches {n_batches}), "
+            f"average log prob per frame {lps[-1]:.5f}")
+    if not lps[1] > lps[0]:
+        raise AssertionError(f"average log prob per frame did not rise: "
+                             f"{lps}")
+    return launches, mmf, lps, walls
+
+
+def phase_real_fb_batch(sysm, dev):
+    """The first FB batch of the initial model: kernel and plain on the
+    same real operands; the tool path's accumulators against the plain
+    path's."""
+    comp = compile_hmmset(load_mmf([sysm.hmmdefs]))
+    mlf = MLF.load(sysm.train_mlf)
+    utts = []
+    for path in sysm.feats:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        utts.append(prepare_utterance_ids(
+            comp, stem, read_htk_file(path).data,
+            mlf.lookup(f"*/{stem}.lab").names()))
+    trainer = DeviceCompositeTrainer(comp, device=dev)
+    params = trainer.params()
+    _batch, arrs = next(trainer.batches(utts, HEREST_BATCH))
+    outp = _fb_outp(arrs["feats"], arrs["comp_state"], arrs["q_mask"],
+                    **params, slot_blocks=tuple(comp.slot_blocks) or None)[0]
+    ops = (outp, arrs["logA"], arrs["a0"], arrs["aE"], arrs["t_real"])
+    k = fbs.fb_scans_cuda(*ops)
+    p = fbs.fb_scans_plain(*ops)
+    torch.cuda.synchronize(dev)
+    B, T, Q = outp.shape
+    err = compare_scans(k, p, ops[4], "config-4 FB batch")
+    log(f"config-4 FB batch (B={B}, T={T}, Q={Q}, {comp.n_mix} Gaussians): "
+        f"kernel and plain agree (max |d| {err:.3g}, logP "
+        f"{[round(x, 2) for x in p[2].tolist()]})")
+    _lk, acc_k = trainer._fb(params, arrs, None)
+    with plain_scans():
+        _lp, acc_p = trainer._fb(params, arrs, None)
+    torch.cuda.synchronize(dev)
+    tl, tl_r = float(acc_k.total_logp), float(acc_p.total_logp)
+    if abs(tl - tl_r) > 1e-5 * abs(tl_r):
+        raise AssertionError(f"accumulators: total logP {tl} != {tl_r}")
+    worst = {}
+    for f in ("occ", "sum_x", "sum_xx", "wt_occ", "tr"):
+        g, r = getattr(acc_k, f), getattr(acc_p, f)
+        worst[f] = float((g - r).abs().max() / r.abs().max())
+        if worst[f] > ACC_TOL:
+            raise AssertionError(f"accumulators: {f} differs by "
+                                 f"{worst[f]:.3g} of its scale")
+    log("tool-path accumulators == plain path's (max |diff| / scale: "
+        + ", ".join(f"{f} {v:.2e}" for f, v in worst.items()) + ")")
+    return err, ops, trainer, utts
+
+
+def phase_fb_timing(ops, trainer, utts, card, dev):
+    B, T, Q = ops[0].shape
+    # in turns: plain, kernel, kernel, plain (3 timed calls each)
+    p = time_call(lambda: fbs.fb_scans_plain(*ops), dev)
+    k = time_call(lambda: fbs.fb_scans_cuda(*ops), dev)
+    k += time_call(lambda: fbs.fb_scans_cuda(*ops), dev)
+    p += time_call(lambda: fbs.fb_scans_plain(*ops), dev)
+    kms, pms = statistics.median(k), statistics.median(p)
+    acc = time_call(lambda: trainer.accumulate(utts, HEREST_BATCH), dev)
+    audio_s = sum(u.feats.shape[0] for u in utts) * FRAME_S
+    log(f"timing on {card} (B={B}, T={T}, Q={Q}; median of 6 synchronised "
+        f"calls, taken in turns plain/kernel/kernel/plain):")
+    for name, ms, ts in (("kernel", kms, k), ("plain ", pms, p)):
+        log(f"  fb_scans {name} {ms:.3f} ms per FB batch; samples "
+            + " ".join(f"{x:.3f}" for x in ts))
+    am = statistics.median(acc)
+    log(f"  FB pass (DeviceCompositeTrainer.accumulate, {len(utts)} "
+        f"utterances) {am:.3f} ms: {len(utts) / am * 1e3:.2f} utt/s, "
+        f"{audio_s / am * 1e3:.1f} s of audio per s; samples "
+        + " ".join(f"{x:.3f}" for x in acc))
+    return kms, pms
+
+
+def device_profile(fn, dev):
+    """Wall ms of one synchronised fn() under torch.profiler, and the
+    device ms of each kernel it ran, largest first (empty when the
+    profiler saw no device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            times[e.key] = e.self_device_time_total / 1e3
+    return wall, sorted(times.items(), key=lambda kv: -kv[1])
+
+
+def phase_profile(sysm, ops, root, card, dev):
+    """Where the time goes: the two kernels of one fb_scans call, and the
+    device's share of one HERest iteration's wall time."""
+    fbs.fb_scans_cuda(*ops)
+    wall, ks = device_profile(lambda: fbs.fb_scans_cuda(*ops), dev)
+    log(f"profile on {card} of one fb_scans call ({wall:.3f} ms wall): "
+        + (", ".join(f"{k[:40]} {ms:.3f} ms" for k, ms in ks)
+           or "no device time seen"))
+    out = os.path.join(root, "hmm_profiled")
+    argv = ["-H", sysm.hmmdefs, "-M", out, "-S", sysm.train_scp, "-I",
+            sysm.train_mlf, sysm.hmmlist]
+    wall, ks = device_profile(lambda: herest.run(argv), dev)
+    busy = sum(ms for _k, ms in ks)
+    log(f"profile on {card} of one HERest iteration: wall {wall:.1f} ms, "
+        f"device busy "
+        f"{busy:.1f} ms ({100 * busy / wall:.1f}%); top kernels: "
+        + ", ".join(f"{k[:40]} {ms:.2f} ms" for k, ms in ks[:6]))
+
+
 def decode_args(net, comp, fb, dev):
     """decode_scan's operands for padded frames `fb`, as the tool builds
     them."""
@@ -277,9 +584,11 @@ def phase_timing(net, comp, feats, card, dev):
 
 
 def main() -> int:
+    os.environ[DEVICE_ENV] = "cuda"
     card = phase_device()
     dev = torch.device("cuda")
     err = phase_random_nets(dev)
+    fb_err = phase_random_fb(dev)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.perf_counter()
@@ -288,9 +597,19 @@ def main() -> int:
             f"{N_UTTS} utterances, frames {sysm.n_frames}")
         launches, hyps = phase_main_path(sysm, root, dev)
         e2, net, comp, feats = phase_real_bucket(sysm, hyps, dev)
+        fb_launches, mmf, _lps, _walls = phase_herest(sysm, root, card, dev)
+        fb_err2, fb_ops, trainer, utts = phase_real_fb_batch(sysm, dev)
+        phase_main_path(sysm, root, dev, mmf=mmf,
+                        what="HVite with the re-estimated MMF")
         kms, pms = phase_timing(net, comp, feats, card, dev)
+        fkms, fpms = phase_fb_timing(fb_ops, trainer, utts, card, dev)
+        phase_profile(sysm, fb_ops, root, card, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    dbound = decode_bound(TIMING_B, TIMING_T, net.n_states, net.n_nodes,
+                          net.band.shape[0])
+    fbound = fb_bound(fb_ops[0], fb_ops[1], fb_ops[4])
+    log(card)
     print(json.dumps({"kernels": [{
         "name": "decode_scan",
         "route": "cuda",
@@ -300,6 +619,21 @@ def main() -> int:
         "max_abs_err": max(err, e2),
         "ms": kms,
         "plain_ms": pms,
+        "bound_ms": dbound[0],
+        "bound_by": dbound[1],
+        "library_ms": None,
+    }, {
+        "name": "fb_scans",
+        "route": "cuda",
+        "source": "htk_tpu_torch/csrc/fb_scans.cu",
+        "replaces": "htk_tpu/ops/fb_pallas.py:127",
+        "launches": fb_launches,
+        "max_abs_err": max(fb_err, fb_err2),
+        "ms": fkms,
+        "plain_ms": fpms,
+        "bound_ms": fbound[0],
+        "bound_by": fbound[1],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
-"""Carry a compiled HMM set and a decode network across from htk_tpu.
+"""Carry a compiled HMM set, a decode network and accumulators across
+from htk_tpu.
 
 The JAX package's `CompiledHMMSet` (models/hmmset.py) and `DecodeNetwork`
 (algo/net.py) hold numpy arrays; the port's copies of those modules
 define the same dataclasses. These functions rebuild the port's objects
 from any object with the same attributes (the JAX package's, read as
 numpy arrays), and put them on a device, so that both packages compute
-on identical operands. Nothing here imports htk_tpu.
+on identical operands; `accumulators_from` turns the JAX package's
+Baum-Welch accumulators into the port's, so that the two can be compared
+field by field. Nothing here imports htk_tpu.
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ from typing import Tuple
 
 import numpy as np
 
+import torch
+
 from .algo.decode import _net_dev, scorer_for
+from .algo.fb import Accumulators
 from .algo.net import DecodeNetwork
 from .models.hmmset import CompiledHMMSet
 from .ops.outp import GaussianScorer
@@ -48,6 +54,14 @@ def decode_network_from(net) -> DecodeNetwork:
     """The port's DecodeNetwork from the JAX package's (band, a0, aE,
     trans, start_entry, end_exit, chain and node tables, ...)."""
     return _carry(DecodeNetwork, net)
+
+
+def accumulators_from(accs) -> Accumulators:
+    """The port's Accumulators (float32 CPU tensors) from any object with
+    the same fields (the JAX package's, read as numpy arrays)."""
+    return Accumulators(**{
+        f: torch.as_tensor(np.array(getattr(accs, f), np.float32))
+        for f in Accumulators._fields})
 
 
 def to_device(comp: CompiledHMMSet, net: DecodeNetwork, device,

@@ -1,0 +1,85 @@
+"""Build and load the port's hand-written CUDA kernels (csrc/*.cu).
+
+Each kernel source has a plain C entry point. It is compiled with nvcc for
+`sm_90a` into a shared library under csrc/_build/, keyed by a hash of the
+source and the flags, at first use on a machine with a card, and loaded
+with ctypes. Nothing here runs when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Callable
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+_BUILD_DIR = os.path.join(_CSRC, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SMEM_MAX = 232448  # 227 KB, the most shared memory a Hopper block can use
+
+
+def _nvcc(name: str) -> str:
+    cand = [shutil.which("nvcc")]
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        cand.append(os.path.join(home, "bin", "nvcc"))
+    cand.append("/usr/local/cuda/bin/nvcc")
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(f"{name}: nvcc not found (PATH, CUDA_HOME, "
+                       "/usr/local/cuda/bin); the CUDA kernel cannot build")
+
+
+class CudaKernel:
+    """One compiled kernel library and its launch count.
+
+    `launches` is a plain integer that the kernel's wrapper raises by one
+    at every launch and nowhere else; callers reset and read it to show
+    that a path went through the kernel. `bind(lib)` declares the C entry
+    point's argtypes and restype on the loaded library.
+    """
+
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+        self.name = name
+        self.source = os.path.join(_CSRC, f"{name}.cu")
+        self._bind = bind
+        self.launches = 0
+        self._lib = None
+        self.build_seconds = None
+
+    def library_path(self) -> str:
+        with open(self.source, "rb") as f:
+            src = f.read()
+        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+        return os.path.join(_BUILD_DIR,
+                            f"{self.name}_{key.hexdigest()[:16]}.so")
+
+    def build(self):
+        """Compile (once per source hash) and load the library."""
+        if self._lib is not None:
+            return self._lib
+        path = self.library_path()
+        if not os.path.exists(path):
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            t0 = time.perf_counter()
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [_nvcc(self.name), *NVCC_FLAGS, "-o", tmp, self.source]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError("%s: nvcc failed (%d)\n%s\n%s" % (
+                    self.name, proc.returncode, " ".join(cmd), proc.stderr))
+            os.replace(tmp, path)
+            self.build_seconds = time.perf_counter() - t0
+        else:
+            self.build_seconds = 0.0
+        lib = ctypes.CDLL(path)
+        self._bind(lib)
+        self._lib = lib
+        return lib

@@ -29,92 +29,29 @@ are -1.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from typing import Tuple
 
 import torch
 
 from ..utils.errors import HError
 from ..utils.logmath import LSMALL, LZERO
+from ._cuda import SMEM_MAX as _SMEM_MAX
+from ._cuda import CudaKernel
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "csrc")
-_SOURCE = os.path.join(_CSRC, "decode_scan.cu")
-_BUILD_DIR = os.path.join(_CSRC, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # shared memory per block: WE, entry and an (4 B each per node)
 _SMEM_PER_NODE = 12
-_SMEM_MAX = 232448  # 227 KB, the most a Hopper block can opt into
 
 Outputs = Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
                 Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
-def _nvcc() -> str:
-    cand = [shutil.which("nvcc")]
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home:
-        cand.append(os.path.join(home, "bin", "nvcc"))
-    cand.append("/usr/local/cuda/bin/nvcc")
-    for c in cand:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("decode_scan: nvcc not found (PATH, CUDA_HOME, "
-                       "/usr/local/cuda/bin); the CUDA kernel cannot build")
+def _bind(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.decode_scan_launch.argtypes = [vp] * 16 + [ci] * 5 + [vp]
+    lib.decode_scan_launch.restype = ci
 
 
-class DecodeScanKernel:
-    """The compiled kernel library and its launch count.
-
-    `launches` is a plain integer that `decode_scan_cuda` raises by one at
-    every kernel launch and nowhere else; callers reset and read it to
-    show that a path went through the kernel.
-    """
-
-    def __init__(self):
-        self.launches = 0
-        self._lib = None
-        self.build_seconds = None
-
-    def library_path(self) -> str:
-        with open(_SOURCE, "rb") as f:
-            src = f.read()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
-        return os.path.join(_BUILD_DIR,
-                            f"decode_scan_{key.hexdigest()[:16]}.so")
-
-    def build(self):
-        """Compile (once per source hash) and load the library."""
-        if self._lib is not None:
-            return self._lib
-        path = self.library_path()
-        if not os.path.exists(path):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            t0 = time.perf_counter()
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError("decode_scan: nvcc failed (%d)\n%s\n%s" % (
-                    proc.returncode, " ".join(cmd), proc.stderr))
-            os.replace(tmp, path)
-            self.build_seconds = time.perf_counter() - t0
-        else:
-            self.build_seconds = 0.0
-        lib = ctypes.CDLL(path)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.decode_scan_launch.argtypes = [vp] * 16 + [ci] * 5 + [vp]
-        lib.decode_scan_launch.restype = ci
-        self._lib = lib
-        return lib
-
-
-KERNEL = DecodeScanKernel()
+KERNEL = CudaKernel("decode_scan", _bind)
 
 
 def _check_operands(outp, band, a0, aE, node_of_state, entry_bonus, trans,

@@ -1,7 +1,7 @@
 """Synthetic recognition systems written to disk, for smoke runs and tests.
 
-Builds, from a numpy seed, everything HVite `-w` needs, in the port's own
-file writers:
+Builds, from a numpy seed, everything HVite `-w` and HERest need, in the
+port's own file writers:
 
   hmmdefs    a tied-state word-internal triphone set: a pool of `n_tied`
              shared `n_mix`-mixture diagonal-Gaussian states (~s macros,
@@ -18,10 +18,14 @@ file writers:
   *.mfc      utterances synthesised from the state means plus Gaussian
              noise, 3 frames per state, as MFCC_E_D_A feature files
   test.scp   the feature files
+  train.mlf  each utterance's word-internal triphones, as HERest's
+             phone-level transcriptions (-I)
+  train.scp  the feature files again, as HERest's training script (-S)
 
 `random_decode_net` makes the operands of one decode recursion directly
 (a random general net and its observation scores), for holding the
-decode kernel against its plain version.
+decode kernel against its plain version; `random_fb_operands` does the
+same for the forward-backward scans.
 
 At the defaults (1,000 words, 40 phones, 2,000 tied 8-mixture states,
 39 dims) this is htk_tpu's BASELINE config #4 system.
@@ -57,6 +61,8 @@ class System:
     hmmlist: str
     wdnet: str
     scp: str
+    train_mlf: str
+    train_scp: str
     feats: List[str] = field(default_factory=list)
     transcripts: List[List[str]] = field(default_factory=list)
     n_frames: List[int] = field(default_factory=list)
@@ -186,7 +192,8 @@ def write_system(root: str, n_words: int = 1000, n_phones: int = 40,
                  n_utts: int = 16, min_frames: int = 440,
                  max_frames: int = 512, fanout: int = 20, seed: int = 0,
                  binary_mmf: bool = True) -> System:
-    """Write a complete HVite -w system under `root` (made if missing)."""
+    """Write a complete HVite -w and HERest system under `root` (made if
+    missing)."""
     rng = np.random.default_rng(seed)
     os.makedirs(root, exist_ok=True)
     hset, lex = build_hmmset(rng, n_words, n_phones, n_tied, n_mix, dim)
@@ -196,7 +203,9 @@ def write_system(root: str, n_words: int = 1000, n_phones: int = 40,
                   dict=os.path.join(root, "dict"),
                   hmmlist=os.path.join(root, "hmmlist"),
                   wdnet=os.path.join(root, "wdnet.slf"),
-                  scp=os.path.join(root, "test.scp"))
+                  scp=os.path.join(root, "test.scp"),
+                  train_mlf=os.path.join(root, "train.mlf"),
+                  train_scp=os.path.join(root, "train.scp"))
     save_mmf(hset, sysm.hmmdefs, binary=binary_mmf)
     with open(sysm.dict, "w") as f:
         for w in words:
@@ -214,8 +223,16 @@ def write_system(root: str, n_words: int = 1000, n_phones: int = 40,
         sysm.feats.append(path)
         sysm.transcripts.append(seq)
         sysm.n_frames.append(int(x.shape[0]))
-    with open(sysm.scp, "w") as f:
-        f.write("".join(f"{p}\n" for p in sysm.feats))
+    for path in (sysm.scp, sysm.train_scp):
+        with open(path, "w") as f:
+            f.write("".join(f"{p}\n" for p in sysm.feats))
+    with open(sysm.train_mlf, "w") as f:
+        f.write("#!MLF!#\n")
+        for path, seq in zip(sysm.feats, sysm.transcripts):
+            stem = os.path.splitext(os.path.basename(path))[0]
+            tris = [t for w in seq for t in internal_triphones(lex[w])]
+            f.write(f'"*/{stem}.lab"\n' + "".join(f"{t}\n" for t in tris)
+                    + ".\n")
     return sysm
 
 
@@ -274,3 +291,37 @@ def random_decode_net(seed: int = 0, Ns: int = 30, Nn: int = 5, K: int = 3,
     f = lambda a: np.asarray(a, np.float32)  # noqa: E731
     return (node_of_state, f(outp), f(band), f(a0), f(aE), f(np.zeros(Ns)),
             f(trans), f(start))
+
+
+def random_fb_operands(seed: int = 0, B: int = 3, T: int = 40, Q: int = 50,
+                       t_real: Sequence[int] = (), dead: int = 4):
+    """Random forward-backward operands (numpy): outp (B, T, Q), logA
+    (B, Q, Q), a0, aE (B, Q) f32 and t_real (B,) int32.
+
+    Each composite is banded like an utterance HMM (self-loops and forward
+    links up to 6 states on, with a few random long links; LZERO
+    elsewhere), entered in its first 6 states and left from its last 6
+    live ones; its last `dead` states are padding (LZERO outp, rows and
+    columns), as in a padded batch. `t_real` defaults to T for every
+    row."""
+    rng = np.random.default_rng(seed)
+    live = Q - dead
+    i = np.arange(Q)[:, None]
+    j = np.arange(Q)[None, :]
+    band = (j - i >= 0) & (j - i <= 6)
+    logA = np.full((B, Q, Q), LZERO)
+    a0 = np.full((B, Q), LZERO)
+    aE = np.full((B, Q), LZERO)
+    for b in range(B):
+        on = (band & (rng.random((Q, Q)) < 0.7)) | (rng.random((Q, Q)) < 0.02)
+        on[live:] = False
+        on[:, live:] = False
+        logA[b] = np.where(on, np.log(rng.uniform(0.05, 1.0, (Q, Q))), LZERO)
+        a0[b, :min(6, live)] = np.log(rng.uniform(0.05, 1.0, min(6, live)))
+        aE[b, max(0, live - 6):live] = np.log(
+            rng.uniform(0.05, 1.0, live - max(0, live - 6)))
+    outp = rng.normal(size=(B, T, Q)) * 2 - 4
+    outp[:, :, live:] = LZERO
+    tr = np.asarray(list(t_real) or [T] * B, np.int32)
+    f = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return f(outp), f(logA), f(a0), f(aE), tr

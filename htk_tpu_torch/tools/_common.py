@@ -1,5 +1,9 @@
 """Shared tool plumbing: data-file opening, precision, device.
 
+The port's tools run on the CUDA card. The environment variable
+`HTK_TPU_TORCH_DEVICE=cpu` asks for the CPU instead (the tests do); with
+no card and no such request a tool stops with HError 1090.
+
 The torch counterpart of `htk_tpu/tools/_common.py` for feature-file
 sources. HTK and ESIG feature files open as in htk_tpu; a waveform or
 HAUDIO source raises HError 6373, because the frontend (htk_tpu's
@@ -10,6 +14,8 @@ data.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -34,9 +40,22 @@ def outp_precision(cfg: Config) -> str:
     return p
 
 
+DEVICE_ENV = "HTK_TPU_TORCH_DEVICE"
+
+
 def default_device() -> torch.device:
-    """`cuda` when a card is visible, else `cpu` (resolved once per tool)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The tool's device: `cuda`, or `cpu` when the caller asks for it with
+    HTK_TPU_TORCH_DEVICE=cpu. Raises HError 1090 when no card is visible
+    and the CPU was not asked for, and 1019 on another value."""
+    want = (os.environ.get(DEVICE_ENV) or "cuda").strip().lower()
+    if want == "cpu":
+        return torch.device("cpu")
+    if want != "cuda":
+        HError(1019, "%s must be cuda or cpu (got %s)", DEVICE_ENV, want)
+    if not torch.cuda.is_available():
+        HError(1090, "no CUDA card is visible; set %s=cpu to run on the "
+                     "CPU", DEVICE_ENV)
+    return torch.device("cuda")
 
 
 def _not_ported(what: str):

@@ -28,8 +28,8 @@ Config: HNET: FORCECXTEXP/ALLOWXWRDEXP/CFPHONES/SHAREINTERIORS,
 HREC: DECODEBATCH (recognition batch size, default 8), PRUNERETRYINC,
 HTKTPU: PRECISION, HTKTPU: PROFILE. Several files decode in length-sorted
 buckets of DECODEBATCH utterances, one decode launch per bucket; a single
-file takes the per-utterance path. The device is `cuda` when a card is
-visible, else `cpu`.
+file takes the per-utterance path. The device is the CUDA card, or the
+CPU when HTK_TPU_TORCH_DEVICE=cpu asks for it (tools/_common.py).
 """
 
 from __future__ import annotations

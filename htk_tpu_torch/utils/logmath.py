@@ -1,11 +1,12 @@
 """Log-domain arithmetic with HTK's clamping semantics, in torch.
 
 The PyTorch counterpart of `htk_tpu/utils/logmath.py`: the same constants
-as plain Python floats and torch twins of `ladd` and `ladd_reduce`
-(`HTKLib/HMath.c : LAdd()`):
+as plain Python floats and torch twins of `ladd`, `ladd_reduce`
+(`HTKLib/HMath.c : LAdd()`) and `exp_or_zero` (HTK's L2F):
 
   LZERO   = -1.0e10   log(0): any log-prob at or below this is "zero"
   LSMALL  = -0.5e10   results below this are flushed to LZERO
+  MINEARG = -708.3   exp arguments are clamped here before exp
   minLogExp = -log(-LZERO): increments smaller than exp(minLogExp) drop
 
 Functions take tensors of any float dtype and keep it.
@@ -50,3 +51,9 @@ def ladd_reduce(a: torch.Tensor, dim: int = -1,
     if not keepdim:
         s = s.squeeze(dim)
     return s
+
+
+def exp_or_zero(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) with x <= LSMALL mapping to 0 (HTK's L2F pattern)."""
+    return torch.where(x > LSMALL, torch.exp(torch.clamp(x, min=MINEARG)),
+                       torch.zeros_like(x))

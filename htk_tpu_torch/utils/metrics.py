@@ -1,18 +1,33 @@
-"""Profiler hook for a tool's device hot loop.
+"""Structured metrics and the profiler hook of a tool's device hot loop.
 
-The torch counterpart of `htk_tpu/utils/metrics.py : maybe_profile`:
+The torch counterpart of `htk_tpu/utils/metrics.py`:
 
+  HTKTPU: METRICS = file   append one JSON line per tool milestone
+                           (tool, wall time, the tool's key numbers)
   HTKTPU: PROFILE = dir    wrap the tool's hot loop in a torch.profiler
                            trace written as dir/<tool>/trace.json
                            (chrome://tracing / Perfetto)
 
-A config-driven no-op by default.
+Both are config-driven no-ops by default.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import time
+
+
+def emit_metric(cfg, tool: str, **record) -> None:
+    """Append one JSONL metrics record if HTKTPU:METRICS is configured."""
+    path = cfg.str_("METRICS", None, module="HTKTPU") if cfg else None
+    if not path:
+        return
+    rec = {"tool": tool, "ts": round(time.time(), 3)}
+    rec.update(record)
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
 
 
 @contextlib.contextmanager

@@ -22,6 +22,12 @@ from htk_tpu_torch.synth import random_decode_net
 from htk_tpu_torch.utils.logmath import LZERO
 
 
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    """The port's tools run on the card unless the CPU is asked for."""
+    monkeypatch.setenv("HTK_TPU_TORCH_DEVICE", "cpu")
+
+
 def run_plain(node_of_state, outp, band, a0, aE, bonus, trans, start, wpen,
               device="cpu"):
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731

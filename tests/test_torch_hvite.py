@@ -22,6 +22,12 @@ from htk_tpu_torch.tools import hvite as torch_hvite
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    """The port's tools run on the card unless the CPU is asked for."""
+    monkeypatch.setenv("HTK_TPU_TORCH_DEVICE", "cpu")
+
+
 @pytest.fixture(scope="module")
 def system(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("hvite_sys"))
@@ -160,14 +166,22 @@ def test_uniform_network_raises_numbered_error():
 
 
 def test_port_imports_no_jax_and_no_htk_tpu():
-    """The pytest process has jax loaded (conftest), so look in a fresh
-    interpreter."""
-    code = ("import sys, htk_tpu_torch.tools.hvite, htk_tpu_torch.convert, "
-            "htk_tpu_torch.synth\n"
+    """Every module of the port, and chip_smoke.py, imported in a fresh
+    interpreter (the pytest process has jax loaded, by conftest), pulls in
+    neither jax nor htk_tpu."""
+    code = ("import importlib, pkgutil, sys, htk_tpu_torch, chip_smoke\n"
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "htk_tpu_torch.__path__, 'htk_tpu_torch.')]\n"
+            "for m in mods:\n"
+            "    importlib.import_module(m)\n"
+            "need = {'htk_tpu_torch.tools.herest', "
+            "'htk_tpu_torch.ops.fb_scans', 'htk_tpu_torch.algo.trainer', "
+            "'htk_tpu_torch.parallel.acc_files'}\n"
+            "assert need <= set(mods), need - set(mods)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'htk_tpu' or "
             "m.startswith('htk_tpu.')]\n"
-            "print(bad)\nsys.exit(1 if bad else 0)\n")
+            "print(len(mods), bad)\nsys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

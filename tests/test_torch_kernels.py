@@ -1,21 +1,34 @@
-"""The port's decode kernel wrapper (htk_tpu_torch/ops/decode_scan.py).
+"""The port's kernel wrappers (htk_tpu_torch/ops/decode_scan.py and
+ops/fb_scans.py).
 
 No JAX here, so the `cuda`-marked tests also run on a machine with a card
-and no JAX (`--noconftest`; see README). On the CPU: the dispatcher takes
-the plain version for CPU tensors and counts no launch, and the wrapper
-refuses what the kernel cannot take. On the card: the kernel equals the
-plain version (live scores within 1e-5, word-link records exactly), on
-random nets and with tie-heavy integer scores, and HVite on the card
-writes the same rec.mlf as on the CPU.
+and no JAX (`--noconftest`; see README). On the CPU: the dispatchers take
+the plain versions for CPU tensors and count no launch, and the wrappers
+refuse what the kernels cannot take. On the card: the decode kernel equals
+its plain version (live scores within 1e-5, word-link records exactly),
+on random nets and with tie-heavy integer scores, and HVite on the card
+writes the same rec.mlf as on the CPU; the FB scans kernel agrees with its
+plain version (logP within 1e-5 relative; alphas and betas at t < t_real
+with the same live sets and within 1e-5 |ref| + 1e-4; xi of live
+utterances within rtol 1e-4, atol 1e-6), with and without a beam, with
+logA in shared memory and (Q above 239) in global memory, and HERest on
+the card trains the same model as on the CPU.
 """
 
 import pytest
 import torch
 
 from htk_tpu_torch.ops import decode_scan as ds
-from htk_tpu_torch.synth import random_decode_net
+from htk_tpu_torch.ops import fb_scans as fbs
+from htk_tpu_torch.synth import random_decode_net, random_fb_operands
 from htk_tpu_torch.utils.errors import HTKError
 from htk_tpu_torch.utils.logmath import LZERO
+
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    """The port's tools run on the card unless the CPU is asked for."""
+    monkeypatch.setenv("HTK_TPU_TORCH_DEVICE", "cpu")
 
 
 def operands(net, device="cpu", wpen=-1.0):
@@ -125,3 +138,107 @@ def test_hvite_on_card_equals_cpu(tmp_path, monkeypatch, single):
         with open(mlf, "rb") as f:
             out[dev] = f.read()
     assert out["cuda"] == out["cpu"]
+
+
+def fb_operands(seed=0, device="cpu", **kw):
+    return [torch.as_tensor(a, device=device)
+            for a in random_fb_operands(seed, **kw)]
+
+
+def assert_scans_agree(got, ref, t_real):
+    """Kernel against plain at the tolerances in the module docstring."""
+    al, be, lp, xi = got
+    al_r, be_r, lp_r, xi_r = ref
+    assert torch.allclose(lp, lp_r, rtol=1e-5, atol=0)
+    for b, tr in enumerate(t_real.tolist()):
+        for g, r in ((al[b, :tr], al_r[b, :tr]), (be[b, :tr], be_r[b, :tr])):
+            live = r > LZERO / 2
+            assert torch.equal(live, g > LZERO / 2)
+            d = (g[live] - r[live]).abs()
+            assert bool((d <= 1e-5 * r[live].abs() + 1e-4).all())
+        if float(lp_r[b]) > LZERO / 2:  # a failed utterance's xi is unused
+            assert torch.allclose(xi[b], xi_r[b], rtol=1e-4, atol=1e-6)
+
+
+def test_fb_dispatch_cpu_takes_plain_and_counts_no_launch():
+    args = fb_operands(0, B=2, T=12, Q=20, t_real=[12, 7])
+    before = fbs.KERNEL.launches
+    out = fbs.fb_scans(*args, beam=5.0)
+    assert fbs.KERNEL.launches == before
+    for g, r in zip(out, fbs.fb_scans_plain(*args, beam=5.0)):
+        assert torch.equal(g, r)
+
+
+def test_fb_operand_checks_raise():
+    args = fb_operands(0, B=2, T=12, Q=20)
+    bad = list(args)
+    bad[1] = args[1][:, :5]  # logA not (B, Q, Q)
+    with pytest.raises(ValueError):
+        fbs.fb_scans(*bad)
+    bad = list(args)
+    bad[4] = args[4].long()
+    with pytest.raises(TypeError):
+        fbs.fb_scans(*bad)
+    bad = list(args)
+    bad[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        fbs.fb_scans(*bad)
+    with pytest.raises(ValueError):
+        fbs.fb_scans(*[a.to("meta") for a in args])
+    with pytest.raises(ValueError):
+        fbs.fb_scans_cuda(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [50, 250])
+@pytest.mark.parametrize("beam", [None, 10.0, 5.0, 2.0])
+def test_fb_kernel_matches_plain_on_card(Q, beam):
+    """Q = 250 reads logA from global memory; beam 5 kills some rows and
+    beam 2 all of them on these operands."""
+    need_card()
+    for seed in range(2):
+        args = fb_operands(seed, "cuda", B=4, T=40, Q=Q,
+                           t_real=[40, 33, 20, 0])
+        before = fbs.KERNEL.launches
+        got = fbs.fb_scans(*args, beam=beam)
+        assert fbs.KERNEL.launches == before + 1
+        ref = fbs.fb_scans_plain(*args, beam=beam)
+        torch.cuda.synchronize()
+        assert_scans_agree(got, ref, args[4])
+
+
+@pytest.mark.cuda
+def test_herest_on_card_equals_cpu(tmp_path, monkeypatch):
+    """One iteration on each device; the kernel launches once per FB
+    batch; parameters agree as the CPU tests hold the port to htk_tpu
+    (tests/test_torch_herest.py)."""
+    need_card()
+    import numpy as np
+
+    from htk_tpu_torch.io.mmf import load_mmf
+    from htk_tpu_torch.models.hmmset import compile_hmmset
+    from htk_tpu_torch.synth import write_system
+    from htk_tpu_torch.tools import herest
+
+    s = write_system(str(tmp_path), n_words=12, n_phones=8, n_tied=30,
+                     n_mix=2, n_utts=5, min_frames=60, max_frames=150,
+                     fanout=4, seed=3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        monkeypatch.setenv("HTK_TPU_TORCH_DEVICE", dev)
+        d = str(tmp_path / dev)
+        before = fbs.KERNEL.launches
+        assert herest.run(["-H", s.hmmdefs, "-M", d, "-b", "2", "-S",
+                           s.train_scp, "-I", s.train_mlf,
+                           s.hmmlist]) == 0
+        launches = fbs.KERNEL.launches - before
+        assert (launches > 0) == (dev == "cuda")
+        out[dev] = compile_hmmset(load_mmf([d + "/hmmdefs"]))
+    assert launches == 0
+    for k in ("means", "variances"):
+        ref = getattr(out["cpu"], k)
+        np.testing.assert_allclose(getattr(out["cuda"], k), ref, rtol=1e-4,
+                                   atol=1e-3 * float(np.abs(ref).max()))
+    np.testing.assert_allclose(np.exp(out["cuda"].log_transp),
+                               np.exp(out["cpu"].log_transp), rtol=1e-4,
+                               atol=1e-7)

@@ -20,6 +20,12 @@ from htk_tpu.ops import outp as jax_outp
 from htk_tpu_torch.ops import outp as torch_outp
 from htk_tpu_torch.utils.logmath import LZERO
 
+
+@pytest.fixture(autouse=True)
+def _cpu(monkeypatch):
+    """The port's tools run on the card unless the CPU is asked for."""
+    monkeypatch.setenv("HTK_TPU_TORCH_DEVICE", "cpu")
+
 ATOL = 1e-3
 
 
