@@ -1,17 +1,19 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: HVite -w recognition
-and HERest Baum-Welch training.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: HVite -w recognition,
+HERest Baum-Welch training and the uniform-row LV decoder.
 
-Drives htk_tpu_torch's main paths, `htk_tpu_torch.tools.hvite.run` and
-`htk_tpu_torch.tools.herest.run`, on a synthetic system at htk_tpu's
-BASELINE config #4 widths (1,000-word back-off bigram word network, 40
-phones, word-internal triphones over 2,000 tied 8-mixture states, 39-dim
-MFCC_E_D_A; random weights from a numpy seed; 16 utterances of about 500
-frames, with their phone-level transcriptions). Phases, each raising on
-failure:
+Drives htk_tpu_torch's main paths, `htk_tpu_torch.tools.hvite.run`,
+`htk_tpu_torch.tools.herest.run` and `algo.decode.decode_batch` on a
+`compile_lv_loop` network, on a synthetic system at htk_tpu's BASELINE
+config #4 widths (1,000-word back-off bigram, as a word network and as
+ARPA tables; 40 phones, word-internal triphones over 2,000 tied 8-mixture
+states, 39-dim MFCC_E_D_A; random weights from a numpy seed; 16
+utterances of about 500 frames, with their phone-level transcriptions).
+Phases, each raising on failure:
 
   1. device: a CUDA card is required; its name and power limit are
-     printed; both kernels (htk_tpu_torch/csrc/decode_scan.cu and
-     fb_scans.cu) are built from source with nvcc, in parallel
+     printed; the three kernels (htk_tpu_torch/csrc/decode_scan.cu,
+     fb_scans.cu and maxplus.cu) are built from source with nvcc, in
+     parallel
   2. the decode kernel against its plain torch version on random nets
      (several seeds, B > 1, a tie-heavy integer-score case)
   3. the FB scans kernel against its plain version on random composites
@@ -34,10 +36,31 @@ failure:
      iterations in utterances and audio seconds per second; under
      torch.profiler, the device time of the FB kernel's two parts and the
      device's busy share of a HERest iteration
-  8. one JSON line of kernels, then the device line last
+  8. the maxplus kernel (both floor contracts) and the tropical wrappers
+     against the plain version on random operands (two seeds, B in
+     {1, 8, 17}, C in {1, 200, 1000, 2050}; normal, tie-heavy integer
+     scores and all-dead rows): values and arguments exactly equal
+  9. the LV decoder: `compile_lv_loop` over the system's dict and
+     lm.arpa (1,000 rows, S=16); `decode_batch` of the 16 utterances in
+     2 batches of 8 at the HVite settings: one maxplus launch per padded
+     frame per batch, a transcript for every utterance, equal to HVite
+     -w's; for one batch the kernel leg and the plain leg on the same
+     real outp (planes as for decode, and the same 1-best); the dense
+     top-A leg (max_active=128) once, for information; then the tropical
+     path: that batch's cross-word products replayed through the
+     tropical wrappers (operand padded once, one call per frame), each
+     equal to the plain version
+ 10. times, in turns plain/kernel/kernel/plain: maxplus and tropical per
+     launch (CUDA events over 100 launches) at B=8, C=1,000 on a real
+     frame, one LV batch (B=8, T=512) with each leg, and `decode_batch`
+     of the 16 utterances as xRT; under torch.profiler, one LV batch's
+     device busy share, the maxplus kernel's share and the top device
+     operations
+ 11. one JSON line of kernels, then the device line last
 
 Each main path runs with every launch count set to 0 just before it and
-read just after. Tolerances, kernel against plain: decode live scores
+read just after. Tolerances, kernel against plain: maxplus and tropical
+exactly equal; decode and the LV planes: live scores
 within 1e-5 and every word-link record exactly equal; FB logP within 1e-5
 relative, alphas and betas at t < t_real with the same live sets (above
 LZERO/2) and within 1e-5 |ref| + 1e-4, xi of live utterances within rtol
@@ -50,7 +73,9 @@ once, outputs written once) over 3.35 TB/s and its operations over the
 67 TFLOP/s of FP32 outside the tensor cores (H100 SXM data sheet; exp
 and log counted as one operation each); for the FB scans only the live
 (above LZERO/2) cells of logA count, since the others add exactly
-nothing. No single PyTorch call computes either kernel's function, so
+nothing; for maxplus and tropical, trans and WE in, values and arguments
+out, an add and a compare per (b, i, j). No single PyTorch call computes
+any of these kernels' functions (max-plus with argmax has none), so
 `library_ms` is null.
 
 Usage: python3 chip_smoke.py        (exit 0 only if every phase passed)
@@ -72,22 +97,28 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from htk_tpu_torch.algo import decode as dec
 from htk_tpu_torch.algo.decode import (_final_records, _finalize,
                                        _net_outp, decode_operands)
 from htk_tpu_torch.algo.fb import _fb_outp
+from htk_tpu_torch.algo.lvnet import compile_lv_loop
 from htk_tpu_torch.algo.net import compile_network, word_internal_phone_map
 from htk_tpu_torch.algo.trainer import (DeviceCompositeTrainer, _bucket,
                                         prepare_utterance_ids)
 from htk_tpu_torch.io.dictionary import read_dict
 from htk_tpu_torch.io.htkfeat import read_htk_file
+from htk_tpu_torch.io.lm import read_arpa
 from htk_tpu_torch.io.mlf import MLF
 from htk_tpu_torch.io.mmf import load_mmf
 from htk_tpu_torch.io.slf import read_slf
 from htk_tpu_torch.models.hmmset import compile_hmmset
 from htk_tpu_torch.ops import decode_scan as ds
 from htk_tpu_torch.ops import fb_scans as fbs
+from htk_tpu_torch.ops import maxplus as mp
+from htk_tpu_torch.ops import tropical as trop
 from htk_tpu_torch.synth import (random_decode_net, random_fb_operands,
-                                 word_accuracy, write_system)
+                                 random_maxplus_operands, word_accuracy,
+                                 write_system)
 from htk_tpu_torch.tools import herest, hvite
 from htk_tpu_torch.tools._common import DEVICE_ENV
 from htk_tpu_torch.utils.logmath import LZERO
@@ -101,7 +132,14 @@ RANDOM_NET = dict(Ns=3000, Nn=200, K=3, B=4, T=48)
 TIMING_B, TIMING_T = 8, 512
 LM_SCALE, WORD_PEN = 8.0, -10.0
 FRAME_S = 0.01
-KERNELS = (ds.KERNEL, fbs.KERNEL)
+KERNELS = (ds.KERNEL, fbs.KERNEL, mp.KERNEL)
+COUNTS = KERNELS + (trop.LAUNCHES,)  # tropical launches the maxplus kernel
+MAXPLUS_BS, MAXPLUS_CS = (1, 8, 17), (1, 200, 1000, 2050)
+MAXPLUS_MODES = {"normal": {}, "ties": {"ties": True},
+                 "dead row": {"dead_rows": 1}}
+TOPA = 128  # the dense top-A leg's max_active (htk_tpu's bench.py 5k row)
+LAUNCH_LOOP = 100  # back-to-back launches per timed sample of one kernel
+PAD_T = 128  # decode_batch pads T to a multiple of this
 HEREST_BATCH = 8
 RANDOM_FB = dict(B=4, T=40, t_real=[40, 33, 20, 0])
 FB_QS = (50, 250)  # Q = 250: logA in global memory
@@ -155,7 +193,7 @@ def random_net(seed, dev, ties, **sizes):
 
 
 def reset_counts() -> None:
-    for k in KERNELS:
+    for k in COUNTS:
         k.launches = 0
 
 
@@ -223,6 +261,12 @@ def fb_bound(outp, logA, t_real):
     return bound("fb_scans", nbytes, ops)
 
 
+def maxplus_bound(name, B, C):
+    """maxplus / tropical: WE and trans in, values and arguments out; an
+    add and a compare per (b, i, j)."""
+    return bound(name, 4 * (C * C + 3 * B * C), 2 * B * C * C)
+
+
 @contextlib.contextmanager
 def plain_scans():
     """algo/fb runs its scans through the plain version inside."""
@@ -232,6 +276,17 @@ def plain_scans():
         yield
     finally:
         fbs.fb_scans = saved
+
+
+@contextlib.contextmanager
+def plain_maxplus():
+    """The LV decoder's dense leg runs the plain version inside."""
+    saved = mp.maxplus
+    mp.maxplus = mp.maxplus_plain
+    try:
+        yield
+    finally:
+        mp.maxplus = saved
 
 
 def phase_device():
@@ -498,9 +553,9 @@ def phase_fb_timing(ops, trainer, utts, card, dev):
 
 
 def device_profile(fn, dev):
-    """Wall ms of one synchronised fn() under torch.profiler, and the
-    device ms of each kernel it ran, largest first (empty when the
-    profiler saw no device time)."""
+    """Wall ms of one synchronised fn() under torch.profiler, the device
+    ms of each kernel it ran, largest first (empty when the profiler saw
+    no device time), and the number of device operations it ran."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -508,25 +563,26 @@ def device_profile(fn, dev):
         fn()
         torch.cuda.synchronize(dev)
         wall = (time.perf_counter() - t0) * 1e3
-    times = {}
+    times, n = {}, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             times[e.key] = e.self_device_time_total / 1e3
-    return wall, sorted(times.items(), key=lambda kv: -kv[1])
+            n += e.count
+    return wall, sorted(times.items(), key=lambda kv: -kv[1]), n
 
 
 def phase_profile(sysm, ops, root, card, dev):
     """Where the time goes: the two kernels of one fb_scans call, and the
     device's share of one HERest iteration's wall time."""
     fbs.fb_scans_cuda(*ops)
-    wall, ks = device_profile(lambda: fbs.fb_scans_cuda(*ops), dev)
+    wall, ks, _n = device_profile(lambda: fbs.fb_scans_cuda(*ops), dev)
     log(f"profile on {card} of one fb_scans call ({wall:.3f} ms wall): "
         + (", ".join(f"{k[:40]} {ms:.3f} ms" for k, ms in ks)
            or "no device time seen"))
     out = os.path.join(root, "hmm_profiled")
     argv = ["-H", sysm.hmmdefs, "-M", out, "-S", sysm.train_scp, "-I",
             sysm.train_mlf, sysm.hmmlist]
-    wall, ks = device_profile(lambda: herest.run(argv), dev)
+    wall, ks, _n = device_profile(lambda: herest.run(argv), dev)
     busy = sum(ms for _k, ms in ks)
     log(f"profile on {card} of one HERest iteration: wall {wall:.1f} ms, "
         f"device busy "
@@ -583,12 +639,273 @@ def phase_timing(net, comp, feats, card, dev):
     return kms, pms
 
 
+def check_equal(got, ref, what: str) -> float:
+    """maxplus outputs (values, arguments) exactly equal; returns the max
+    |diff| of the values (0.0)."""
+    for g, r, name in ((got[0], ref[0], "values"), (got[1], ref[1], "args")):
+        if not torch.equal(g, r):
+            n = int((g != r).sum())
+            raise AssertionError(f"{what}: {name} differ at {n} places")
+    return float((got[0] - ref[0]).abs().max()) if got[0].numel() else 0.0
+
+
+def padded(WE, Cp):
+    """WE (B, C) in a (B rounded up to 8, Cp) LZERO block, as the
+    tropical wrappers' padded operands are laid out."""
+    B, C = WE.shape
+    out = torch.full((-(-B // 8) * 8, Cp), LZERO, device=WE.device)
+    out[:B, :C] = WE
+    return out
+
+
+def phase_random_maxplus(dev) -> float:
+    err, n = 0.0, 0
+    for mode, kw in MAXPLUS_MODES.items():
+        for seed in range(2):
+            for B in MAXPLUS_BS:
+                for C in MAXPLUS_CS:
+                    WE, tr = [torch.as_tensor(a, device=dev) for a in
+                              random_maxplus_operands(seed, B=B, C=C, **kw)]
+                    what = f"maxplus {mode} seed={seed} B={B} C={C}"
+                    for floor in (False, True):
+                        err = max(err, check_equal(
+                            mp.maxplus_cuda(WE, tr, floor),
+                            mp.maxplus_plain(WE, tr, floor),
+                            f"{what} floor={floor}"))
+                    tT = trop.pad_tropical_operand(tr)
+                    out = trop.tropical_matvec_argmax_padded(
+                        padded(WE, tT.shape[0]), tT)
+                    err = max(err, check_equal(
+                        [x[:B, :C] for x in out],
+                        mp.maxplus_plain(WE, tr, True), f"tropical {what}"))
+                    err = max(err, check_equal(
+                        trop.tropical_matvec_argmax(WE, tr, use_pallas=False),
+                        mp.maxplus_plain(WE, tr, False),
+                        f"tropical {what} unfloored"))
+                    n += 1
+    torch.cuda.synchronize(dev)
+    log(f"maxplus (floor off and on) and tropical (padded, and unfloored) "
+        f"== plain exactly on {n} random operand sets")
+    return err
+
+
+def lv_network(sysm, comp):
+    vocab = read_dict(sysm.dict)
+    t0 = time.perf_counter()
+    net = compile_lv_loop(list(vocab.words), vocab, comp,
+                          lm=read_arpa(sysm.lm),
+                          phone_map=word_internal_phone_map(comp.names))
+    log(f"LV network (compile_lv_loop over dict and lm.arpa, "
+        f"{time.perf_counter() - t0:.2f} s): C={net.n_nodes} rows, "
+        f"S={net.uniform_width}, Ns={net.n_states}, K={net.band.shape[0]}, "
+        f"dense trans {tuple(net.trans.shape)}")
+    return net
+
+
+def lv_batches(n):
+    return [list(range(i, min(i + DECODEBATCH, n)))
+            for i in range(0, n, DECODEBATCH)]
+
+
+def pad_T(lens) -> int:
+    return -(-max(lens) // PAD_T) * PAD_T
+
+
+def lv_decode_all(net, comp, feats, dev, max_active=None):
+    out = []
+    for idx in lv_batches(len(feats)):
+        out += dec.decode_batch(net, comp, [feats[i] for i in idx], LM_SCALE,
+                                WORD_PEN, max_active=max_active, device=dev)
+    return out
+
+
+def phase_lv_main(sysm, hyps, net, comp, feats, dev):
+    """The LV decoder's main path: decode_batch of every utterance."""
+    want = sum(pad_T([feats[i].shape[0] for i in idx])
+               for idx in lv_batches(len(feats)))
+    reset_counts()
+    t0 = time.perf_counter()
+    res = lv_decode_all(net, comp, feats, dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = mp.KERNEL.launches
+    log(f"LV decode_batch: {len(feats)} utterances in {wall:.3f} s, maxplus "
+        f"launches {launches} (padded frames over the batches: {want})")
+    if launches != want:
+        raise AssertionError(f"maxplus launched {launches} times, expected "
+                             f"{want}")
+    for path, r in zip(sysm.feats, res):
+        if r is None or not r.words:
+            raise AssertionError(f"LV: no transcript for {path}")
+        if r.words != hyps[path].names():
+            raise AssertionError(f"LV {path}: {r.words} != HVite -w "
+                                 f"{hyps[path].names()}")
+    acc = word_accuracy(sysm.transcripts, [r.words for r in res])
+    log(f"LV transcripts == HVite -w's for all {len(res)} utterances; word "
+        f"accuracy {acc:.2f}% (informational)")
+    return launches
+
+
+def lv_batch_args(net, comp, feats, dev):
+    """The first batch's frames and its decode_scan_uniform_batch
+    operands on real outp, as the decoder builds them."""
+    idx = lv_batches(len(feats))[0]
+    lens = [feats[i].shape[0] for i in idx]
+    fb = np.zeros((len(idx), pad_T(lens), feats[0].shape[1]), np.float32)
+    for b, i in enumerate(idx):
+        fb[b, :lens[b]] = feats[i]
+    d = dec._net_dev(net, dev)
+    outp = _net_outp(net, comp, fb, "highest", dev)
+    args = (outp, d["band"], d["a0"], d["aE"], net.uniform_width,
+            d["bonus"], d["trans"] * LM_SCALE, d["start"] * LM_SCALE,
+            WORD_PEN)
+    return [feats[i] for i in idx], lens, args
+
+
+def phase_lv_real_batch(net, comp, batch, lens, args, dev):
+    """Kernel leg and plain leg on the same real outp: planes and 1-best;
+    then the dense top-A leg once."""
+    k = dec.decode_scan_uniform_batch(*args)
+    with plain_maxplus():
+        p = dec.decode_scan_uniform_batch(*args)
+    torch.cuda.synchronize(dev)
+    B, T, Ns = args[0].shape
+    err = compare(k, p, "LV batch")
+    d = dec._net_dev(net, dev)
+    best = [dec._traceback_device(*out[0], *out[1], d["aE"],
+                                  d["end_exit"] * LM_SCALE, lens,
+                                  net.uniform_width) for out in (k, p)]
+    if not (torch.equal(best[0][0], best[1][0])
+            and torch.equal(best[0][1], best[1][1])):
+        raise AssertionError("LV batch: kernel and plain 1-best differ")
+    log(f"LV batch (B={B}, T={T}, Ns={Ns}): kernel leg == plain leg (max "
+        f"|dv| {err:.3g}; records and 1-best equal)")
+    t0 = time.perf_counter()
+    ra = dec.decode_batch(net, comp, batch, LM_SCALE, WORD_PEN,
+                          max_active=TOPA, device=dev)
+    torch.cuda.synchronize(dev)
+    log(f"LV dense top-A leg (max_active={TOPA}), first batch: "
+        f"{time.perf_counter() - t0:.3f} s; words "
+        f"{sum(len(r.words) for r in ra if r)} (informational)")
+    return err, p[1][0]
+
+
+def phase_tropical_path(net, WEs, dev):
+    """The tropical wrappers' path: the batch's cross-word products (word
+    ends WEs (B, T, C) from the plain leg) replayed frame by frame through
+    pad_tropical_operand (once) and tropical_matvec_argmax_padded."""
+    trans = dec._net_dev(net, dev)["trans"] * LM_SCALE
+    B, T, C = WEs.shape
+    reset_counts()
+    tT = trop.pad_tropical_operand(trans)
+    WEp = [padded(WEs[:, t], tT.shape[0]) for t in range(T)]
+    outs = [trop.tropical_matvec_argmax_padded(w, tT) for w in WEp]
+    torch.cuda.synchronize(dev)
+    launches = trop.LAUNCHES.launches
+    if launches != T:
+        raise AssertionError(f"tropical launched {launches} times, expected "
+                             f"{T}")
+    err = 0.0
+    for t, (v, a) in enumerate(outs):
+        err = max(err, check_equal(
+            (v[:B, :C], a[:B, :C]),
+            mp.maxplus_plain(WEs[:, t].contiguous(), trans, True),
+            f"tropical path frame {t}"))
+    log(f"tropical path: {launches} launches (one per frame), each == plain")
+    return launches, err, (WEp[T // 2], tT)
+
+
+def time_launches(fn, dev, n=LAUNCH_LOOP, reps=3):
+    """Device ms per call of fn(): CUDA events around n back-to-back
+    calls, after one warm-up call; `reps` samples."""
+    fn()
+    torch.cuda.synchronize(dev)
+    ts = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        e1.synchronize()
+        ts.append(e0.elapsed_time(e1) / n)
+    return ts
+
+
+def in_turns(timer, plain, kernel, dev):
+    """Medians of 6 (plain, kernel, kernel, plain; 3 samples each)."""
+    p = timer(plain, dev)
+    k = timer(kernel, dev)
+    k += timer(kernel, dev)
+    p += timer(plain, dev)
+    return statistics.median(k), statistics.median(p), k, p
+
+
+def phase_lv_timing(net, comp, feats, batch, args, WEs, trop_ops, card,
+                    dev):
+    B, T = args[0].shape[:2]
+    WE = WEs[:, T // 2].contiguous()
+    trans = args[6]
+    C = WE.shape[1]
+    mk, mpl, ks, ps = in_turns(
+        time_launches, lambda: mp.maxplus_plain(WE, trans, False),
+        lambda: mp.maxplus_cuda(WE, trans, False), dev)
+    WEp, tT = trop_ops
+    tp = tT.t().contiguous()
+    tk, tpl, tks, tps = in_turns(
+        time_launches, lambda: mp.maxplus_plain(WEp, tp, True),
+        lambda: trop.tropical_matvec_argmax_padded(WEp, tT), dev)
+    log(f"timing on {card} (per launch, CUDA events over {LAUNCH_LOOP} "
+        f"launches; median of 6, in turns plain/kernel/kernel/plain):")
+    log(f"  maxplus B={B} C={C} (a real frame): kernel {mk:.6f} ms, plain "
+        f"{mpl:.6f} ms; samples " + " ".join(f"{x:.6f}" for x in ks)
+        + " | " + " ".join(f"{x:.6f}" for x in ps))
+    log(f"  tropical padded {tuple(WEp.shape)} x {tuple(tT.shape)}: kernel "
+        f"{tk:.6f} ms, plain {tpl:.6f} ms; samples "
+        + " ".join(f"{x:.6f}" for x in tks) + " | "
+        + " ".join(f"{x:.6f}" for x in tps))
+
+    def one_batch():
+        dec.decode_batch(net, comp, batch, LM_SCALE, WORD_PEN, device=dev)
+
+    def one_batch_plain():
+        with plain_maxplus():
+            one_batch()
+
+    bk, bp, bks, bps = in_turns(time_call, one_batch_plain, one_batch, dev)
+    log(f"  LV batch (decode_batch, B={B}, T={T}): kernel leg {bk:.3f} ms "
+        f"({bk / T * 1e3:.1f} us per frame), plain leg {bp:.3f} ms; samples "
+        + " ".join(f"{x:.3f}" for x in bks) + " | "
+        + " ".join(f"{x:.3f}" for x in bps))
+    walls = time_call(lambda: lv_decode_all(net, comp, feats, dev), dev,
+                      reps=6)
+    w = statistics.median(walls)
+    audio = sum(f.shape[0] for f in feats) * FRAME_S
+    log(f"  LV decode_batch of {len(feats)} utterances ({audio:.2f} s of "
+        f"audio): {w:.3f} ms, xRT {w / 1e3 / audio:.6f} (OutP + scan + "
+        f"traceback; median of 6: " + " ".join(f"{x:.3f}" for x in walls)
+        + ")")
+    wall, ops, n_ops = device_profile(one_batch, dev)
+    busy = sum(ms for _k, ms in ops)
+    mx = sum(ms for k, ms in ops if "maxplus" in k)
+    log(f"profile on {card} of one LV batch: wall {wall:.1f} ms (the "
+        f"profiler slows the host; unprofiled {bk:.1f} ms), device busy "
+        f"{busy:.1f} ms ({100 * busy / wall:.1f}% of the profiled wall, "
+        f"{100 * busy / bk:.1f}% of the unprofiled), {n_ops} device "
+        f"operations ({n_ops / T:.1f} per frame), maxplus kernel "
+        f"{mx:.2f} ms ({100 * mx / max(busy, 1e-9):.1f}% of busy); top: "
+        + ", ".join(f"{k[:48]} {ms:.2f} ms" for k, ms in ops[:8]))
+    return mk, mpl, tk, tpl
+
+
 def main() -> int:
     os.environ[DEVICE_ENV] = "cuda"
     card = phase_device()
     dev = torch.device("cuda")
     err = phase_random_nets(dev)
     fb_err = phase_random_fb(dev)
+    mp_err = phase_random_maxplus(dev)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.perf_counter()
@@ -604,11 +921,21 @@ def main() -> int:
         kms, pms = phase_timing(net, comp, feats, card, dev)
         fkms, fpms = phase_fb_timing(fb_ops, trainer, utts, card, dev)
         phase_profile(sysm, fb_ops, root, card, dev)
+        lvnet = lv_network(sysm, comp)
+        mp_launches = phase_lv_main(sysm, hyps, lvnet, comp, feats, dev)
+        batch, lens, lv_args = lv_batch_args(lvnet, comp, feats, dev)
+        mp_err2, WEs = phase_lv_real_batch(lvnet, comp, batch, lens, lv_args,
+                                           dev)
+        tr_launches, tr_err, tr_ops = phase_tropical_path(lvnet, WEs, dev)
+        mkms, mpms, tkms, tpms = phase_lv_timing(
+            lvnet, comp, feats, batch, lv_args, WEs, tr_ops, card, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     dbound = decode_bound(TIMING_B, TIMING_T, net.n_states, net.n_nodes,
                           net.band.shape[0])
     fbound = fb_bound(fb_ops[0], fb_ops[1], fb_ops[4])
+    mbound = maxplus_bound("maxplus", *WEs[:, 0].shape)
+    tbound = maxplus_bound("tropical", *tr_ops[0].shape)
     log(card)
     print(json.dumps({"kernels": [{
         "name": "decode_scan",
@@ -633,6 +960,30 @@ def main() -> int:
         "plain_ms": fpms,
         "bound_ms": fbound[0],
         "bound_by": fbound[1],
+        "library_ms": None,
+    }, {
+        "name": "maxplus",
+        "route": "cuda",
+        "source": "htk_tpu_torch/csrc/maxplus.cu",
+        "replaces": "htk_tpu/ops/maxplus_pallas.py:67",
+        "launches": mp_launches,
+        "max_abs_err": max(mp_err, mp_err2),
+        "ms": mkms,
+        "plain_ms": mpms,
+        "bound_ms": mbound[0],
+        "bound_by": mbound[1],
+        "library_ms": None,
+    }, {
+        "name": "tropical",
+        "route": "cuda",
+        "source": "htk_tpu_torch/csrc/maxplus.cu",
+        "replaces": "htk_tpu/ops/tropical_pallas.py:46",
+        "launches": tr_launches,
+        "max_abs_err": max(mp_err, tr_err),
+        "ms": tkms,
+        "plain_ms": tpms,
+        "bound_ms": tbound[0],
+        "bound_by": tbound[1],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

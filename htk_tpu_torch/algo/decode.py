@@ -1,24 +1,42 @@
 """Word-network Viterbi decoding (the HRec token-passing core) in torch.
 
-The PyTorch counterpart of the general-network half of
-`htk_tpu/algo/decode.py`. Per frame, over the whole network:
+The PyTorch counterpart of the 1-best decoders of `htk_tpu/algo/decode.py`
+(general word networks and uniform-row LV networks). Per frame, over the
+whole network:
 
   1. word-end scores   WE[i]   = segment-max of (v + aE) per word node
   2. cross-word step   entry[j] = max_i WE[i] + s*lm[i,j] + p
   3. within-word step  K shifted adds over the banded transition matrix
   4. combine + emit    v'[s] = max(within, entry) + outp[t, s]
 
-The recursion runs in `ops/decode_scan.decode_scan`: the hand-written
-CUDA kernel on the card, its plain torch version on the CPU. Word-link
-records come back as per-frame (T, Nn) planes that host code walks
-backwards for the 1-best transcription (`_finalize`, numpy, unchanged
-from the JAX package).
+On general nets the recursion runs in `ops/decode_scan.decode_scan`: the
+hand-written CUDA kernel on the card, its plain torch version on the CPU.
+Word-link records come back as per-frame (T, Nn) planes that host code
+walks backwards for the 1-best transcription (`_finalize`, numpy,
+unchanged from the JAX package).
 
 Observation likelihoods come from one batched OutP over physical states
 (ops/outp.GaussianScorer); network states gather rows (`comp_state`).
 
-Networks with `uniform_width` (the LV decoder, algo/lvnet in htk_tpu) are
-not ported yet and raise HError 8527.
+Networks with `uniform_width` (algo/lvnet.compile_lv_loop: one row per
+(word, pron), every row padded to S states, node == row) take the
+uniform-row LV decoder, the counterpart of the reference's
+`decode_scan_uniform_batch`/`_lv_pipeline`: the word-end reduction is a
+row max, word entry a row broadcast, and the cross-word step one of
+
+  dense exact  entry[b, j] = max_i WE[b, i] + trans[i, j] through
+               ops/maxplus (the CUDA kernel csrc/maxplus.cu on the card,
+               its plain version on the CPU), one launch per frame
+  dense top-A  only the `max_active` best word ends propagate (HLVRec's
+               maxModel pruning), as batched torch ops
+
+The frame loop runs in Python with OutP computed chunk-wise, then a
+batched traceback walks the word-link records on the device and only the
+(B, 3, T) path plane comes back to the host. The factored back-off
+(`xw_backoff`) and trigram-guided (`xw_trigram`) cross-word legs are not
+ported yet and raise HError 8527; so do the reference's hybrid
+(`state_scores`) and adaptation (`model_params`) hooks, which are not
+taken.
 """
 
 from __future__ import annotations
@@ -30,11 +48,23 @@ import numpy as np
 import torch
 
 from ..models.hmmset import CompiledHMMSet
+from ..ops import maxplus as _maxplus
 from ..ops.decode_scan import decode_scan
 from ..ops.outp import GaussianScorer
 from ..utils.errors import HError
 from ..utils.logmath import LZERO, LSMALL
 from .net import DecodeNetwork
+
+# word-link record packing for uniform-row nets: one int64 per state,
+# (wn+1) << REC_TBITS | t, 0 = no record. The reference packs uint32;
+# torch's uint32 coverage is thin, so the port packs int64 and keeps the
+# reference's ranges (and HError 8520 beyond them).
+REC_TBITS = 15
+REC_TMASK = (1 << REC_TBITS) - 1          # max frame index (32767)
+REC_MAXROWS = (1 << (32 - REC_TBITS)) - 2  # max (word, pron) rows (131k)
+
+_BEAM_OFF = 1e30  # genBeam "off": never binds (scores live above LZERO)
+_WALK_CHECK = 16  # traceback steps between checks that every path ended
 
 
 @dataclass
@@ -46,10 +76,12 @@ class DecodeResult:
     scores: List[float]  # per-word segment scores
 
 
-def _check_general(net: DecodeNetwork) -> None:
-    if net.uniform_width:
-        HError(8527, "decode: uniform-row (LV) networks are not yet ported "
-                     "to htk_tpu_torch; use a general word network (-w)")
+def _check_ported(net: DecodeNetwork) -> None:
+    if net.xw_backoff is not None or net.xw_trigram is not None:
+        HError(8527, "decode: the factored (xw_backoff) and trigram-guided "
+                     "(xw_trigram) cross-word legs are not yet ported to "
+                     "htk_tpu_torch; compile_lv_loop(factored=False) gives "
+                     "the dense form")
 
 
 def _net_dev(net: DecodeNetwork, device) -> dict:
@@ -78,6 +110,8 @@ def _net_dev(net: DecodeNetwork, device) -> dict:
                 np.asarray(net.comp_state, np.int64), device=device),
             "node_wdpen": (f32(net.node_wdpen)
                            if net.node_wdpen is not None else None),
+            "bonus": f32(net.chain_pron_prob),  # (C,) per row, uniform nets
+            "end_exit": f32(net.end_exit),
         }
         caches[str(device)] = d
     return d
@@ -115,6 +149,214 @@ def decode_operands(outp_states: torch.Tensor, net: DecodeNetwork,
             wp, net.n_nodes)
 
 
+def _topa_mode(max_active):
+    """Decode the max_active encoding.
+
+    n > 0: top-A histogram pruning (HLVRec maxModel semantics).
+    n < 0: ADAPTIVE-EXACT top-A, a feature of the factored cross-word leg
+    (HError 8526 without its tables).
+    Returns (A, adaptive)."""
+    if max_active is None:
+        return None, False
+    return abs(int(max_active)), max_active < 0
+
+
+def _shift_down_b(x, k, fill):
+    """y[:, s] = x[:, s-k], with fill for s < k."""
+    if k == 0:
+        return x
+    return torch.nn.functional.pad(x[:, :-k], (k, 0), value=fill)
+
+
+def _unpack(rec):
+    """Packed word-link records -> (wn, wt) int32; 0 gives (-1, -1)."""
+    return (((rec >> REC_TBITS) - 1).to(torch.int32),
+            ((rec & REC_TMASK) - 1).to(torch.int32))
+
+
+def _make_uniform_step(B, Ns, band, a0, aE, S, entry_bonus_row, trans,
+                       start_entry, word_pen, beam, max_active, xw=None,
+                       xw3=None):
+    """The batched per-frame update as step(carry, outp_t, t), for
+    uniform-row nets (htk_tpu/algo/decode.py : _make_uniform_step, the
+    dense legs). carry = (v (B, Ns) f32, rec (B, Ns) int64 packed
+    records); returns the next carry and this frame's word-end records
+    (WE, pwn, pwt), each (B, C). `t` is the Python frame index, `beam`
+    and `word_pen` Python floats, so the step never waits on the device.
+    The operations run in the reference's order, which keeps the scores
+    bit-equal to it on the same outp."""
+    C = Ns // S
+    K = band.shape[0]
+    max_active, adaptive = _topa_mode(max_active)
+    if C >= REC_MAXROWS:
+        HError(8520, "decode_scan_uniform_batch: %d rows exceed the "
+                     "packed-record range (%d)", C, REC_MAXROWS)
+    if adaptive and (xw is None or xw3 is not None
+                     or xw.get("succ_j") is None or not xw["buckets"]
+                     or xw.get("marg") is None):
+        HError(8526, "adaptive-exact top-A needs the factored cross-word "
+                     "tables with successor tables and buckets (and is "
+                     "not combined with trigram guidance, which is "
+                     "already a top-A semantic)")
+    if xw is not None or xw3 is not None:
+        HError(8527, "decode: the factored and trigram-guided cross-word "
+                     "legs are not yet ported to htk_tpu_torch")
+    topa = max_active is not None and max_active < C
+    beam_on = beam is not None and beam < _BEAM_OFF
+    a0_r = a0.reshape(C, S)[None]
+    aE_r = aE[None]
+    bonus_r = entry_bonus_row[None]
+    start_r = start_entry[None].expand(B, C)
+
+    def step(carry, outp_t, t: int):
+        v, rec = carry
+        ev = (v + aE_r).reshape(B, C, S)
+        WE, best_s = torch.max(ev, dim=2)  # first maximising state
+        ok = WE > LSMALL
+        prec = rec.reshape(B, C, S).gather(2, best_s[..., None])[..., 0]
+        pwn, pwt = _unpack(torch.where(ok, prec, 0))
+
+        if topa:
+            # jax.lax.top_k order: descending, lower index first on ties
+            vals, idxs = torch.sort(WE, dim=1, descending=True, stable=True)
+            vals, idxs = vals[:, :max_active], idxs[:, :max_active]
+            cand = vals[..., None] + trans[idxs]  # (B, A, C)
+            m, k = torch.max(cand, dim=1)
+            an = idxs.gather(1, k)
+        else:
+            m, an = _maxplus.maxplus(WE, trans, floor=False)
+        # the reference computes the step at every frame and takes the
+        # start entry at t == 0, with no record
+        if t == 0:
+            entry_n = start_r
+            entry_rec = torch.zeros_like(rec[:, :C])
+        else:
+            entry_n = m + word_pen
+            entry_rec = ((an.to(torch.int64) + 1) << REC_TBITS) | t
+        entry_flat = ((entry_n + bonus_r)[..., None] + a0_r).reshape(B, Ns)
+        erec_flat = entry_rec[..., None].expand(B, C, S).reshape(B, Ns)
+
+        # within-word band; the incremental max keeps the first shift on
+        # ties (the band masks row boundaries)
+        within = v + band[0][None]
+        wrec = rec
+        for k in range(1, K):
+            ck = _shift_down_b(v, k, LZERO) + band[k][None]
+            take = ck > within
+            within = torch.where(take, ck, within)
+            wrec = torch.where(take, _shift_down_b(rec, k, 0), wrec)
+
+        use_entry = entry_flat > within
+        new_v = torch.maximum(within, entry_flat) + outp_t
+        if beam_on:
+            top = new_v.max(dim=1, keepdim=True).values
+            new_v = torch.where(new_v < top - beam, LZERO, new_v)
+        new_rec = torch.where(use_entry, erec_flat, wrec)
+        new_rec = torch.where(new_v <= LSMALL, 0, new_rec)
+        return (new_v, new_rec), (WE, pwn, pwt)
+
+    return step
+
+
+def _uniform_init(B, Ns, device):
+    return (torch.full((B, Ns), LZERO, dtype=torch.float32, device=device),
+            torch.zeros((B, Ns), dtype=torch.int64, device=device))
+
+
+def decode_scan_uniform_batch(
+    outp_states,  # (B, T, Ns)
+    band, a0, aE,
+    S: int,
+    entry_bonus_row,  # (C,)
+    trans,  # (C, C) scaled
+    start_entry,  # (C,)
+    word_pen: float,
+    beam: float = _BEAM_OFF,
+    max_active: Optional[int] = None,
+    xw: Optional[dict] = None,
+    xw3: Optional[dict] = None,
+):
+    """Batched uniform-row scan over precomputed outp: returns
+    ((v, wn, wt) (B, Ns), (WEs, pwns, pwts) (B, T, C)), the layout of the
+    reference's `decode_scan_uniform_batch`. `xw`/`xw3` (the factored and
+    trigram legs) raise HError 8527."""
+    B, T, Ns = outp_states.shape
+    step = _make_uniform_step(
+        B, Ns, band, a0, aE, S, entry_bonus_row, trans, start_entry,
+        word_pen, beam, max_active, xw, xw3)
+    if T > REC_TMASK:
+        HError(8520, "decode_scan_uniform_batch: %d frames exceed the "
+                     "packed-record range (%d — chunk longer audio)",
+               T, REC_TMASK)
+    carry = _uniform_init(B, Ns, outp_states.device)
+    recs = []
+    for t in range(T):
+        carry, r = step(carry, outp_states[:, t], t)
+        recs.append(r)
+    v, rec = carry
+    return (v, *_unpack(rec)), tuple(
+        torch.stack(p, dim=1) for p in zip(*recs))
+
+
+def _traceback_device(vb, wnb, wtb, WEb, pwnb, pwtb, aE, end_exit_s,
+                      t_reals, S: int):
+    """Batched record walk on the device for uniform-row nets
+    (htk_tpu/algo/decode.py : _traceback_device).
+
+    Finalises each utterance from plane row t_real when t_real < T (ends
+    at t_real-1 are emitted by scan step t_real), else from the final
+    carry; then walks the backpointers with two gathers a step for the
+    whole batch. Returns the (B, 3, T) int32 plane of (node, t_start,
+    t_end) per step in reverse order, -1 padded, and the (B,) path scores.
+    The reference scans all T steps; this stops once every path has
+    ended, checked every _WALK_CHECK steps (the rest is -1 either way).
+    """
+    B, T, C = WEb.shape
+    dev = WEb.device
+    i32 = torch.int32
+    ev = (vb + aE[None]).reshape(B, C, S)
+    WEl, best_s = torch.max(ev, dim=2)
+    okl = WEl > LSMALL
+
+    def last(x):
+        return torch.where(
+            okl, x.reshape(B, C, S).gather(2, best_s[..., None])[..., 0], -1)
+
+    tr = torch.as_tensor(t_reals, dtype=torch.int64, device=dev)
+    use_last = (tr >= T)[:, None]
+    trc = tr.clamp(0, T - 1)
+    bi = torch.arange(B, device=dev)
+    WE_fin = torch.where(use_last, WEl, WEb[bi, trc])
+    pwn_fin = torch.where(use_last, last(wnb), pwnb[bi, trc])
+    pwt_fin = torch.where(use_last, last(wtb), pwtb[bi, trc])
+
+    score, i0 = torch.max(WE_fin + end_exit_s[None], dim=1)
+    ok = score > LSMALL
+    node = i0.to(i32)
+    t = (tr - 1).to(i32)
+    pn = torch.where(ok, pwn_fin[bi, i0], -1)
+    pt = torch.where(ok, pwt_fin[bi, i0], -1)
+    alive = ok
+    out = torch.full((B, 3, T), -1, dtype=i32, device=dev)
+    steps = []
+    for k in range(T):
+        steps.append(torch.where(alive[:, None],
+                                 torch.stack([node, pt + 1, t], dim=1), -1))
+        stop = (pn < 0) | (pt < 0)
+        it = (pt + 1).clamp(0, T - 1).long()
+        inn = pn.clamp(0, C - 1).long()
+        npn = torch.where(stop, -1, pwnb[bi, it, inn])
+        npt = torch.where(stop, -1, pwtb[bi, it, inn])
+        node = torch.where(stop, node, pn)
+        t = torch.where(stop, t, pt)
+        pn, pt = npn, npt
+        alive = alive & ~stop
+        if (k + 1) % _WALK_CHECK == 0 and not bool(alive.any()):
+            break
+    out[:, :, :len(steps)] = torch.stack(steps, dim=2)
+    return out, score
+
+
 def run_decode_batch(
     outp_states: torch.Tensor,  # (B, T, Ns), on the decode device
     net: DecodeNetwork,
@@ -124,11 +366,21 @@ def run_decode_batch(
     max_active: Optional[int] = None,
 ):
     """Run the decode recursion on the device `outp_states` lies on;
-    returns ((v, wn, wt), (WE, pwn, pwt)) as `decode_scan` does.
+    returns ((v, wn, wt), (WE, pwn, pwt)) as `decode_scan` does: the
+    uniform-row scan for lvnet networks (records (B, T, C)), the general
+    recursion otherwise.
 
-    `beam`/`max_active` are accepted for the caller's retry ladder and,
-    as in the reference's general-network branch, not read."""
-    _check_general(net)
+    On general networks `beam`/`max_active` are accepted for the caller's
+    retry ladder and, as in the reference's general-network branch, not
+    read."""
+    _check_ported(net)
+    if net.uniform_width:
+        d = _net_dev(net, outp_states.device)
+        return decode_scan_uniform_batch(
+            outp_states, d["band"], d["a0"], d["aE"], net.uniform_width,
+            d["bonus"], d["trans"] * lm_scale, d["start"] * lm_scale,
+            float(word_pen), _BEAM_OFF if beam is None else float(beam),
+            max_active)
     return decode_scan(*decode_operands(outp_states, net, lm_scale,
                                         word_pen))
 
@@ -209,6 +461,157 @@ def _net_outp(net, comp, feats, precision, device) -> torch.Tensor:
     return logb[..., _net_dev(net, device)["comp_state"]].contiguous()
 
 
+def _lv_chunk(T: int, B: int, Ns: int) -> int:
+    """Frames of OutP computed at a time: 64, 32, 16 or 8 dividing T
+    (else all of T), halved while the (B, CH, Ns) chunk exceeds 1 GiB."""
+    CH = T
+    for c in (64, 32, 16, 8):
+        if T % c == 0:
+            CH = c
+            break
+    while (CH > 8 and CH % 2 == 0 and T % (CH // 2) == 0
+           and B * CH * Ns * 4 > 1 << 30):
+        CH //= 2
+    return CH
+
+
+def _lv_scan_body(net, comp, d, precision, max_active, x, lm_scale,
+                  word_pen, beam):
+    """The uniform-row scan with OutP computed chunk-wise inside the frame
+    loop (the full (B, T, Ns) plane is never formed). Returns the final
+    carry (v, rec) and the word-end record planes WEs/pwns/pwts in
+    (B, T, C) layout (plane t = word ends at time t-1)."""
+    S = net.uniform_width
+    B, T = x.shape[0], x.shape[1]
+    Ns = len(net.comp_state)
+    step = _make_uniform_step(
+        B, Ns, d["band"], d["a0"], d["aE"], S, d["bonus"],
+        d["trans"] * lm_scale, d["start"] * lm_scale, word_pen, beam,
+        max_active)
+    scorer = scorer_for(comp, x.device, precision)
+    CH = _lv_chunk(T, B, Ns)
+    carry = _uniform_init(B, Ns, x.device)
+    recs = []
+    for c in range(T // CH):
+        outp_chunk = scorer(x[:, c * CH:(c + 1) * CH])[..., d["comp_state"]]
+        for tl in range(CH):
+            carry, r = step(carry, outp_chunk[:, tl], c * CH + tl)
+            recs.append(r)
+    WEs, pwns, pwts = (torch.stack(p, dim=1) for p in zip(*recs))
+    return carry, WEs, pwns, pwts
+
+
+def _lv_pipeline(net, comp, x, t_reals, lm_scale, word_pen, beam,
+                 max_active, precision):
+    """OutP -> scan -> device traceback for frames x (B, T, D) on their
+    device; returns the (B, 3, T) path plane and the (B,) scores, both on
+    the device. The network's tensors come from the per-net cache."""
+    d = _net_dev(net, x.device)
+    (v, rec), WEs, pwns, pwts = _lv_scan_body(
+        net, comp, d, precision, max_active, x, lm_scale, word_pen, beam)
+    return _traceback_device(v, *_unpack(rec), WEs, pwns, pwts, d["aE"],
+                             d["end_exit"] * lm_scale, t_reals,
+                             net.uniform_width)
+
+
+def _decode_uniform(net, comp, x, t_reals, lm_scale, word_pen, beam,
+                    max_active, precision, device):
+    # the packed word-link record carries a 15-bit frame field; past it
+    # the frame index would overflow into the row bits (callers chunk
+    # long utterances before reaching this point)
+    if x.shape[1] > REC_TMASK:
+        HError(8520, "decode: %d frames exceed the packed record's "
+                     "15-bit frame field (max %d) — chunk the utterance",
+               x.shape[1], REC_TMASK)
+    x = torch.as_tensor(np.asarray(x, np.float32), device=device)
+    packed, scores = _lv_pipeline(
+        net, comp, x, t_reals, float(lm_scale), float(word_pen),
+        _BEAM_OFF if beam is None else float(beam), max_active, precision)
+    p = packed.cpu().numpy()  # (B, 3, T): one transfer for all planes
+    return _format_uniform_results(net, p[:, 0], p[:, 1], p[:, 2],
+                                   scores.cpu().numpy())
+
+
+def _format_uniform_results(net, nodes_b, t0_b, t1_b, scores_b):
+    out: List[Optional[DecodeResult]] = []
+    for b in range(nodes_b.shape[0]):
+        if scores_b[b] <= LSMALL:
+            out.append(None)
+            continue
+        words, nds, times, wscores = [], [], [], []
+        valid = nodes_b[b] >= 0
+        for k in range(int(valid.sum()) - 1, -1, -1):  # reverse order
+            node = int(nodes_b[b, k])
+            sym = net.node_out[node]
+            sym = net.node_words[node] if sym is None else sym
+            if sym:
+                words.append(sym)
+                nds.append(node)
+                times.append((int(t0_b[b, k]), int(t1_b[b, k])))
+                wscores.append(0.0)
+        out.append(DecodeResult(words=words, word_nodes=nds, times=times,
+                                score=float(scores_b[b]), scores=wscores))
+    return out
+
+
+# auto-chunk target length: comfortably under REC_TMASK so the cut-
+# point search window never pushes a chunk over the record range
+CHUNK_T = 30_000
+CHUNK_WINDOW = 2_000
+
+
+def _decode_chunked(net, comp, feats, lm_scale, word_pen, precision, beam,
+                    max_active, device):
+    """Decode an over-long utterance on a uniform-row net as concatenated
+    chunks (htk_tpu/algo/decode.py : _decode_chunked).
+
+    Cut points land on the LOWEST-ENERGY frame (smallest feature L2
+    norm) inside the window [CHUNK_T - CHUNK_WINDOW, CHUNK_T) of each
+    remaining span, so a word rarely straddles a cut. Results are the
+    concatenation of the chunk decodes with times offset; the score is
+    the sum (the cross-chunk LM transition is dropped — the approximation
+    inherent to chunking).
+    """
+    cuts = [0]
+    pos = 0
+    T = feats.shape[0]
+    while T - pos > CHUNK_T:
+        w0 = pos + CHUNK_T - CHUNK_WINDOW
+        w1 = pos + CHUNK_T
+        norms = np.linalg.norm(np.asarray(feats[w0:w1]), axis=1)
+        pos = w0 + int(np.argmin(norms))
+        cuts.append(pos)
+    cuts.append(T)
+
+    words: List[str] = []
+    nodes: List[int] = []
+    times: List[Tuple[int, int]] = []
+    wscores: List[float] = []
+    score = 0.0
+    any_ok = False
+    for c0, c1 in zip(cuts[:-1], cuts[1:]):
+        # chunks pad to a 128 multiple, as the reference's do
+        tc = c1 - c0
+        tp = ((tc + 127) // 128) * 128
+        chunk = np.asarray(feats[c0:c1], np.float32)
+        xb = np.zeros((1, tp, chunk.shape[1]), np.float32)
+        xb[0, :tc] = chunk
+        r = _decode_uniform(net, comp, xb, [tc], lm_scale, word_pen, beam,
+                            max_active, precision, device)[0]
+        if r is None:
+            continue
+        any_ok = True
+        words.extend(r.words)
+        nodes.extend(r.word_nodes)
+        times.extend([(t0 + c0, t1 + c0) for t0, t1 in r.times])
+        wscores.extend(r.scores)
+        score += r.score
+    if not any_ok:
+        return None
+    return DecodeResult(words=words, word_nodes=nodes, times=times,
+                        score=score, scores=wscores)
+
+
 def decode(
     net: DecodeNetwork,
     comp: CompiledHMMSet,
@@ -222,9 +625,17 @@ def decode(
     device,
 ) -> Optional[DecodeResult]:
     """Decode one utterance on `device`; returns None if no complete path
-    survives."""
-    _check_general(net)
+    survives. On uniform-row nets an utterance longer than the packed
+    record's frame range (REC_TMASK) is decoded in chunks."""
+    _check_ported(net)
     T = feats.shape[0]
+    if net.uniform_width:
+        if T > REC_TMASK:
+            return _decode_chunked(net, comp, feats, lm_scale, word_pen,
+                                   precision, beam, max_active, device)
+        return _decode_uniform(net, comp, feats[None], [T], lm_scale,
+                               word_pen, beam, max_active, precision,
+                               device)[0]
     outp_states = _net_outp(net, comp, feats[None], precision, device)
     (vb, wnb, wtb), (WEs, pwns, pwts) = run_decode_batch(
         outp_states, net, lm_scale, word_pen,
@@ -250,23 +661,44 @@ def decode_batch(
     *,
     device,
 ) -> List[Optional[DecodeResult]]:
-    """Decode a batch of utterances through ONE decode launch on `device`.
+    """Decode a batch of utterances together on `device`: one decode
+    launch on general nets, one uniform-row scan (one maxplus launch a
+    frame on the dense exact leg) on lvnet nets.
 
     Utterances are zero-padded to a common frame count rounded up to
     `pad_to`. Padding never affects results: the recursion is causal and
     each utterance finalises from the word-end plane at its own t_real
     (WEs[t] holds the ends at time t-1). Identical output to `decode`
-    per utterance.
+    per utterance. On uniform-row nets, utterances longer than REC_TMASK
+    frames go through `decode` (chunked) one by one, the rest batch.
     """
-    _check_general(net)
+    _check_ported(net)
     B = len(feats_list)
     lens = [int(f.shape[0]) for f in feats_list]
+    if net.uniform_width and max(lens) > REC_TMASK:
+        out: List[Optional[DecodeResult]] = [None] * B
+        short = [b for b in range(B) if lens[b] <= REC_TMASK]
+        for b in range(B):
+            if lens[b] > REC_TMASK:
+                out[b] = decode(net, comp, feats_list[b], lm_scale,
+                                word_pen, precision, beam=beam,
+                                max_active=max_active, device=device)
+        if short:
+            rs = decode_batch(net, comp, [feats_list[b] for b in short],
+                              lm_scale, word_pen, precision, pad_to, beam,
+                              max_active, device=device)
+            for b, r in zip(short, rs):
+                out[b] = r
+        return out
     T = ((max(lens) + pad_to - 1) // pad_to) * pad_to
     D = feats_list[0].shape[1]
     fb = np.zeros((B, T, D), np.float32)
     for b, f in enumerate(feats_list):
         fb[b, : lens[b]] = f
 
+    if net.uniform_width:
+        return _decode_uniform(net, comp, fb, lens, lm_scale, word_pen,
+                               beam, max_active, precision, device)
     outp = _net_outp(net, comp, fb, precision, device)
     (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
         outp, net, lm_scale, word_pen, beam=beam, max_active=max_active)

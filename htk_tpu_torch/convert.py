@@ -1,5 +1,5 @@
-"""Carry a compiled HMM set, a decode network and accumulators across
-from htk_tpu.
+"""Carry a compiled HMM set, a decode network, an n-gram LM and
+accumulators across from htk_tpu.
 
 The JAX package's `CompiledHMMSet` (models/hmmset.py) and `DecodeNetwork`
 (algo/net.py) hold numpy arrays; the port's copies of those modules
@@ -24,6 +24,7 @@ import torch
 from .algo.decode import _net_dev, scorer_for
 from .algo.fb import Accumulators
 from .algo.net import DecodeNetwork
+from .io.lm import NGramLM
 from .models.hmmset import CompiledHMMSet
 from .ops.outp import GaussianScorer
 
@@ -54,6 +55,14 @@ def decode_network_from(net) -> DecodeNetwork:
     """The port's DecodeNetwork from the JAX package's (band, a0, aE,
     trans, start_entry, end_exit, chain and node tables, ...)."""
     return _carry(DecodeNetwork, net)
+
+
+def ngram_lm_from(lm) -> NGramLM:
+    """The port's NGramLM from the JAX package's (its order and n-gram
+    dicts; a packed LM's dicts are materialised on reading)."""
+    return NGramLM(order=lm.order, unigrams=dict(lm.unigrams),
+                   bigrams=dict(lm.bigrams), trigrams=dict(lm.trigrams),
+                   tri_bo=dict(lm.tri_bo), fourgrams=dict(lm.fourgrams))
 
 
 def accumulators_from(accs) -> Accumulators:

@@ -37,20 +37,27 @@ def _nvcc(name: str) -> str:
                        "/usr/local/cuda/bin); the CUDA kernel cannot build")
 
 
-class CudaKernel:
+class LaunchCount:
+    """A named launch count: a plain integer that a kernel's wrapper
+    raises by one at every launch and nowhere else; callers reset and
+    read it to show that a path went through the kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
+class CudaKernel(LaunchCount):
     """One compiled kernel library and its launch count.
 
-    `launches` is a plain integer that the kernel's wrapper raises by one
-    at every launch and nowhere else; callers reset and read it to show
-    that a path went through the kernel. `bind(lib)` declares the C entry
-    point's argtypes and restype on the loaded library.
+    `bind(lib)` declares the C entry point's argtypes and restype on the
+    loaded library.
     """
 
     def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
-        self.name = name
+        super().__init__(name)
         self.source = os.path.join(_CSRC, f"{name}.cu")
         self._bind = bind
-        self.launches = 0
         self._lib = None
         self.build_seconds = None
 

@@ -15,6 +15,9 @@ port's own file writers:
              (htk_tpu/tools/hbuild.py : bigram_lattice): sentence start
              and end !NULL nodes, one !NULL back-off node, and about
              `fanout` favoured explicit successors per word
+  lm.arpa    the same back-off bigram LM as ARPA tables, for the
+             uniform-row LV decoder (algo/lvnet.compile_lv_loop); it
+             draws no random numbers of its own
   *.mfc      utterances synthesised from the state means plus Gaussian
              noise, 3 frames per state, as MFCC_E_D_A feature files
   test.scp   the feature files
@@ -25,7 +28,8 @@ port's own file writers:
 `random_decode_net` makes the operands of one decode recursion directly
 (a random general net and its observation scores), for holding the
 decode kernel against its plain version; `random_fb_operands` does the
-same for the forward-backward scans.
+same for the forward-backward scans, `random_maxplus_operands` for the
+max-plus cross-word product.
 
 At the defaults (1,000 words, 40 phones, 2,000 tied 8-mixture states,
 39 dims) this is htk_tpu's BASELINE config #4 system.
@@ -41,6 +45,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from .io.htkfeat import write_htk_file
+from .io.lm import NGramLM, write_arpa
 from .io.mmf import HMMDef, HMMSet, MixPDF, StateInfo, StreamElem, save_mmf
 from .io.parmkind import str2parmkind
 from .io.slf import LArc, LNode, Lattice, NULL_WORD, write_slf
@@ -63,6 +68,7 @@ class System:
     scp: str
     train_mlf: str
     train_scp: str
+    lm: str
     feats: List[str] = field(default_factory=list)
     transcripts: List[List[str]] = field(default_factory=list)
     n_frames: List[int] = field(default_factory=list)
@@ -127,14 +133,22 @@ def build_hmmset(rng, n_words: int, n_phones: int, n_tied: int, n_mix: int,
     return hset, lex
 
 
-def bigram_network(rng, words: List[str], fanout: int) -> Lattice:
+def bigram_successors(rng, V: int, fanout: int) -> List[List[int]]:
+    """Each word's explicit bigram successors: `fanout` draws, deduplicated
+    and sorted."""
+    return [sorted(set(int(x) for x in rng.integers(0, V, fanout)))
+            for _ in range(V)]
+
+
+def bigram_network(words: List[str], succ: List[List[int]],
+                   fanout: int) -> Lattice:
     """Back-off bigram word network (HBuild's layout).
 
     Node ids: 0 sentence start, 1 back-off, 2 sentence end, words from 3.
     Unigrams are log(0.5 / V), every back-off weight log(0.5), the
-    explicit bigrams log(0.4 / fanout); sentence entry and exit go
-    through the back-off (log 0.5 + unigram), as for a start word with no
-    explicit bigrams."""
+    explicit bigrams (word k to each of succ[k]) log(0.4 / fanout);
+    sentence entry and exit go through the back-off (log 0.5 + unigram),
+    as for a start word with no explicit bigrams."""
     V = len(words)
     uni = math.log(0.5 / V)
     bow = math.log(0.5)
@@ -150,7 +164,7 @@ def bigram_network(rng, words: List[str], fanout: int) -> Lattice:
     for k in range(V):
         arc(0, 3 + k, bow + uni)
     for k in range(V):
-        for j in sorted(set(int(x) for x in rng.integers(0, V, fanout))):
+        for j in succ[k]:
             arc(3 + k, 3 + j, math.log(0.4 / fanout))
     for k in range(V):
         arc(3 + k, 1, bow)
@@ -158,6 +172,25 @@ def bigram_network(rng, words: List[str], fanout: int) -> Lattice:
     for k in range(V):
         arc(3 + k, 2, bow + uni)
     return lat
+
+
+def bigram_lm(words: List[str], succ: List[List[int]],
+              fanout: int) -> NGramLM:
+    """The back-off bigram LM that `bigram_network` encodes, as ARPA
+    tables (the shape of htk_tpu's bench.py build_tied_triphone_system):
+    unigrams log(0.5 / V) with back-off log 0.5, the explicit bigrams
+    log(0.4 / fanout), !ENTER (-99, log 0.5) and !EXIT (log(0.5 / V), 0)."""
+    V = len(words)
+    uni = math.log(0.5 / V)
+    lm = NGramLM(order=2)
+    for w in words:
+        lm.unigrams[w] = (uni, math.log(0.5))
+    lm.unigrams["!ENTER"] = (-99.0, math.log(0.5))
+    lm.unigrams["!EXIT"] = (uni, 0.0)
+    for k, w in enumerate(words):
+        for j in succ[k]:
+            lm.bigrams[(w, words[j])] = (math.log(0.4 / fanout), 0.0)
+    return lm
 
 
 def synth_utterance(rng, hset: HMMSet, lex: Dict[str, List[str]],
@@ -205,14 +238,17 @@ def write_system(root: str, n_words: int = 1000, n_phones: int = 40,
                   wdnet=os.path.join(root, "wdnet.slf"),
                   scp=os.path.join(root, "test.scp"),
                   train_mlf=os.path.join(root, "train.mlf"),
-                  train_scp=os.path.join(root, "train.scp"))
+                  train_scp=os.path.join(root, "train.scp"),
+                  lm=os.path.join(root, "lm.arpa"))
     save_mmf(hset, sysm.hmmdefs, binary=binary_mmf)
     with open(sysm.dict, "w") as f:
         for w in words:
             f.write(f"{w} {' '.join(lex[w])}\n")
     with open(sysm.hmmlist, "w") as f:
         f.write("".join(f"{n}\n" for n in hset.hmms))
-    write_slf(bigram_network(rng, words, fanout), sysm.wdnet)
+    succ = bigram_successors(rng, len(words), fanout)
+    write_slf(bigram_network(words, succ, fanout), sysm.wdnet)
+    write_arpa(bigram_lm(words, succ, fanout), sysm.lm)
 
     kind = str2parmkind(PARM_KIND)
     for u in range(n_utts):
@@ -325,3 +361,29 @@ def random_fb_operands(seed: int = 0, B: int = 3, T: int = 40, Q: int = 50,
     tr = np.asarray(list(t_real) or [T] * B, np.int32)
     f = lambda a: np.asarray(a, np.float32)  # noqa: E731
     return f(outp), f(logA), f(a0), f(aE), tr
+
+
+def random_maxplus_operands(seed: int = 0, B: int = 4, C: int = 50,
+                            ties: bool = False, dead_rows: int = 0):
+    """Random max-plus operands (numpy float32): WE (B, C) and trans
+    (C, C), as the LV decoder's cross-word step sees them.
+
+    trans holds LZERO at about a tenth of its cells (forbidden word
+    pairs); WE holds 2*LZERO (a dead word end) at about a fifth. The last
+    `dead_rows` rows of WE are dead throughout, so every candidate of
+    their targets is at or below LZERO, where the floored and unfloored
+    contracts differ. `ties=True` draws every live score from {0, -1,
+    -2}, so equal candidates are everywhere and the first-max rule
+    decides the argmax."""
+    rng = np.random.default_rng(seed)
+
+    def score(shape):
+        if ties:
+            return -rng.integers(0, 3, shape).astype(np.float64)
+        return rng.normal(size=shape) * 4 - 10
+
+    WE = np.where(rng.random((B, C)) < 0.2, 2 * LZERO, score((B, C)))
+    if dead_rows:
+        WE[B - dead_rows:] = 2 * LZERO
+    trans = np.where(rng.random((C, C)) < 0.1, LZERO, score((C, C)))
+    return WE.astype(np.float32), trans.astype(np.float32)

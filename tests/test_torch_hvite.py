@@ -151,6 +151,8 @@ def test_unported_options_raise_numbered_error(system, tmp_path, opt,
 
 
 def test_uniform_network_raises_numbered_error():
+    """Dense uniform-row nets decode now; a net with the factored
+    cross-word tables (xw_backoff), whose leg is not ported, raises."""
     from htk_tpu_torch.algo.decode import decode
     from htk_tpu_torch.algo.net import DecodeNetwork
     from htk_tpu_torch.utils.errors import HTKError
@@ -158,8 +160,9 @@ def test_uniform_network_raises_numbered_error():
     z = np.zeros(1, np.float32)
     net = DecodeNetwork(comp_state=z, band=z[None], a0=z, aE=z, chain_of=z,
                         node_of_chain=z, chain_pron_prob=z, node_words=["a"],
-                        node_out=[None], trans=z[None], start_entry=z,
-                        end_exit=z, uniform_width=4)
+                        node_out=[None], trans=np.zeros((0, 0), np.float32),
+                        start_entry=z, end_exit=z, uniform_width=4,
+                        xw_backoff={"bow": z, "uni": z, "buckets": []})
     with pytest.raises(HTKError) as e:
         decode(net, None, np.zeros((3, 39), np.float32), device="cpu")
     assert e.value.code == 8527
@@ -176,7 +179,9 @@ def test_port_imports_no_jax_and_no_htk_tpu():
             "    importlib.import_module(m)\n"
             "need = {'htk_tpu_torch.tools.herest', "
             "'htk_tpu_torch.ops.fb_scans', 'htk_tpu_torch.algo.trainer', "
-            "'htk_tpu_torch.parallel.acc_files'}\n"
+            "'htk_tpu_torch.parallel.acc_files', "
+            "'htk_tpu_torch.algo.lvnet', 'htk_tpu_torch.io.lm', "
+            "'htk_tpu_torch.ops.maxplus', 'htk_tpu_torch.ops.tropical'}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'htk_tpu' or "

@@ -1,5 +1,5 @@
-"""The port's kernel wrappers (htk_tpu_torch/ops/decode_scan.py and
-ops/fb_scans.py).
+"""The port's kernel wrappers (htk_tpu_torch/ops/decode_scan.py,
+ops/fb_scans.py, ops/maxplus.py and ops/tropical.py).
 
 No JAX here, so the `cuda`-marked tests also run on a machine with a card
 and no JAX (`--noconftest`; see README). On the CPU: the dispatchers take
@@ -12,7 +12,12 @@ plain version (logP within 1e-5 relative; alphas and betas at t < t_real
 with the same live sets and within 1e-5 |ref| + 1e-4; xi of live
 utterances within rtol 1e-4, atol 1e-6), with and without a beam, with
 logA in shared memory and (Q above 239) in global memory, and HERest on
-the card trains the same model as on the CPU.
+the card trains the same model as on the CPU; the maxplus kernel equals
+its plain version exactly (values and first-max arguments, both floor
+contracts, ties and dead rows), through ops/maxplus and the tropical
+wrappers, and the LV decoder on the card gives the CPU's words and
+times. The CPU-side tests of the maxplus wrappers are in
+tests/test_torch_maxplus.py.
 """
 
 import pytest
@@ -20,7 +25,10 @@ import torch
 
 from htk_tpu_torch.ops import decode_scan as ds
 from htk_tpu_torch.ops import fb_scans as fbs
-from htk_tpu_torch.synth import random_decode_net, random_fb_operands
+from htk_tpu_torch.ops import maxplus as mp
+from htk_tpu_torch.ops import tropical as trop
+from htk_tpu_torch.synth import (random_decode_net, random_fb_operands,
+                                 random_maxplus_operands)
 from htk_tpu_torch.utils.errors import HTKError
 from htk_tpu_torch.utils.logmath import LZERO
 
@@ -138,6 +146,77 @@ def test_hvite_on_card_equals_cpu(tmp_path, monkeypatch, single):
         with open(mlf, "rb") as f:
             out[dev] = f.read()
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("floor", [False, True])
+@pytest.mark.parametrize("mode", [{}, {"ties": True}, {"dead_rows": 2}])
+def test_maxplus_kernel_matches_plain_on_card(floor, mode):
+    """Exactly equal values and first-max arguments, any (B, C)."""
+    need_card()
+    for seed, (B, C) in enumerate([(1, 1), (3, 130), (8, 1000), (17, 257)]):
+        WE, tr = [torch.as_tensor(a, device="cuda") for a in
+                  random_maxplus_operands(seed, B=B, C=C, **mode)]
+        before = mp.KERNEL.launches
+        got = mp.maxplus(WE, tr, floor)
+        assert mp.KERNEL.launches == before + 1
+        ref = mp.maxplus_plain(WE, tr, floor)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_tropical_wrappers_match_plain_on_card():
+    need_card()
+    WE, tr = [torch.as_tensor(a, device="cuda") for a in
+              random_maxplus_operands(4, B=5, C=300, ties=True)]
+    tT = trop.pad_tropical_operand(tr)
+    WEp = torch.full((8, tT.shape[0]), LZERO, device="cuda")
+    WEp[:5, :300] = WE
+    before = (trop.LAUNCHES.launches, mp.KERNEL.launches)
+    got = trop.tropical_matvec_argmax_padded(WEp, tT)
+    one = trop.tropical_matvec_argmax(WE, tr)
+    assert (trop.LAUNCHES.launches, mp.KERNEL.launches) == (before[0] + 2,
+                                                            before[1])
+    ref = mp.maxplus_plain(WE, tr, floor=True)
+    torch.cuda.synchronize()
+    for out in (one, tuple(x[:5, :300] for x in got)):
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_lv_decode_on_card_equals_cpu(tmp_path):
+    """decode_batch on a uniform-row net (write_system's lm.arpa): the
+    same words and times as on the CPU, scores within 1e-5 relative, one
+    maxplus launch per padded frame."""
+    need_card()
+    from htk_tpu_torch.algo.decode import decode_batch
+    from htk_tpu_torch.algo.lvnet import compile_lv_loop
+    from htk_tpu_torch.algo.net import word_internal_phone_map
+    from htk_tpu_torch.io.dictionary import read_dict
+    from htk_tpu_torch.io.htkfeat import read_htk_file
+    from htk_tpu_torch.io.lm import read_arpa
+    from htk_tpu_torch.io.mmf import load_mmf
+    from htk_tpu_torch.models.hmmset import compile_hmmset
+    from htk_tpu_torch.synth import write_system
+
+    s = write_system(str(tmp_path), n_words=30, n_phones=8, n_tied=30,
+                     n_mix=2, n_utts=4, min_frames=60, max_frames=150,
+                     fanout=4, seed=3)
+    comp = compile_hmmset(load_mmf([s.hmmdefs]))
+    vocab = read_dict(s.dict)
+    net = compile_lv_loop(list(vocab.words), vocab, comp,
+                          lm=read_arpa(s.lm),
+                          phone_map=word_internal_phone_map(comp.names))
+    feats = [read_htk_file(p).data for p in s.feats]
+    before = mp.KERNEL.launches
+    on_card = decode_batch(net, comp, feats, 8.0, -10.0, device="cuda")
+    T = -(-max(f.shape[0] for f in feats) // 128) * 128
+    assert mp.KERNEL.launches - before == T
+    on_cpu = decode_batch(net, comp, feats, 8.0, -10.0, device="cpu")
+    for g, r in zip(on_card, on_cpu):
+        assert (g.words, g.times) == (r.words, r.times)
+        assert g.score == pytest.approx(r.score, rel=1e-5)
 
 
 def fb_operands(seed=0, device="cpu", **kw):
