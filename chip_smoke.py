@@ -1,19 +1,22 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: HVite -w recognition,
-HERest Baum-Welch training and the uniform-row LV decoder.
+HERest Baum-Welch training and the uniform-row LV decoder, dense and
+factored.
 
 Drives htk_tpu_torch's main paths, `htk_tpu_torch.tools.hvite.run`,
-`htk_tpu_torch.tools.herest.run` and `algo.decode.decode_batch` on a
-`compile_lv_loop` network, on a synthetic system at htk_tpu's BASELINE
+`htk_tpu_torch.tools.herest.run` and `algo.decode.decode_batch` on
+`compile_lv_loop` networks, on a synthetic system at htk_tpu's BASELINE
 config #4 widths (1,000-word back-off bigram, as a word network and as
 ARPA tables; 40 phones, word-internal triphones over 2,000 tied 8-mixture
 states, 39-dim MFCC_E_D_A; random weights from a numpy seed; 16
-utterances of about 500 frames, with their phone-level transcriptions).
-Phases, each raising on failure:
+utterances of about 500 frames, with their phone-level transcriptions),
+and on the same shape of system at 20,000 words (htk_tpu's bench.py
+big-vocabulary row, factored cross-word legs) and at 5,000 words with a
+trigram LM (its `triguide_5k` row). Phases, each raising on failure:
 
   1. device: a CUDA card is required; its name and power limit are
-     printed; the three kernels (htk_tpu_torch/csrc/decode_scan.cu,
-     fb_scans.cu and maxplus.cu) are built from source with nvcc, in
-     parallel
+     printed; the four kernels (htk_tpu_torch/csrc/decode_scan.cu,
+     fb_scans.cu, maxplus.cu and xw_gather.cu) are built from source with
+     nvcc, in parallel
   2. the decode kernel against its plain torch version on random nets
      (several seeds, B > 1, a tie-heavy integer-score case)
   3. the FB scans kernel against its plain version on random composites
@@ -56,11 +59,42 @@ Phases, each raising on failure:
      of the 16 utterances as xRT; under torch.profiler, one LV batch's
      device busy share, the maxplus kernel's share and the top device
      operations
- 11. one JSON line of kernels, then the device line last
+ 11. the segmax and gather-add kernels (csrc/xw_gather.cu) against their
+     plain versions on random operands (three seeds, B in {1, 8, 17},
+     segments of 0, 1, 4-64 and 500-700 slots, tie-heavy integer scores,
+     dead rows): exactly equal
+ 12. the 20k factored LV decoder: `lv_system(20000)` and
+     `compile_lv_loop` (over 8,000 rows, so factored: no dense matrix);
+     `decode_batch` of 16 utterances in 2 batches of 8 at LM scale 12,
+     word penalty 0 (bench.py's settings) on three legs: exact (one
+     segmax launch per padded frame per batch), adaptive-exact top-A
+     (-128: the same launches, and scores, words and times == exact's)
+     and top-A 128 (no segmax launch); for one batch the kernel leg and
+     the plain leg on the same real outp (planes as for decode, and the
+     same 1-best); word accuracy (informational) and peak device memory
+ 13. on that batch's real word ends: `xw_route.routed_explicit_leg` over
+     the net's slot stream (kernel == plain, and == the bucket leg on
+     every target with a predecessor), `xw_window.window_gather` over the
+     same slots in the window layout; `bucket_max` at gather_probe.py's
+     shape (C = 22,000, 640,000 slots of 16) and `lane_gather` at
+     dyngather_probe.py's (W = 2,048, 4,096 x 128), each kernel == plain
+     exactly, lane_gather also == `torch.index_select`
+ 14. trigram guidance at 5k: `lv_system(5000, lm_order=3)`,
+     `compile_lv_loop(trigram=True)`, one `decode_batch` of 8 at
+     max_active=128; this leg launches no kernel (its scatters are torch
+     ops), which the counts show
+ 15. times, in turns plain/kernel/kernel/plain: segmax, the routed leg,
+     window_gather, bucket_max and lane_gather per launch (and
+     index_select's time beside lane_gather's), one 20k LV batch with the
+     exact kernel and plain legs, with the adaptive and top-A legs, and
+     `decode_batch` of the 16 utterances as xRT for each leg; under
+     torch.profiler, one exact 20k batch's device busy share, segmax's
+     share, device operations per frame and top operations
+ 16. one JSON line of kernels, then the device line last
 
 Each main path runs with every launch count set to 0 just before it and
-read just after. Tolerances, kernel against plain: maxplus and tropical
-exactly equal; decode and the LV planes: live scores
+read just after. Tolerances, kernel against plain: maxplus, tropical,
+segmax and gather-add exactly equal; decode and the LV planes: live scores
 within 1e-5 and every word-link record exactly equal; FB logP within 1e-5
 relative, alphas and betas at t < t_real with the same live sets (above
 LZERO/2) and within 1e-5 |ref| + 1e-4, xi of live utterances within rtol
@@ -74,9 +108,15 @@ once, outputs written once) over 3.35 TB/s and its operations over the
 and log counted as one operation each); for the FB scans only the live
 (above LZERO/2) cells of logA count, since the others add exactly
 nothing; for maxplus and tropical, trans and WE in, values and arguments
-out, an add and a compare per (b, i, j). No single PyTorch call computes
-any of these kernels' functions (max-plus with argmax has none), so
-`library_ms` is null.
+out, an add and a compare per (b, i, j); for segmax (and the routed leg
+and bucket_max on it) the slot stream (pred and score), WE and the
+segment tables in, values and arguments out, an add and a compare per
+(b, slot); for gather-add (window_gather, lane_gather) the slot tables
+and WE in (only the first table row for lane_gather), the candidates
+out, an add per (b, slot). No single PyTorch call computes max-plus with
+argmax or a segmented max with its argmax, or a gather and an add, so
+`library_ms` is null for all but lane_gather, whose function is one
+`torch.index_select` of the first table row.
 
 Usage: python3 chip_smoke.py        (exit 0 only if every phase passed)
 """
@@ -116,8 +156,11 @@ from htk_tpu_torch.ops import decode_scan as ds
 from htk_tpu_torch.ops import fb_scans as fbs
 from htk_tpu_torch.ops import maxplus as mp
 from htk_tpu_torch.ops import tropical as trop
-from htk_tpu_torch.synth import (random_decode_net, random_fb_operands,
-                                 random_maxplus_operands, word_accuracy,
+from htk_tpu_torch.ops import xw_gather as xg
+from htk_tpu_torch.ops import xw_route, xw_window
+from htk_tpu_torch.synth import (lv_system, random_decode_net,
+                                 random_fb_operands, random_maxplus_operands,
+                                 random_xw_operands, word_accuracy,
                                  write_system)
 from htk_tpu_torch.tools import herest, hvite
 from htk_tpu_torch.tools._common import DEVICE_ENV
@@ -132,8 +175,9 @@ RANDOM_NET = dict(Ns=3000, Nn=200, K=3, B=4, T=48)
 TIMING_B, TIMING_T = 8, 512
 LM_SCALE, WORD_PEN = 8.0, -10.0
 FRAME_S = 0.01
-KERNELS = (ds.KERNEL, fbs.KERNEL, mp.KERNEL)
-COUNTS = KERNELS + (trop.LAUNCHES,)  # tropical launches the maxplus kernel
+KERNELS = (ds.KERNEL, fbs.KERNEL, mp.KERNEL, xg.KERNEL)
+# tropical launches the maxplus kernel; xw_gather counts its two entries
+COUNTS = KERNELS + (trop.LAUNCHES, xg.SEGMAX, xg.GATHER_ADD)
 MAXPLUS_BS, MAXPLUS_CS = (1, 8, 17), (1, 200, 1000, 2050)
 MAXPLUS_MODES = {"normal": {}, "ties": {"ties": True},
                  "dead row": {"dead_rows": 1}}
@@ -146,6 +190,15 @@ FB_QS = (50, 250)  # Q = 250: logA in global memory
 FB_BEAMS = (None, 10.0, 5.0, 2.0)  # 5 kills some rows, 2 all of them
 ACC_TOL = 1e-2
 HBM_BPS, FP32_OPS = 3.35e12, 67e12  # H100 SXM data sheet
+# the factored LV systems (htk_tpu's bench.py bench_bigvocab and
+# triguide_5k rows: their seeds, LM scales and word penalties)
+BIG = dict(n_words=20000, seed=11)
+BIG_LM_SCALE, BIG_WORD_PEN = 12.0, 0.0
+TRI = dict(n_words=5000, lm_order=3, seed=7)
+ADAPTIVE = -TOPA  # adaptive-exact top-A
+XW_CASE = dict(C=2000, n_slots=80000)  # random segmax / gather-add operands
+PROBE = dict(C=22000, NNZ=640000, FB=16)  # benchmarks/gather_probe.py
+LANE = dict(W=2048, n=4096, L=128)  # benchmarks/dyngather_probe.py
 
 
 def log(msg: str) -> None:
@@ -287,6 +340,18 @@ def plain_maxplus():
         yield
     finally:
         mp.maxplus = saved
+
+
+@contextlib.contextmanager
+def plain_xw():
+    """segmax and gather_add (and so the factored exact leg and every
+    xw wrapper) run their plain versions inside."""
+    saved = xg.segmax, xg.gather_add
+    xg.segmax, xg.gather_add = xg.segmax_plain, xg.gather_add_plain
+    try:
+        yield
+    finally:
+        xg.segmax, xg.gather_add = saved
 
 
 def phase_device():
@@ -640,12 +705,16 @@ def phase_timing(net, comp, feats, card, dev):
 
 
 def check_equal(got, ref, what: str) -> float:
-    """maxplus outputs (values, arguments) exactly equal; returns the max
-    |diff| of the values (0.0)."""
-    for g, r, name in ((got[0], ref[0], "values"), (got[1], ref[1], "args")):
+    """Kernel outputs exactly equal: (values, arguments) of maxplus and
+    segmax, or one tensor (gather-add); returns the max |diff| of the
+    values (0.0)."""
+    if isinstance(got, torch.Tensor):
+        got, ref = (got,), (ref,)
+    for k, (g, r) in enumerate(zip(got, ref)):
         if not torch.equal(g, r):
             n = int((g != r).sum())
-            raise AssertionError(f"{what}: {name} differ at {n} places")
+            raise AssertionError(f"{what}: {('values', 'args')[k]} differ "
+                                 f"at {n} places")
     return float((got[0] - ref[0]).abs().max()) if got[0].numel() else 0.0
 
 
@@ -711,11 +780,12 @@ def pad_T(lens) -> int:
     return -(-max(lens) // PAD_T) * PAD_T
 
 
-def lv_decode_all(net, comp, feats, dev, max_active=None):
+def lv_decode_all(net, comp, feats, dev, max_active=None,
+                  lm=(LM_SCALE, WORD_PEN)):
     out = []
     for idx in lv_batches(len(feats)):
-        out += dec.decode_batch(net, comp, [feats[i] for i in idx], LM_SCALE,
-                                WORD_PEN, max_active=max_active, device=dev)
+        out += dec.decode_batch(net, comp, [feats[i] for i in idx], *lm,
+                                max_active=max_active, device=dev)
     return out
 
 
@@ -746,9 +816,9 @@ def phase_lv_main(sysm, hyps, net, comp, feats, dev):
     return launches
 
 
-def lv_batch_args(net, comp, feats, dev):
+def lv_batch_args(net, comp, feats, dev, lm=(LM_SCALE, WORD_PEN)):
     """The first batch's frames and its decode_scan_uniform_batch
-    operands on real outp, as the decoder builds them."""
+    operands on real outp, as the decoder builds them (exact leg)."""
     idx = lv_batches(len(feats))[0]
     lens = [feats[i].shape[0] for i in idx]
     fb = np.zeros((len(idx), pad_T(lens), feats[0].shape[1]), np.float32)
@@ -757,8 +827,8 @@ def lv_batch_args(net, comp, feats, dev):
     d = dec._net_dev(net, dev)
     outp = _net_outp(net, comp, fb, "highest", dev)
     args = (outp, d["band"], d["a0"], d["aE"], net.uniform_width,
-            d["bonus"], d["trans"] * LM_SCALE, d["start"] * LM_SCALE,
-            WORD_PEN)
+            d["bonus"], d["trans"] * lm[0], d["start"] * lm[0], lm[1],
+            dec._BEAM_OFF, None, dec._scale_xw(d.get("xw"), lm[0]))
     return [feats[i] for i in idx], lens, args
 
 
@@ -899,13 +969,349 @@ def phase_lv_timing(net, comp, feats, batch, args, WEs, trop_ops, card,
     return mk, mpl, tk, tpl
 
 
+def phase_random_xw(dev) -> float:
+    err, n = 0.0, 0
+    for seed in range(3):
+        for B in MAXPLUS_BS:
+            for ties in (False, True):
+                ops = [torch.as_tensor(a, device=dev) for a in
+                       random_xw_operands(seed, B=B, ties=ties,
+                                          dead_rows=min(B - 1, 2),
+                                          **XW_CASE)]
+                what = f"xw seed={seed} B={B} ties={ties}"
+                C = XW_CASE["C"]
+                err = max(err, check_equal(
+                    xg.segmax_cuda(*ops, C), xg.segmax_plain(*ops, C),
+                    f"segmax {what}"))
+                for lp in (ops[2], None):
+                    err = max(err, check_equal(
+                        xg.gather_add_cuda(ops[0], ops[1], lp),
+                        xg.gather_add_plain(ops[0], ops[1], lp),
+                        f"gather_add {what}"))
+                n += 1
+    torch.cuda.synchronize(dev)
+    width = np.diff(random_xw_operands(0, **XW_CASE)[3])
+    log(f"segmax and gather_add (with and without lp) == plain exactly on "
+        f"{n} random operand sets (C={XW_CASE['C']}, "
+        f"{int(width.sum())} slots in the first: widths 0 x "
+        f"{int((width == 0).sum())}, 1 x {int((width == 1).sum())}, "
+        f">= 500 x {int((width >= 500).sum())})")
+    return err
+
+
+def big_system(dev):
+    """The 20k system and its factored net, with their set-up times."""
+    t0 = time.perf_counter()
+    sysm = lv_system(**BIG)
+    t1 = time.perf_counter()
+    net = compile_lv_loop(sysm.words, sysm.vocab, sysm.comp, lm=sysm.lm)
+    t2 = time.perf_counter()
+    x = net.xw_backoff
+    if x is None or net.trans.size:
+        raise AssertionError("20k net: compile_lv_loop did not choose the "
+                             "factored form")
+    padded = sum(p.size for p, _ in x["buckets"])
+    log(f"20k system (lv_system {t1 - t0:.2f} s, compile_lv_loop "
+        f"{t2 - t1:.2f} s): {len(sysm.comp.names)} models, C={net.n_nodes} "
+        f"rows, S={net.uniform_width}, Ns={net.n_states}, "
+        f"K={net.band.shape[0]}, slots {len(x['slots'][0])} real / {padded} "
+        f"padded in {len(x['buckets'])} buckets, o_max "
+        f"{x['succ_j'].shape[1] if x['succ_j'] is not None else None}, "
+        f"dense trans {tuple(net.trans.shape)}")
+    return sysm, net
+
+
+def phase_big_main(sysm, net, dev):
+    """The factored main path: decode_batch of every utterance on the
+    exact, adaptive and top-A legs, with the counts read per leg."""
+    feats = sysm.feats
+    want = sum(pad_T([feats[i].shape[0] for i in idx])
+               for idx in lv_batches(len(feats)))
+    lm = (BIG_LM_SCALE, BIG_WORD_PEN)
+    out, launches = {}, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for leg, ma in (("exact", None), ("adaptive", ADAPTIVE), ("topA", TOPA)):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = lv_decode_all(net, sysm.comp, feats, dev, max_active=ma, lm=lm)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        n = launches[leg] = xg.SEGMAX.launches
+        acc = word_accuracy(sysm.truths, [r.words if r else [] for r in res])
+        log(f"20k LV decode_batch, {leg} leg (max_active={ma}): "
+            f"{len(feats)} utterances in {wall:.3f} s, segmax launches {n}, "
+            f"word accuracy {acc:.2f}% (informational)")
+        if any(r is None or not r.words for r in res):
+            raise AssertionError(f"20k {leg}: an utterance has no "
+                                 "transcript")
+        if n != (0 if leg == "topA" else want):
+            raise AssertionError(f"20k {leg}: segmax launched {n} times, "
+                                 f"expected {0 if leg == 'topA' else want}")
+        out[leg] = res
+    for a, e in zip(out["adaptive"], out["exact"]):
+        if (a.words, a.times, a.score) != (e.words, e.times, e.score):
+            raise AssertionError(f"20k adaptive != exact: {a.score} "
+                                 f"{e.score}")
+    log(f"20k adaptive-exact scores, words and times == exact for all "
+        f"{len(feats)} utterances; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    return launches["exact"]
+
+
+def phase_big_real_batch(net, comp, feats, dev):
+    """Kernel leg and plain leg of the exact factored step on the same
+    real outp: planes and 1-best."""
+    lm = (BIG_LM_SCALE, BIG_WORD_PEN)
+    batch, lens, args = lv_batch_args(net, comp, feats, dev, lm)
+    k = dec.decode_scan_uniform_batch(*args)
+    with plain_xw():
+        p = dec.decode_scan_uniform_batch(*args)
+    torch.cuda.synchronize(dev)
+    B, T, Ns = args[0].shape
+    err = compare(k, p, "20k LV batch")
+    d = dec._net_dev(net, dev)
+    best = [dec._traceback_device(*out[0], *out[1], d["aE"],
+                                  d["end_exit"] * lm[0], lens,
+                                  net.uniform_width) for out in (k, p)]
+    if not (torch.equal(best[0][0], best[1][0])
+            and torch.equal(best[0][1], best[1][1])):
+        raise AssertionError("20k LV batch: kernel and plain 1-best differ")
+    log(f"20k LV batch (B={B}, T={T}, Ns={Ns}): kernel leg == plain leg "
+        f"(max |dv| {err:.3g}; records and 1-best equal); peak device "
+        f"memory with its full (B, T, Ns) outp and both legs' planes "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    del args, p
+    return err, batch, k[1][0][:, T // 2].contiguous()
+
+
+def phase_xw_paths(net, WE, dev):
+    """routed_explicit_leg, window_gather, bucket_max and lane_gather:
+    kernel (counted) against plain, on real word ends WE (B, C) where the
+    function takes them. Returns per function its launches and operands
+    for timing."""
+    C = WE.shape[1]
+    src, tgt, p = net.xw_backoff["slots"]
+    s32 = np.float32(BIG_LM_SCALE)
+    out = {}
+    tabs = xw_route.device_tables(xw_route.build_route(src, tgt, p, C), dev)
+    tabs["scores"] = tabs["scores"] * BIG_LM_SCALE
+    wtabs = [torch.as_tensor(a, device=dev) for a in
+             xw_window.window_tables(src, p.astype(np.float32) * s32)[:3]]
+    rng = np.random.default_rng(0)  # gather_probe.py's operands
+    CB = PROBE["NNZ"] // PROBE["FB"]
+    bops = [torch.as_tensor(a, device=dev) for a in (
+        rng.standard_normal(PROBE["C"]).astype(np.float32),
+        rng.integers(0, PROBE["C"], (CB, PROBE["FB"]), dtype=np.int32),
+        rng.standard_normal((CB, PROBE["FB"])).astype(np.float32))]
+    lops = [torch.as_tensor(a, device=dev) for a in (  # dyngather_probe.py's
+        rng.standard_normal((8, LANE["W"])).astype(np.float32),
+        rng.integers(0, LANE["W"], (LANE["n"], LANE["L"]), dtype=np.int32))]
+    calls = {
+        "routed_explicit_leg": (xg.SEGMAX, lambda: xw_route.routed_explicit_leg(
+            WE, tabs)),
+        "window_gather": (xg.GATHER_ADD, lambda: xw_window.window_gather(
+            WE, *wtabs)),
+        "bucket_max": (xg.SEGMAX, lambda: xg.bucket_max(*bops)),
+        "lane_gather": (xg.GATHER_ADD, lambda: xg.lane_gather(*lops)),
+    }
+    for name, (count, fn) in calls.items():
+        reset_counts()
+        got = fn()
+        n = count.launches
+        with plain_xw():
+            ref = fn()
+        torch.cuda.synchronize(dev)
+        check_equal(got, ref, name)
+        if n != 1:
+            raise AssertionError(f"{name}: {n} launches, expected 1")
+        out[name] = (n, fn, got)
+    idx_sel = torch.index_select(lops[0][0], 0, lops[1].reshape(-1))
+    check_equal(out["lane_gather"][2],
+                idx_sel.reshape(LANE["n"], LANE["L"]),
+                "lane_gather against index_select")
+    # the routed leg equals the decoder's bucket leg where a target has a
+    # predecessor (the buckets' pad slots only decide the others)
+    bv, ba = dec._segmax_leg(WE, dec._scale_xw(dec._net_dev(net, dev)["xw"],
+                                               BIG_LM_SCALE), C)
+    rv, ra = out["routed_explicit_leg"][2]
+    has = torch.as_tensor(np.bincount(tgt, minlength=C) > 0, device=dev)
+    if not (torch.equal(rv[:, has], bv[:, has])
+            and torch.equal(ra[:, has], ba[:, has])):
+        raise AssertionError("routed leg != bucket leg on targets with a "
+                             "predecessor")
+    log(f"routed_explicit_leg ({len(src)} slots, {int(has.sum())} of {C} "
+        f"targets with a predecessor), window_gather "
+        f"({wtabs[0].numel()} tiles), bucket_max ({CB} x {PROBE['FB']}, "
+        f"C={PROBE['C']}) and lane_gather (W={LANE['W']}, "
+        f"{LANE['n']} x {LANE['L']}): one launch each, kernel == plain "
+        f"exactly; routed == bucket leg on targets with a predecessor; "
+        f"lane_gather == index_select")
+    return out, tabs, wtabs, bops, lops
+
+
+def phase_trigram(dev):
+    """Trigram guidance at 5k (bench.py's triguide_5k row): one batch."""
+    t0 = time.perf_counter()
+    sysm = lv_system(n_utts=DECODEBATCH, **TRI)
+    t1 = time.perf_counter()
+    net = compile_lv_loop(sysm.words, sysm.vocab, sysm.comp, lm=sysm.lm,
+                          trigram=True)
+    t2 = time.perf_counter()
+    x3 = net.xw_trigram
+    if x3 is None:
+        raise AssertionError("5k trigram net has no guidance tables")
+    reset_counts()
+    t3 = time.perf_counter()
+    res = dec.decode_batch(net, sysm.comp, sysm.feats, LM_SCALE, WORD_PEN,
+                           max_active=TOPA, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t3
+    n = sum(k.launches for k in COUNTS)
+    if n or any(r is None or not r.words for r in res):
+        raise AssertionError(f"5k trigram: {n} kernel launches, or an "
+                             "utterance without a transcript")
+    acc = word_accuracy(sysm.truths, [r.words for r in res])
+    log(f"5k trigram system (lv_system {t1 - t0:.2f} s, compile_lv_loop "
+        f"{t2 - t1:.2f} s): C={net.n_nodes}, {len(x3['pair_u'])} contexts, "
+        f"{len(x3['tri_j'])} trigram slots, o3max {x3['o3max']}; "
+        f"decode_batch of {len(res)} at max_active={TOPA}: {wall:.3f} s, "
+        f"no kernel launched (the guided leg is torch ops), word accuracy "
+        f"{acc:.2f}% (informational); first words {res[0].words[:8]}")
+    return wall
+
+
+def xw_bounds(net, WE, tabs, wtabs, bops, lops):
+    """Bounds of the four xw functions at this run's shapes."""
+    B, C = WE.shape
+    x = dec._net_dev(net, WE.device)["xw"]
+    N, R = x["preds"].numel(), x["out_row"].numel()
+
+    def seg(name, B, C, N, R):
+        return bound(name, 4 * (2 * N + B * C + 2 * B * R + 2 * R + 1),
+                     2 * B * N)
+
+    Nw = wtabs[1].numel()
+    CB, FB = bops[1].shape
+    n_lane = lops[1].numel()
+    return {
+        "segmax": seg("segmax", B, C, N, R),
+        "routed_explicit_leg": seg("routed_explicit_leg", B, C,
+                                   tabs["preds"].numel(), C),
+        "window_gather": bound("window_gather", 4 * (wtabs[0].numel()
+                                                     + 2 * Nw + B * C
+                                                     + B * Nw), B * Nw),
+        "bucket_max": bound("bucket_max", 4 * (2 * CB * FB + bops[0].numel()
+                                               + CB), 2 * CB * FB),
+        "lane_gather": bound("lane_gather", 4 * (lops[0].shape[1]
+                                                 + 2 * n_lane), 0),
+    }
+
+
+def phase_big_timing(sysm, net, batch, WE, paths, lops, card, dev):
+    """Per launch times of segmax and the four xw functions, LV batch
+    times per leg, xRT per leg, and a profile of one exact batch."""
+    x = dec._scale_xw(dec._net_dev(net, dev)["xw"], BIG_LM_SCALE)
+    C = WE.shape[1]
+    times = {}
+    fns = {"segmax": lambda: dec._segmax_leg(WE, x, C)}
+    fns.update({k: v[1] for k, v in paths.items()})
+
+    def plain(fn):
+        def run():
+            with plain_xw():
+                fn()
+        return run
+
+    log(f"timing on {card} (per launch, CUDA events over {LAUNCH_LOOP} "
+        f"launches; median of 6, in turns plain/kernel/kernel/plain):")
+    for name, fn in fns.items():
+        k, p, ks, ps = in_turns(time_launches, plain(fn), fn, dev)
+        times[name] = [k, p, None]
+        log(f"  {name}: kernel {k:.6f} ms, plain {p:.6f} ms; samples "
+            + " ".join(f"{v:.6f}" for v in ks) + " | "
+            + " ".join(f"{v:.6f}" for v in ps))
+    for name, fn in fns.items():
+        # the same calls under torch.profiler: the kernel's own device
+        # time, apart from the wrapper's host work between launches
+        _w, ops, _n = device_profile(
+            lambda: [fn() for _ in range(LAUNCH_LOOP)], dev)
+        kern = sum(ms for k, ms in ops if "segmax_kernel" in k
+                   or "gather_add_kernel" in k)
+        log(f"  {name}: device time a call (torch.profiler, "
+            f"{LAUNCH_LOOP} calls): kernel {kern / LAUNCH_LOOP:.6f} ms, all "
+            f"device operations {sum(ms for _k, ms in ops) / LAUNCH_LOOP:.6f}"
+            f" ms")
+    row, flat = lops[0][0], lops[1].reshape(-1)
+    ls = time_launches(lambda: torch.index_select(row, 0, flat), dev, reps=6)
+    times["lane_gather"][2] = statistics.median(ls)
+    log(f"  torch.index_select (lane_gather's function): "
+        f"{times['lane_gather'][2]:.6f} ms; samples "
+        + " ".join(f"{v:.6f}" for v in ls))
+
+    lm = (BIG_LM_SCALE, BIG_WORD_PEN)
+    B, T = len(batch), pad_T([f.shape[0] for f in batch])
+
+    def one_batch(ma=None):
+        return lambda: dec.decode_batch(net, sysm.comp, batch, *lm,
+                                        max_active=ma, device=dev)
+
+    bk, bp, bks, bps = in_turns(time_call, plain(one_batch()), one_batch(),
+                                dev)
+    log(f"  20k LV batch (decode_batch, B={B}, T={T}): exact kernel leg "
+        f"{bk:.3f} ms ({bk / T * 1e3:.1f} us per frame), exact plain leg "
+        f"{bp:.3f} ms; samples " + " ".join(f"{v:.3f}" for v in bks)
+        + " | " + " ".join(f"{v:.3f}" for v in bps))
+    for leg, ma in (("adaptive", ADAPTIVE), ("topA", TOPA)):
+        ts = time_call(one_batch(ma), dev)
+        log(f"  20k LV batch, {leg} leg (max_active={ma}): "
+            f"{statistics.median(ts):.3f} ms; samples "
+            + " ".join(f"{v:.3f}" for v in ts))
+    audio = sum(f.shape[0] for f in sysm.feats) * FRAME_S
+    for leg, ma in (("exact", None), ("adaptive", ADAPTIVE), ("topA", TOPA)):
+        walls = time_call(lambda: lv_decode_all(net, sysm.comp, sysm.feats,
+                                                dev, ma, lm), dev)
+        w = statistics.median(walls)
+        log(f"  20k decode_batch of {len(sysm.feats)} utterances "
+            f"({audio:.2f} s of audio), {leg} leg: {w:.3f} ms, xRT "
+            f"{w / 1e3 / audio:.6f}; samples "
+            + " ".join(f"{v:.3f}" for v in walls))
+    wall, ops, n_ops = device_profile(one_batch(), dev)
+    busy = sum(ms for _k, ms in ops)
+    sm = sum(ms for k, ms in ops if "segmax" in k)
+    log(f"profile on {card} of one exact 20k LV batch: wall {wall:.1f} ms "
+        f"(unprofiled {bk:.1f} ms), device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f}% of the profiled wall, "
+        f"{100 * busy / bk:.1f}% of the unprofiled), {n_ops} device "
+        f"operations ({n_ops / T:.1f} per frame), segmax kernel {sm:.2f} ms "
+        f"({100 * sm / max(busy, 1e-9):.1f}% of busy); top: "
+        + ", ".join(f"{k[:48]} {ms:.2f} ms" for k, ms in ops[:8]))
+    return times
+
+
+def kernel_entry(name, source, replaces, launches, err, times, bnd,
+                 library_ms=None):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": times[0], "plain_ms": times[1], "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": library_ms}
+
+
 def main() -> int:
     os.environ[DEVICE_ENV] = "cuda"
+    t_all = time.perf_counter()
+    marks = [t_all]
+
+    def done(what):
+        marks.append(time.perf_counter())
+        log(f"[phase] {what}: {marks[-1] - marks[-2]:.1f} s")
+
     card = phase_device()
     dev = torch.device("cuda")
     err = phase_random_nets(dev)
     fb_err = phase_random_fb(dev)
     mp_err = phase_random_maxplus(dev)
+    xw_err = phase_random_xw(dev)
+    done("device, builds and random operands")
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.perf_counter()
@@ -921,6 +1327,7 @@ def main() -> int:
         kms, pms = phase_timing(net, comp, feats, card, dev)
         fkms, fpms = phase_fb_timing(fb_ops, trainer, utts, card, dev)
         phase_profile(sysm, fb_ops, root, card, dev)
+        done("HVite and HERest")
         lvnet = lv_network(sysm, comp)
         mp_launches = phase_lv_main(sysm, hyps, lvnet, comp, feats, dev)
         batch, lens, lv_args = lv_batch_args(lvnet, comp, feats, dev)
@@ -929,63 +1336,55 @@ def main() -> int:
         tr_launches, tr_err, tr_ops = phase_tropical_path(lvnet, WEs, dev)
         mkms, mpms, tkms, tpms = phase_lv_timing(
             lvnet, comp, feats, batch, lv_args, WEs, tr_ops, card, dev)
+        del lv_args
+        done("1k LV decoder")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    big, bnet = big_system(dev)
+    done("20k system set-up")
+    sm_launches = phase_big_main(big, bnet, dev)
+    sm_err, bbatch, bWE = phase_big_real_batch(bnet, big.comp, big.feats, dev)
+    paths, rtabs, wtabs, bops, lops = phase_xw_paths(bnet, bWE, dev)
+    done("20k factored LV decoder and xw paths")
+    phase_trigram(dev)
+    done("5k trigram guidance")
+    xt = phase_big_timing(big, bnet, bbatch, bWE, paths, lops, card, dev)
+    done("20k timing")
     dbound = decode_bound(TIMING_B, TIMING_T, net.n_states, net.n_nodes,
                           net.band.shape[0])
     fbound = fb_bound(fb_ops[0], fb_ops[1], fb_ops[4])
     mbound = maxplus_bound("maxplus", *WEs[:, 0].shape)
     tbound = maxplus_bound("tropical", *tr_ops[0].shape)
+    xb = xw_bounds(bnet, bWE, rtabs, wtabs, bops, lops)
+    log(f"chip_smoke: {time.perf_counter() - t_all:.1f} s in all")
     log(card)
-    print(json.dumps({"kernels": [{
-        "name": "decode_scan",
-        "route": "cuda",
-        "source": "htk_tpu_torch/csrc/decode_scan.cu",
-        "replaces": "htk_tpu/ops/decode_pallas.py:137",
-        "launches": launches,
-        "max_abs_err": max(err, e2),
-        "ms": kms,
-        "plain_ms": pms,
-        "bound_ms": dbound[0],
-        "bound_by": dbound[1],
-        "library_ms": None,
-    }, {
-        "name": "fb_scans",
-        "route": "cuda",
-        "source": "htk_tpu_torch/csrc/fb_scans.cu",
-        "replaces": "htk_tpu/ops/fb_pallas.py:127",
-        "launches": fb_launches,
-        "max_abs_err": max(fb_err, fb_err2),
-        "ms": fkms,
-        "plain_ms": fpms,
-        "bound_ms": fbound[0],
-        "bound_by": fbound[1],
-        "library_ms": None,
-    }, {
-        "name": "maxplus",
-        "route": "cuda",
-        "source": "htk_tpu_torch/csrc/maxplus.cu",
-        "replaces": "htk_tpu/ops/maxplus_pallas.py:67",
-        "launches": mp_launches,
-        "max_abs_err": max(mp_err, mp_err2),
-        "ms": mkms,
-        "plain_ms": mpms,
-        "bound_ms": mbound[0],
-        "bound_by": mbound[1],
-        "library_ms": None,
-    }, {
-        "name": "tropical",
-        "route": "cuda",
-        "source": "htk_tpu_torch/csrc/maxplus.cu",
-        "replaces": "htk_tpu/ops/tropical_pallas.py:46",
-        "launches": tr_launches,
-        "max_abs_err": max(mp_err, tr_err),
-        "ms": tkms,
-        "plain_ms": tpms,
-        "bound_ms": tbound[0],
-        "bound_by": tbound[1],
-        "library_ms": None,
-    }]}))
+    xs = "htk_tpu_torch/csrc/xw_gather.cu"
+    print(json.dumps({"kernels": [
+        kernel_entry("decode_scan", "htk_tpu_torch/csrc/decode_scan.cu",
+                     "htk_tpu/ops/decode_pallas.py:137", launches,
+                     max(err, e2), (kms, pms), dbound),
+        kernel_entry("fb_scans", "htk_tpu_torch/csrc/fb_scans.cu",
+                     "htk_tpu/ops/fb_pallas.py:127", fb_launches,
+                     max(fb_err, fb_err2), (fkms, fpms), fbound),
+        kernel_entry("maxplus", "htk_tpu_torch/csrc/maxplus.cu",
+                     "htk_tpu/ops/maxplus_pallas.py:67", mp_launches,
+                     max(mp_err, mp_err2), (mkms, mpms), mbound),
+        kernel_entry("tropical", "htk_tpu_torch/csrc/maxplus.cu",
+                     "htk_tpu/ops/tropical_pallas.py:46", tr_launches,
+                     max(mp_err, tr_err), (tkms, tpms), tbound),
+        kernel_entry("segmax", xs, "htk_tpu/ops/xw_route.py:220",
+                     sm_launches, max(xw_err, sm_err), xt["segmax"],
+                     xb["segmax"]),
+        kernel_entry("window_gather", xs, "htk_tpu/ops/xw_pallas.py:66",
+                     paths["window_gather"][0], xw_err, xt["window_gather"],
+                     xb["window_gather"]),
+        kernel_entry("bucket_max", xs, "benchmarks/gather_probe.py:58",
+                     paths["bucket_max"][0], xw_err, xt["bucket_max"],
+                     xb["bucket_max"]),
+        kernel_entry("lane_gather", xs, "benchmarks/dyngather_probe.py:22",
+                     paths["lane_gather"][0], xw_err, xt["lane_gather"],
+                     xb["lane_gather"], xt["lane_gather"][2]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

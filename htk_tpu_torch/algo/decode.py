@@ -24,19 +24,29 @@ uniform-row LV decoder, the counterpart of the reference's
 `decode_scan_uniform_batch`/`_lv_pipeline`: the word-end reduction is a
 row max, word entry a row broadcast, and the cross-word step one of
 
-  dense exact  entry[b, j] = max_i WE[b, i] + trans[i, j] through
-               ops/maxplus (the CUDA kernel csrc/maxplus.cu on the card,
-               its plain version on the CPU), one launch per frame
-  dense top-A  only the `max_active` best word ends propagate (HLVRec's
-               maxModel pruning), as batched torch ops
+  dense exact     entry[b, j] = max_i WE[b, i] + trans[i, j] through
+                  ops/maxplus (the CUDA kernel csrc/maxplus.cu on the
+                  card, its plain version on the CPU), one launch a frame
+  dense top-A     only the `max_active` best word ends propagate (HLVRec's
+                  maxModel pruning), as batched torch ops
+  factored        (nets with `xw_backoff`, compile_lv_loop above 8,000
+                  rows) the back-off leg max_i(WE[i] + bow[i]) + uni[j],
+                  maxed with an explicit-bigram leg: exact, one
+                  ops/xw_gather.segmax launch a frame over the buckets'
+                  slots (csrc/xw_gather.cu on the card); top-A, a
+                  scatter-max over the successor tables of the A best word
+                  ends; adaptive-exact top-A (negative `max_active`), both
+                  legs every frame and the exact one taken wherever the
+                  certificate fails
+  trigram-guided  (nets with `xw_trigram`) the factored legs over the
+                  top-A word ends, each scored under its token's trigram
+                  context
 
 The frame loop runs in Python with OutP computed chunk-wise, then a
 batched traceback walks the word-link records on the device and only the
-(B, 3, T) path plane comes back to the host. The factored back-off
-(`xw_backoff`) and trigram-guided (`xw_trigram`) cross-word legs are not
-ported yet and raise HError 8527; so do the reference's hybrid
-(`state_scores`) and adaptation (`model_params`) hooks, which are not
-taken.
+(B, 3, T) path plane comes back to the host. The reference's hybrid
+(`state_scores`) and adaptation (`model_params`) hooks and its opt-in
+routed leg (`HTKTPU_XW_ROUTE`) are not taken.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import torch
 
 from ..models.hmmset import CompiledHMMSet
 from ..ops import maxplus as _maxplus
+from ..ops import xw_gather as _xw_gather
 from ..ops.decode_scan import decode_scan
 from ..ops.outp import GaussianScorer
 from ..utils.errors import HError
@@ -76,12 +87,37 @@ class DecodeResult:
     scores: List[float]  # per-word segment scores
 
 
-def _check_ported(net: DecodeNetwork) -> None:
-    if net.xw_backoff is not None or net.xw_trigram is not None:
-        HError(8527, "decode: the factored (xw_backoff) and trigram-guided "
-                     "(xw_trigram) cross-word legs are not yet ported to "
-                     "htk_tpu_torch; compile_lv_loop(factored=False) gives "
-                     "the dense form")
+_XW3_TABLES = ("pair_u", "pair_bow", "pair_tstart", "pair_tcnt", "seg_start",
+               "tri_j", "tri_p", "ctx_word")
+
+
+def _xw_dev(x: dict, device) -> dict:
+    """The factored cross-word tables on `device`. The buckets are
+    flattened once into one segment table in layout order, pad slots
+    (pred 0, score LZERO) kept: preds/scores (N,), seg_off (R+1,) and
+    out_row (R,), each layout row's target row (the inverse of `inv`).
+    Index tables the step scatters or gathers with are int64."""
+    buckets = x["buckets"]
+    widths = [[0]] + [np.full(len(p), p.shape[1]) for p, _ in buckets]
+
+    def t(a, dtype=None):
+        if a is None:
+            return None
+        return torch.as_tensor(np.asarray(a, dtype), device=device)
+
+    return {
+        "bow": t(x["bow"], np.float32),
+        "uni": t(x["uni"], np.float32),
+        "succ_j": t(x.get("succ_j"), np.int64),
+        "succ_p": t(x.get("succ_p"), np.float32),
+        "marg": t(x.get("marg"), np.float32),
+        "preds": t(np.concatenate([np.zeros(0, np.int32)] + [
+            p.reshape(-1) for p, _ in buckets]), np.int32),
+        "scores": t(np.concatenate([np.zeros(0, np.float32)] + [
+            s.reshape(-1) for _, s in buckets]), np.float32),
+        "seg_off": t(np.cumsum(np.concatenate(widths)), np.int32),
+        "out_row": t(np.argsort(x["inv"]) if buckets else [], np.int32),
+    }
 
 
 def _net_dev(net: DecodeNetwork, device) -> dict:
@@ -113,8 +149,38 @@ def _net_dev(net: DecodeNetwork, device) -> dict:
             "bonus": f32(net.chain_pron_prob),  # (C,) per row, uniform nets
             "end_exit": f32(net.end_exit),
         }
+        if net.xw_backoff is not None:
+            d["xw"] = _xw_dev(net.xw_backoff, device)
+        x3 = net.xw_trigram
+        if x3 is not None:
+            d["xw3"] = {k: torch.as_tensor(
+                x3[k], dtype=torch.float32 if x3[k].dtype.kind == "f"
+                else torch.int64, device=device) for k in _XW3_TABLES}
+            d["xw3"]["o3max"] = x3["o3max"]
+            d["xw3"]["iters"] = x3["iters"]
         caches[str(device)] = d
     return d
+
+
+def _scale_xw(xw: Optional[dict], lm_scale: float) -> Optional[dict]:
+    """The factored tables LM-scaled; once per decode call."""
+    if xw is None:
+        return None
+    out = dict(xw)
+    for k in ("bow", "uni", "scores", "succ_p", "marg"):
+        if out[k] is not None:
+            out[k] = out[k] * lm_scale
+    return out
+
+
+def _scale_xw3(x3: Optional[dict], lm_scale: float) -> Optional[dict]:
+    """The trigram guidance tables LM-scaled; once per decode call."""
+    if x3 is None:
+        return None
+    out = dict(x3)
+    out["pair_bow"] = x3["pair_bow"] * lm_scale
+    out["tri_p"] = x3["tri_p"] * lm_scale
+    return out
 
 
 def scorer_for(comp: CompiledHMMSet, device,
@@ -174,17 +240,153 @@ def _unpack(rec):
             ((rec & REC_TMASK) - 1).to(torch.int32))
 
 
+def _top_a(WE, A: int):
+    """The A best word ends (B, A) in jax.lax.top_k's order: descending,
+    the lower row first on ties (a stable sort)."""
+    vals, idxs = torch.sort(WE, dim=1, descending=True, stable=True)
+    return vals[:, :A], idxs[:, :A]
+
+
+def _scatter_max(cand, tgt, src, C: int):
+    """Candidates cand (B, A, O) scattered to target rows tgt (B, A, O)
+    int64 (pads at the dummy row C): per target the max, 2*LZERO where
+    none lands, and the HIGHEST source row src (B, A) whose candidate
+    reaches it, -1 where none (the reference's scatter-max tie rule,
+    htk_tpu/algo/decode.py:572-581; the bucket leg keeps the first
+    slot)."""
+    B = cand.shape[0]
+    tgt = tgt.reshape(B, -1)
+    cand = cand.reshape(B, -1)
+    ex = torch.full((B, C + 1), 2 * LZERO, dtype=torch.float32,
+                    device=cand.device)
+    ex.scatter_reduce_(1, tgt, cand, "amax", include_self=True)
+    src = src[..., None].expand(-1, -1, tgt.shape[1] // src.shape[1])
+    win = torch.where(cand >= ex.gather(1, tgt), src.reshape(B, -1), -1)
+    anx = torch.full((B, C + 1), -1, dtype=torch.int64, device=cand.device)
+    anx.scatter_reduce_(1, tgt, win, "amax", include_self=True)
+    return ex[:, :C], anx[:, :C]
+
+
+def _segmax_leg(WE, xw, C: int):
+    """The exact explicit-bigram leg: one segmax over the buckets' slots,
+    written straight into target rows."""
+    return _xw_gather.segmax(WE, xw["preds"], xw["scores"], xw["seg_off"],
+                             xw["out_row"], C)
+
+
+def _take(m, an, exp_v, exp_a):
+    """Max the entry scores with an explicit leg; its source wins only
+    where it is strictly better."""
+    take = exp_v > m
+    return torch.maximum(m, exp_v), torch.where(take, exp_a, an)
+
+
+def _factored_leg(xw, C: int, A: Optional[int], adaptive: bool):
+    """cross(WE, pwn) -> (m, an) (B, C) for the factored tables `xw`
+    (LM-scaled): htk_tpu/algo/decode.py:546-643 without the routed hook.
+    The reference picks adaptive-exact's leg with a lax.cond on one
+    batch-wide certificate; here both legs run every frame and
+    torch.where selects on the same batch-wide flag, so the frame loop
+    never waits on the device (segmax launches every frame)."""
+    use_topa = A is not None and A < C and xw["succ_j"] is not None
+    has_slots = xw["out_row"].numel() > 0
+    bow_r, uni_r = xw["bow"][None], xw["uni"][None]
+
+    def cross(WE, pwn):
+        bo_best, bo_arg = torch.max(WE + bow_r, dim=1)
+        m = bo_best[:, None] + uni_r
+        an = bo_arg[:, None].expand_as(m)
+        if use_topa:
+            vals, idxs = _top_a(WE, A)
+            cand = vals[..., None] + xw["succ_p"][idxs]  # (B, A, O)
+            exp_v, exp_a = _scatter_max(cand, xw["succ_j"][idxs], idxs, C)
+            if adaptive:
+                # an excluded source i can beat the back-off floor
+                # bo_best + uni[j] only if WE[i] + marg[i] > bo_best
+                ex_m = (WE + xw["marg"][None]).scatter(1, idxs, 2 * LZERO)
+                safe = (ex_m.amax(dim=1) <= bo_best).all()
+                slow_v, slow_a = _segmax_leg(WE, xw, C)
+                exp_v = torch.where(safe, exp_v, slow_v)
+                exp_a = torch.where(safe, exp_a, slow_a)
+        elif has_slots:
+            exp_v, exp_a = _segmax_leg(WE, xw, C)
+        else:
+            return m, an
+        return _take(m, an, exp_v, exp_a)
+
+    return cross
+
+
+def _trigram_leg(xw, x3, C: int, A: Optional[int]):
+    """cross(WE, pwn) -> (m, an) (B, C) with single-pass trigram guidance
+    (`xw3`, LM-scaled): htk_tpu/algo/decode.py:454-545. Every leg runs
+    over the top-A word ends (all rows when A is off), each scored under
+    its token's trigram context u = word(pwn)."""
+    topa = A is not None and A < C
+    P = x3["pair_u"].shape[0]
+    o3 = x3["o3max"]
+
+    def cross(WE, pwn):
+        B = WE.shape[0]
+        if topa:
+            vals, idxs = _top_a(WE, A)
+            uA = pwn.gather(1, idxs)
+        else:
+            idxs = torch.arange(C, device=WE.device)[None].expand(B, C)
+            vals, uA = WE, pwn
+        uw = x3["ctx_word"][torch.where(uA >= 0, uA, C).long()]
+        # lower-bound search for (u, v) in the row's static pair segment,
+        # step for step as the reference's
+        lo = x3["seg_start"][idxs]
+        hi0 = x3["seg_start"][idxs + 1]
+        hi = hi0
+        for _ in range(x3["iters"]):
+            mid = (lo + hi) >> 1
+            mu = x3["pair_u"][mid.clamp(max=P - 1)]
+            go = (mid < hi) & (mu < uw)
+            lo = torch.where(go, mid + 1, lo)
+            hi = torch.where(go | (mid >= hi), hi, mid)
+        loc = lo.clamp(max=P - 1)
+        hit = (lo < hi0) & (x3["pair_u"][loc] == uw)
+        vb = vals + torch.where(hit, x3["pair_bow"][loc], 0.0)
+        bo_best, kbo = torch.max(vb + xw["bow"][idxs], dim=1, keepdim=True)
+        m = bo_best + xw["uni"][None]
+        an = idxs.gather(1, kbo).expand(B, C)
+        if xw["succ_j"] is not None:
+            cand = vb[..., None] + xw["succ_p"][idxs]
+            m, an = _take(m, an, *_scatter_max(cand, xw["succ_j"][idxs],
+                                               idxs, C))
+        elif not topa and xw["out_row"].numel():
+            # no successor tables: vb is row-aligned, so the exact bucket
+            # leg applies unchanged
+            m, an = _take(m, an, *_segmax_leg(vb, xw, C))
+        if o3:
+            st = torch.where(hit, x3["pair_tstart"][loc], 0)
+            cn = torch.where(hit, x3["pair_tcnt"][loc], 0)
+            sl = torch.arange(o3, device=WE.device)[None, None]
+            valid = sl < cn[..., None]
+            oc = torch.where(valid, st[..., None] + sl, 0)
+            tjg = torch.where(valid, x3["tri_j"][oc], C)
+            tpg = torch.where(valid, x3["tri_p"][oc], 2 * LZERO)
+            m, an = _take(m, an, *_scatter_max(vals[..., None] + tpg, tjg,
+                                               idxs, C))
+        return m, an
+
+    return cross
+
+
 def _make_uniform_step(B, Ns, band, a0, aE, S, entry_bonus_row, trans,
                        start_entry, word_pen, beam, max_active, xw=None,
                        xw3=None):
     """The batched per-frame update as step(carry, outp_t, t), for
-    uniform-row nets (htk_tpu/algo/decode.py : _make_uniform_step, the
-    dense legs). carry = (v (B, Ns) f32, rec (B, Ns) int64 packed
-    records); returns the next carry and this frame's word-end records
-    (WE, pwn, pwt), each (B, C). `t` is the Python frame index, `beam`
-    and `word_pen` Python floats, so the step never waits on the device.
-    The operations run in the reference's order, which keeps the scores
-    bit-equal to it on the same outp."""
+    uniform-row nets (htk_tpu/algo/decode.py : _make_uniform_step).
+    carry = (v (B, Ns) f32, rec (B, Ns) int64 packed records); returns the
+    next carry and this frame's word-end records (WE, pwn, pwt), each
+    (B, C). `t` is the Python frame index, `beam` and `word_pen` Python
+    floats, so the step never waits on the device. `xw`/`xw3` are the
+    factored and trigram tables of `_net_dev`, LM-scaled (`_scale_xw`,
+    `_scale_xw3`). The operations run in the reference's order, which
+    keeps the scores bit-equal to it on the same outp."""
     C = Ns // S
     K = band.shape[0]
     max_active, adaptive = _topa_mode(max_active)
@@ -192,21 +394,35 @@ def _make_uniform_step(B, Ns, band, a0, aE, S, entry_bonus_row, trans,
         HError(8520, "decode_scan_uniform_batch: %d rows exceed the "
                      "packed-record range (%d)", C, REC_MAXROWS)
     if adaptive and (xw is None or xw3 is not None
-                     or xw.get("succ_j") is None or not xw["buckets"]
+                     or xw.get("succ_j") is None
+                     or not xw["out_row"].numel()
                      or xw.get("marg") is None):
         HError(8526, "adaptive-exact top-A needs the factored cross-word "
                      "tables with successor tables and buckets (and is "
                      "not combined with trigram guidance, which is "
                      "already a top-A semantic)")
-    if xw is not None or xw3 is not None:
-        HError(8527, "decode: the factored and trigram-guided cross-word "
-                     "legs are not yet ported to htk_tpu_torch")
+    if xw3 is not None:
+        if xw is None:
+            HError(8526, "trigram guidance needs the factored cross-word "
+                         "tables (compile_lv_loop(factored=True))")
+        if (xw.get("succ_j") is None and max_active is not None
+                and max_active < C):
+            HError(8526, "trigram guidance with top-A pruning needs the "
+                         "bigram successor tables (out-degree too skewed "
+                         "at this vocabulary) — decode without -u or "
+                         "disable HDECODE: TRIGUIDE")
     topa = max_active is not None and max_active < C
     beam_on = beam is not None and beam < _BEAM_OFF
     a0_r = a0.reshape(C, S)[None]
     aE_r = aE[None]
     bonus_r = entry_bonus_row[None]
     start_r = start_entry[None].expand(B, C)
+    if xw3 is not None:
+        cross = _trigram_leg(xw, xw3, C, max_active)
+    elif xw is not None:
+        cross = _factored_leg(xw, C, max_active, adaptive)
+    else:
+        cross = None
 
     def step(carry, outp_t, t: int):
         v, rec = carry
@@ -216,10 +432,10 @@ def _make_uniform_step(B, Ns, band, a0, aE, S, entry_bonus_row, trans,
         prec = rec.reshape(B, C, S).gather(2, best_s[..., None])[..., 0]
         pwn, pwt = _unpack(torch.where(ok, prec, 0))
 
-        if topa:
-            # jax.lax.top_k order: descending, lower index first on ties
-            vals, idxs = torch.sort(WE, dim=1, descending=True, stable=True)
-            vals, idxs = vals[:, :max_active], idxs[:, :max_active]
+        if cross is not None:
+            m, an = cross(WE, pwn)
+        elif topa:
+            vals, idxs = _top_a(WE, max_active)
             cand = vals[..., None] + trans[idxs]  # (B, A, C)
             m, k = torch.max(cand, dim=1)
             an = idxs.gather(1, k)
@@ -278,8 +494,9 @@ def decode_scan_uniform_batch(
 ):
     """Batched uniform-row scan over precomputed outp: returns
     ((v, wn, wt) (B, Ns), (WEs, pwns, pwts) (B, T, C)), the layout of the
-    reference's `decode_scan_uniform_batch`. `xw`/`xw3` (the factored and
-    trigram legs) raise HError 8527."""
+    reference's `decode_scan_uniform_batch`. `xw`/`xw3`: the factored and
+    trigram tables of `_net_dev`, LM-scaled (`_scale_xw`, `_scale_xw3`);
+    `trans` is then the net's empty (0, 0) matrix."""
     B, T, Ns = outp_states.shape
     step = _make_uniform_step(
         B, Ns, band, a0, aE, S, entry_bonus_row, trans, start_entry,
@@ -373,14 +590,14 @@ def run_decode_batch(
     On general networks `beam`/`max_active` are accepted for the caller's
     retry ladder and, as in the reference's general-network branch, not
     read."""
-    _check_ported(net)
     if net.uniform_width:
         d = _net_dev(net, outp_states.device)
         return decode_scan_uniform_batch(
             outp_states, d["band"], d["a0"], d["aE"], net.uniform_width,
             d["bonus"], d["trans"] * lm_scale, d["start"] * lm_scale,
             float(word_pen), _BEAM_OFF if beam is None else float(beam),
-            max_active)
+            max_active, _scale_xw(d.get("xw"), lm_scale),
+            _scale_xw3(d.get("xw3"), lm_scale))
     return decode_scan(*decode_operands(outp_states, net, lm_scale,
                                         word_pen))
 
@@ -487,7 +704,8 @@ def _lv_scan_body(net, comp, d, precision, max_active, x, lm_scale,
     step = _make_uniform_step(
         B, Ns, d["band"], d["a0"], d["aE"], S, d["bonus"],
         d["trans"] * lm_scale, d["start"] * lm_scale, word_pen, beam,
-        max_active)
+        max_active, _scale_xw(d.get("xw"), lm_scale),
+        _scale_xw3(d.get("xw3"), lm_scale))
     scorer = scorer_for(comp, x.device, precision)
     CH = _lv_chunk(T, B, Ns)
     carry = _uniform_init(B, Ns, x.device)
@@ -627,7 +845,6 @@ def decode(
     """Decode one utterance on `device`; returns None if no complete path
     survives. On uniform-row nets an utterance longer than the packed
     record's frame range (REC_TMASK) is decoded in chunks."""
-    _check_ported(net)
     T = feats.shape[0]
     if net.uniform_width:
         if T > REC_TMASK:
@@ -662,8 +879,9 @@ def decode_batch(
     device,
 ) -> List[Optional[DecodeResult]]:
     """Decode a batch of utterances together on `device`: one decode
-    launch on general nets, one uniform-row scan (one maxplus launch a
-    frame on the dense exact leg) on lvnet nets.
+    launch on general nets, one uniform-row scan on lvnet nets (one
+    maxplus launch a frame on the dense exact leg, one segmax launch a
+    frame on the factored exact and adaptive legs).
 
     Utterances are zero-padded to a common frame count rounded up to
     `pad_to`. Padding never affects results: the recursion is causal and
@@ -672,7 +890,6 @@ def decode_batch(
     per utterance. On uniform-row nets, utterances longer than REC_TMASK
     frames go through `decode` (chunked) one by one, the rest batch.
     """
-    _check_ported(net)
     B = len(feats_list)
     lens = [int(f.shape[0]) for f in feats_list]
     if net.uniform_width and max(lens) > REC_TMASK:

@@ -28,10 +28,9 @@ traceback / lattice machinery in algo/decode.py applies unchanged.
 
 Copied whole from `htk_tpu/algo/lvnet.py` into the PyTorch port: host
 code, numpy only, behaviour unchanged, so the same network compiles in
-both packages. The port's decoder runs the dense cross-word forms; it
-refuses the factored (`xw_backoff`) and trigram (`xw_trigram`) tables
-with HError 8527 until their legs are ported. The port cannot import
-htk_tpu, whose utils package pulls in JAX.
+both packages. The port's decoder runs every cross-word form: dense,
+factored (`xw_backoff`) and trigram-guided (`xw_trigram`). The port
+cannot import htk_tpu, whose utils package pulls in JAX.
 """
 
 from __future__ import annotations

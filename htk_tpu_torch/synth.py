@@ -25,14 +25,19 @@ port's own file writers:
              phone-level transcriptions (-I)
   train.scp  the feature files again, as HERest's training script (-S)
 
+At the defaults (1,000 words, 40 phones, 2,000 tied 8-mixture states,
+39 dims) this is htk_tpu's BASELINE config #4 system.
+
+`lv_system` builds the same shape of system in memory at any vocabulary
+(htk_tpu's bench.py `build_tied_triphone_system`, the big-vocabulary and
+trigram-guidance rows), for the LV decoder's factored legs.
+
 `random_decode_net` makes the operands of one decode recursion directly
 (a random general net and its observation scores), for holding the
 decode kernel against its plain version; `random_fb_operands` does the
 same for the forward-backward scans, `random_maxplus_operands` for the
-max-plus cross-word product.
-
-At the defaults (1,000 words, 40 phones, 2,000 tied 8-mixture states,
-39 dims) this is htk_tpu's BASELINE config #4 system.
+max-plus cross-word product, `random_xw_operands` for the segmented
+max-plus and gather-add of the factored cross-word leg.
 """
 
 from __future__ import annotations
@@ -40,15 +45,17 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 
+from .io.dictionary import Vocab
 from .io.htkfeat import write_htk_file
 from .io.lm import NGramLM, write_arpa
 from .io.mmf import HMMDef, HMMSet, MixPDF, StateInfo, StreamElem, save_mmf
 from .io.parmkind import str2parmkind
 from .io.slf import LArc, LNode, Lattice, NULL_WORD, write_slf
+from .models.hmmset import CompiledHMMSet, compile_hmmset
 from .utils.logmath import LZERO
 
 PARM_KIND = "MFCC_E_D_A"
@@ -272,6 +279,54 @@ def write_system(root: str, n_words: int = 1000, n_phones: int = 40,
     return sysm
 
 
+class LVSystem(NamedTuple):
+    """An in-memory LV system and what its utterances say."""
+
+    comp: CompiledHMMSet
+    vocab: Vocab  # words -> word-internal triphone pronunciations
+    words: List[str]
+    lm: NGramLM
+    feats: List[np.ndarray]  # (T, dim) float32 each
+    truths: List[List[str]]
+
+
+def lv_system(n_words: int, n_tied: int = 2000, n_mix: int = 8,
+              dim: int = 39, n_phones: int = 40, lm_order: int = 2,
+              fanout: int = 20, n_utts: int = 16, min_frames: int = 440,
+              max_frames: int = 512, seed: int = 0) -> LVSystem:
+    """The shape of htk_tpu's bench.py `build_tied_triphone_system`, built
+    in memory: the tied-state triphone set and 3-5 phone lexicon of
+    `write_system` (pronunciations written as their word-internal
+    triphones, so compile_lv_loop needs no phone map), the back-off bigram
+    of `bigram_lm` (about `fanout` explicit successors a word), and
+    utterances synthesised as `write_system`'s. With `lm_order=3` every
+    bigram gets back-off weight log 0.3 and about 8 explicit trigram
+    successors of log(0.5 / 8) (bench.py's trigram-guidance testbed)."""
+    rng = np.random.default_rng(seed)
+    hset, lex = build_hmmset(rng, n_words, n_phones, n_tied, n_mix, dim)
+    words = list(lex)
+    vocab = Vocab()
+    for w in words:
+        vocab.add_pron(w, internal_triphones(lex[w]))
+    lm = bigram_lm(words, bigram_successors(rng, n_words, fanout), fanout)
+    if lm_order >= 3:
+        lm.order = 3
+        bow, tri_fan = math.log(0.3), 8
+        for key in list(lm.bigrams):
+            lm.bigrams[key] = (lm.bigrams[key][0], bow)
+        for u, v in list(lm.bigrams):
+            for j in sorted(set(int(x) for x in
+                                rng.integers(0, n_words, tri_fan))):
+                lm.trigrams[(u, v, words[j])] = math.log(0.5 / tri_fan)
+    feats, truths = [], []
+    for _ in range(n_utts):
+        x, seq = synth_utterance(rng, hset, lex, words, min_frames,
+                                 max_frames)
+        feats.append(x)
+        truths.append(seq)
+    return LVSystem(compile_hmmset(hset), vocab, words, lm, feats, truths)
+
+
 def word_accuracy(refs: List[List[str]], hyps: List[List[str]]) -> float:
     """HResults word accuracy (N - S - D - I) / N, in percent, from a
     minimum-edit alignment of each reference with its hypothesis."""
@@ -387,3 +442,44 @@ def random_maxplus_operands(seed: int = 0, B: int = 4, C: int = 50,
         WE[B - dead_rows:] = 2 * LZERO
     trans = np.where(rng.random((C, C)) < 0.1, LZERO, score((C, C)))
     return WE.astype(np.float32), trans.astype(np.float32)
+
+
+def random_xw_operands(seed: int = 0, B: int = 4, C: int = 50,
+                       n_slots: int = 0, ties: bool = False,
+                       dead_rows: int = 0):
+    """Random segmented max-plus operands (numpy): WE (B, C) float32, preds
+    (N,) int32, scores (N,) float32, seg_off (C+1,) int32 and out_row (C,)
+    int32 (a permutation), as the factored cross-word leg sees them.
+
+    Segment widths are 0 or 1 for a tenth of the C segments each and 4-64
+    for the rest; then segments of 500-700 slots replace random ones, one
+    for every 600 slots by which `n_slots` exceeds that total (so the
+    total comes to about `n_slots`). Slots name random source rows; a
+    tenth of the scores are LZERO (pads). WE holds 2*LZERO at about a fifth
+    of its cells and in its last `dead_rows` rows. `ties=True` draws every
+    live score from {0, -1, -2}, so the first-slot rule decides the
+    argmax."""
+    rng = np.random.default_rng(seed)
+
+    def score(shape):
+        if ties:
+            return -rng.integers(0, 3, shape).astype(np.float64)
+        return rng.normal(size=shape) * 4 - 10
+
+    kind = rng.random(C)
+    width = np.where(kind < 0.1, 0, np.where(kind < 0.2, 1,
+                                             rng.integers(4, 65, C)))
+    n_long = max(0, min(C, (n_slots - int(width.sum())) // 600))
+    if n_long:
+        width[rng.choice(C, n_long, replace=False)] = rng.integers(
+            500, 701, n_long)
+    N = int(width.sum())
+    preds = rng.integers(0, C, N)
+    scores = np.where(rng.random(N) < 0.1, LZERO, score(N))
+    seg_off = np.concatenate([[0], np.cumsum(width)])
+    WE = np.where(rng.random((B, C)) < 0.2, 2 * LZERO, score((B, C)))
+    if dead_rows:
+        WE[B - dead_rows:] = 2 * LZERO
+    return (WE.astype(np.float32), preds.astype(np.int32),
+            scores.astype(np.float32), seg_off.astype(np.int32),
+            rng.permutation(C).astype(np.int32))

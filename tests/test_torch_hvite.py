@@ -151,21 +151,27 @@ def test_unported_options_raise_numbered_error(system, tmp_path, opt,
 
 
 def test_uniform_network_raises_numbered_error():
-    """Dense uniform-row nets decode now; a net with the factored
-    cross-word tables (xw_backoff), whose leg is not ported, raises."""
+    """Uniform-row nets decode, dense and factored; adaptive-exact top-A
+    on a factored net whose tables lack the successor lists raises HError
+    8526, as the reference's own check does (htk_tpu/algo/decode.py:
+    411-417)."""
     from htk_tpu_torch.algo.decode import decode
     from htk_tpu_torch.algo.net import DecodeNetwork
     from htk_tpu_torch.utils.errors import HTKError
 
     z = np.zeros(1, np.float32)
-    net = DecodeNetwork(comp_state=z, band=z[None], a0=z, aE=z, chain_of=z,
-                        node_of_chain=z, chain_pron_prob=z, node_words=["a"],
+    i = np.zeros(1, np.int32)
+    net = DecodeNetwork(comp_state=i, band=z[None], a0=z, aE=z, chain_of=i,
+                        node_of_chain=i, chain_pron_prob=z, node_words=["a"],
                         node_out=[None], trans=np.zeros((0, 0), np.float32),
-                        start_entry=z, end_exit=z, uniform_width=4,
-                        xw_backoff={"bow": z, "uni": z, "buckets": []})
+                        start_entry=z, end_exit=z, uniform_width=1,
+                        xw_backoff={"bow": z, "uni": z, "buckets": [],
+                                    "inv": np.zeros(1, np.int32),
+                                    "succ_j": None})
     with pytest.raises(HTKError) as e:
-        decode(net, None, np.zeros((3, 39), np.float32), device="cpu")
-    assert e.value.code == 8527
+        decode(net, None, np.zeros((3, 39), np.float32), max_active=-4,
+               device="cpu")
+    assert e.value.code == 8526
 
 
 def test_port_imports_no_jax_and_no_htk_tpu():
@@ -181,7 +187,9 @@ def test_port_imports_no_jax_and_no_htk_tpu():
             "'htk_tpu_torch.ops.fb_scans', 'htk_tpu_torch.algo.trainer', "
             "'htk_tpu_torch.parallel.acc_files', "
             "'htk_tpu_torch.algo.lvnet', 'htk_tpu_torch.io.lm', "
-            "'htk_tpu_torch.ops.maxplus', 'htk_tpu_torch.ops.tropical'}\n"
+            "'htk_tpu_torch.ops.maxplus', 'htk_tpu_torch.ops.tropical', "
+            "'htk_tpu_torch.ops.xw_gather', 'htk_tpu_torch.ops.xw_route', "
+            "'htk_tpu_torch.ops.xw_window'}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'htk_tpu' or "

@@ -1,5 +1,6 @@
 """The port's kernel wrappers (htk_tpu_torch/ops/decode_scan.py,
-ops/fb_scans.py, ops/maxplus.py and ops/tropical.py).
+ops/fb_scans.py, ops/maxplus.py, ops/tropical.py and ops/xw_gather.py with
+its callers ops/xw_route.py and ops/xw_window.py).
 
 No JAX here, so the `cuda`-marked tests also run on a machine with a card
 and no JAX (`--noconftest`; see README). On the CPU: the dispatchers take
@@ -16,8 +17,13 @@ the card trains the same model as on the CPU; the maxplus kernel equals
 its plain version exactly (values and first-max arguments, both floor
 contracts, ties and dead rows), through ops/maxplus and the tropical
 wrappers, and the LV decoder on the card gives the CPU's words and
-times. The CPU-side tests of the maxplus wrappers are in
-tests/test_torch_maxplus.py.
+times; the segmax and gather-add kernels equal their plain versions
+exactly (values and first-slot arguments; empty, single, long segments,
+ties, dead rows), through the routed, window and probe wrappers too, and
+the factored LV decoder on the card gives the CPU's words and times with
+one segmax launch a padded frame. The CPU-side tests of the maxplus
+wrappers are in tests/test_torch_maxplus.py, of the xw wrappers in
+tests/test_torch_xw.py.
 """
 
 import pytest
@@ -27,8 +33,9 @@ from htk_tpu_torch.ops import decode_scan as ds
 from htk_tpu_torch.ops import fb_scans as fbs
 from htk_tpu_torch.ops import maxplus as mp
 from htk_tpu_torch.ops import tropical as trop
+from htk_tpu_torch.ops import xw_gather as xg
 from htk_tpu_torch.synth import (random_decode_net, random_fb_operands,
-                                 random_maxplus_operands)
+                                 random_maxplus_operands, random_xw_operands)
 from htk_tpu_torch.utils.errors import HTKError
 from htk_tpu_torch.utils.logmath import LZERO
 
@@ -217,6 +224,87 @@ def test_lv_decode_on_card_equals_cpu(tmp_path):
     for g, r in zip(on_card, on_cpu):
         assert (g.words, g.times) == (r.words, r.times)
         assert g.score == pytest.approx(r.score, rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 17])
+@pytest.mark.parametrize("ties", [False, True])
+def test_xw_kernels_match_plain_on_card(B, ties):
+    need_card()
+    for seed in range(2):
+        ops = [torch.as_tensor(a, device="cuda") for a in random_xw_operands(
+            seed, B=B, C=700, n_slots=30000, ties=ties,
+            dead_rows=1 if B > 1 else 0)]
+        before = (xg.SEGMAX.launches, xg.GATHER_ADD.launches)
+        got = xg.segmax(*ops, 700)
+        g2 = xg.gather_add(*ops[:3])
+        assert (xg.SEGMAX.launches, xg.GATHER_ADD.launches) == (
+            before[0] + 1, before[1] + 1)
+        ref = xg.segmax_plain(*ops, 700)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert torch.equal(g2, xg.gather_add_plain(*ops[:3]))
+
+
+@pytest.mark.cuda
+def test_xw_wrappers_match_cpu_on_card():
+    """routed_explicit_leg, window_gather, bucket_max and lane_gather on the
+    card equal the same calls on the CPU (the plain versions)."""
+    need_card()
+    import numpy as np
+
+    from htk_tpu_torch.ops import xw_route, xw_window
+
+    rng = np.random.default_rng(0)
+    C, N = 3000, 40000
+    src, tgt = rng.integers(0, C, N), rng.integers(0, C, N)
+    p = rng.normal(size=N).astype(np.float32)
+    WE = rng.normal(size=(8, C)).astype(np.float32)
+    plan = xw_route.build_route(src, tgt, p, C)
+    tabs = xw_window.window_tables(src, p)[:3]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        W = torch.as_tensor(WE, device=dev)
+        out[dev] = [
+            *xw_route.routed_explicit_leg(
+                W, xw_route.device_tables(plan, dev)),
+            xw_window.window_gather(W, *[torch.as_tensor(a, device=dev)
+                                         for a in tabs]),
+            xg.bucket_max(W[0], *[torch.as_tensor(a, device=dev) for a in (
+                src[:N // 16 * 16].reshape(-1, 16).astype(np.int32),
+                p[:N // 16 * 16].reshape(-1, 16))]),
+            xg.lane_gather(W, torch.as_tensor(
+                src[:128 * 64].reshape(64, 128).astype(np.int32),
+                device=dev))]
+    for g, r in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.cuda
+def test_factored_lv_decode_on_card_equals_cpu():
+    """decode_batch on a factored net (synth.lv_system), exact and
+    adaptive: the CPU's words and times, scores within 1e-5 relative, one
+    segmax launch per padded frame."""
+    need_card()
+    from htk_tpu_torch.algo.decode import decode_batch
+    from htk_tpu_torch.algo.lvnet import compile_lv_loop
+    from htk_tpu_torch.synth import lv_system
+
+    sysm = lv_system(60, n_tied=40, n_mix=2, n_utts=4, min_frames=60,
+                     max_frames=150, seed=3)
+    net = compile_lv_loop(sysm.words, sysm.vocab, sysm.comp, lm=sysm.lm,
+                          factored=True)
+    T = -(-max(f.shape[0] for f in sysm.feats) // 128) * 128
+    for ma in (None, -8):
+        before = xg.SEGMAX.launches
+        on_card = decode_batch(net, sysm.comp, sysm.feats, 12.0,
+                               max_active=ma, device="cuda")
+        assert xg.SEGMAX.launches - before == T
+        on_cpu = decode_batch(net, sysm.comp, sysm.feats, 12.0,
+                              max_active=ma, device="cpu")
+        for g, r in zip(on_card, on_cpu):
+            assert (g.words, g.times) == (r.words, r.times)
+            assert g.score == pytest.approx(r.score, rel=1e-5)
 
 
 def fb_operands(seed=0, device="cpu", **kw):

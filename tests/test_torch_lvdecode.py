@@ -9,13 +9,19 @@ The same inputs go through both packages:
   - the uniform step (`decode_scan_uniform_batch`) on the same numpy outp
     gives planes v/WE within atol 1e-5 on live entries (the same live
     sets) and the records wn/wt/pwn/pwt exactly equal: the dense exact
-    leg, top-A with A < C on tied word ends, and a beam that binds;
+    leg, top-A with A < C on tied word ends, and a beam that binds; on
+    factored nets the exact leg, top-A on tied word ends, adaptive-exact
+    top-A and a binding beam; on trigram-guided nets with and without
+    top-A, and without successor tables (the bucket branch);
   - `decode`/`decode_batch` end to end over tests/test_lvdecode.py's
-    fixtures and a small synthetic system (synth.write_system, with its
-    lm.arpa) give equal words and times and scores within rel 1e-5 (the
-    two packages' OutP matmuls round differently);
+    fixtures, tests/test_trigram_guide.py's and a small synthetic system
+    (synth.write_system, with its lm.arpa) give equal words and times and
+    scores within rel 1e-5 (the two packages' OutP matmuls round
+    differently), dense, factored and trigram-guided; adaptive-exact
+    scores equal the port's own exact decode (==), and its factored
+    decode equals its dense one;
   - an utterance over the packed record's 32,767 frames is chunked the
-    same way; factored and trigram-guided nets raise HError 8527.
+    same way.
 """
 
 import os
@@ -39,6 +45,7 @@ from htk_tpu_torch.utils.logmath import LZERO
 
 from test_decode import emit_frames, separable_set
 from test_lvdecode import make_lm
+from test_trigram_guide import make_trilm
 
 NET_ARRAYS = ("comp_state", "band", "a0", "aE", "chain_of", "node_of_chain",
               "chain_pron_prob", "trans", "start_entry", "end_exit")
@@ -73,13 +80,17 @@ TIED = {"A1": ["aa"], "A2": ["aa"], "A3": ["aa"], "I1": ["iy"],
         "I2": ["iy"], "S": ["sil"]}
 
 
-def nets(lex, lm=True, silent=(), **kw):
-    """(jax comp, jax net, port comp, port net) for a lexicon."""
+def nets(lex, lm=True, silent=(), tri=None, bows=None, **kw):
+    """(jax comp, jax net, port comp, port net) for a lexicon; `tri`
+    (explicit trigrams) and `bows` (bigram back-off weights) promote the
+    LM to order 3 (tests/test_trigram_guide.py's make_trilm)."""
     jc = separable_set()
     pc = convert.compiled_hmmset_from(jc)
     jv, pv = vocabs(lex, silent)
     words = list(lex)
     jlm = make_lm(tuple(words)) if lm else None
+    if tri is not None:
+        jlm = make_trilm(tuple(words), tri=tri, bows=bows)
     jn = j_compile(words, jv, jc, lm=jlm, **kw)
     pn = p_compile(words, pv, pc, lm=convert.ngram_lm_from(jlm)
                    if lm else None, **kw)
@@ -177,20 +188,42 @@ def test_convert_carries_uniform_networks():
             assert cn.xw_backoff["succ_j"] is not jn.xw_backoff["succ_j"]
 
 
+def test_convert_carries_trigram_tables():
+    """decode_network_from carries xw_backoff and xw_trigram whole,
+    o3max and iters included, equal to the port's own compilation."""
+    _jc, jn, _pc, pn = nets(BIG, tri=TRI, trigram=True)
+    cn = convert.decode_network_from(jn)
+    x3, p3 = cn.xw_trigram, pn.xw_trigram
+    assert x3 is not None and x3.keys() == p3.keys()
+    for k, v in p3.items():
+        np.testing.assert_array_equal(x3[k], v, k)
+    assert (x3["o3max"], x3["iters"]) == (jn.xw_trigram["o3max"],
+                                          jn.xw_trigram["iters"])
+    assert x3["tri_j"] is not jn.xw_trigram["tri_j"]
+    for a, b in zip(cn.xw_backoff["slots"], pn.xw_backoff["slots"]):
+        np.testing.assert_array_equal(a, b)
+
+
 # -- the uniform step --------------------------------------------------------
 
 def scan_both(jn, pn, outp, lm_scale=2.0, word_pen=-1.5, beam=1e30,
               max_active=None):
+    """The step of both packages on the same outp, with the net's
+    factored and trigram tables (if any) LM-scaled as decode scales
+    them."""
     jd = jdec._net_dev(jn)
     ref = jdec.decode_scan_uniform_batch(
         outp, jd["band"], jd["a0"], jd["aE"], jn.uniform_width, jd["bonus"],
         jd["trans"] * lm_scale, jd["start"] * lm_scale, word_pen, beam,
-        max_active)
+        max_active, xw=jdec._scale_xw(jd.get("xw"), lm_scale),
+        xw3=jdec._scale_xw3(jd.get("xw3"), lm_scale))
     pd = pdec._net_dev(pn, "cpu")
     got = pdec.decode_scan_uniform_batch(
         torch.as_tensor(outp), pd["band"], pd["a0"], pd["aE"],
         pn.uniform_width, pd["bonus"], pd["trans"] * lm_scale,
-        pd["start"] * lm_scale, word_pen, beam, max_active)
+        pd["start"] * lm_scale, word_pen, beam, max_active,
+        pdec._scale_xw(pd.get("xw"), lm_scale),
+        pdec._scale_xw3(pd.get("xw3"), lm_scale))
     return got, ref
 
 
@@ -244,6 +277,58 @@ def test_topa_ties_take_the_lower_row_first():
     assert 0 in named and not named & {1, 2}
 
 
+# explicit trigrams over BIG's words (tests/test_trigram_guide.py's shape)
+TRI = {("W3", "W4", "W3"): np.log(0.9), ("W7", "W4", "W0"): np.log(0.7),
+       ("!ENTER", "W1", "W2"): np.log(0.8)}
+
+
+@pytest.mark.parametrize("case", ["exact", "topa_ties", "adaptive",
+                                  "adaptive_wide", "adaptive_ties", "beam",
+                                  "xw3", "xw3_topa", "xw3_buckets"])
+def test_factored_step_equals_reference(case):
+    """The factored legs: exact (segmax over the buckets), top-A on tied
+    word ends (scatter-max), adaptive-exact top-A (both legs every frame,
+    selected on the batch-wide certificate), a binding beam, and trigram
+    guidance with and without top-A and without successor tables."""
+    lex = TIED if "ties" in case else BIG
+    kw = {"tri": TRI, "trigram": True} if case.startswith("xw3") else {}
+    _jc, jn, _pc, pn = nets(lex, factored=True, **kw)
+    if case == "xw3_buckets":  # the step's bucket branch under guidance
+        jn.xw_backoff["succ_j"] = pn.xw_backoff["succ_j"] = None
+    outp = net_outp(pn, np.random.default_rng(7), 3, 40,
+                    integer="ties" in case)
+    scan_kw = {"topa_ties": {"max_active": 2}, "adaptive": {"max_active": -4},
+               "adaptive_wide": {"max_active": -8},
+               "adaptive_ties": {"max_active": -2}, "beam": {"beam": 3.0},
+               "xw3_topa": {"max_active": 4}}.get(case, {})
+    got, ref = scan_both(jn, pn, outp, **scan_kw)
+    assert_planes(got, ref)
+    if case == "beam":  # the beam binds
+        unpruned = scan_both(jn, pn, outp)[0]
+        assert int((got[0][0] <= LZERO / 2).sum()) > int(
+            (unpruned[0][0] <= LZERO / 2).sum())
+
+
+def test_factored_tie_rules():
+    """On tied word ends (A1-A3, equal scores) the exact leg names each
+    target's FIRST live slot, as the reference's bucket argmax does, and
+    the top-A scatter leg the HIGHEST kept source row, as the reference's
+    scatter-max does."""
+    _jc, _jn, _pc, pn = nets(TIED, factored=True)
+    C = pn.n_nodes
+    x = pdec._scale_xw(pdec._xw_dev(pn.xw_backoff, "cpu"), 1.0)
+    WE = torch.full((1, C), 2 * LZERO)
+    WE[0, :3] = -1.0
+    _v, a = pdec._segmax_leg(WE, x, C)
+    src, tgt, _p = pn.xw_backoff["slots"]
+    first = [src[(tgt == j) & (src < 3)][0] for j in range(C)]
+    assert a[0].tolist() == first
+    pwn = torch.full((1, C), -1, dtype=torch.int32)
+    for A, top in ((3, 2), (2, 1)):  # kept rows 0..A-1: the highest wins
+        m, an = pdec._factored_leg(x, C, A, False)(WE, pwn)
+        assert an[0].tolist() == [top] * C
+
+
 def test_record_range_raises_8520():
     _jc, _jn, _pc, pn = nets(SMALL)
     d = pdec._net_dev(pn, "cpu")
@@ -285,6 +370,82 @@ def test_decode_batch_equals_reference_and_sequential(kw):
         one = pdec.decode(pn, pc, f, 2.0, -1.0, device="cpu", **kw)
         assert (one.words, one.times) == (rp.words, rp.times)
         assert one.score == pytest.approx(rp.score, rel=1e-6)
+
+
+@pytest.mark.parametrize("kw", [{}, {"max_active": 6}, {"max_active": -6},
+                                {"max_active": -3, "beam": 40.0}])
+def test_factored_decode_batch_equals_reference(kw):
+    jc, jn, pc, pn = nets(BIG, factored=True)
+    seqs = [["aa", "iy", "aa", "iy", "aa"], ["sil", "aa", "iy", "sil"],
+            ["iy", "sil", "iy"]]
+    feats = [emit_frames(s, seed=i + 1) for i, s in enumerate(seqs)]
+    got = pdec.decode_batch(pn, pc, feats, 2.0, -1.0, pad_to=16,
+                            device="cpu", **kw)
+    ref = jdec.decode_batch(jn, jc, feats, 2.0, -1.0, pad_to=16, **kw)
+    for rp, rj in zip(got, ref):
+        assert_results(rp, rj)
+
+
+@pytest.mark.parametrize("case", ["steer", "topa"])
+def test_trigram_decode_equals_reference(case):
+    """tests/test_trigram_guide.py's fixtures: an explicit trigram that
+    outweighs the acoustics flips the transcript in both packages; top-A
+    covering the live word ends leaves the guided decode unchanged."""
+    if case == "steer":
+        jc, jn, pc, pn = nets(SMALL, silent=("S",), trigram=True,
+                              tri={("A", "I", "A"): np.log(0.95)},
+                              bows={("A", "I"): np.log(1e-4)})
+        feats = np.concatenate([emit_frames(["aa", "iy"], seed=3),
+                                np.full((8, 3), 2.3, np.float32)])
+        rp = pdec.decode(pn, pc, feats, lm_scale=8.0, device="cpu")
+        assert_results(rp, jdec.decode(jn, jc, feats, lm_scale=8.0))
+        assert rp.words == ["A", "I", "A"]
+        return
+    jc, jn, pc, pn = nets(BIG, tri={("W3", "W4", "W3"): np.log(0.9)},
+                          trigram=True)
+    for seed, seq in ((3, ["aa", "iy", "aa", "iy", "aa"]),
+                      (9, ["sil", "aa", "iy", "sil"])):
+        feats = emit_frames(seq, seed=seed)
+        r0 = pdec.decode(pn, pc, feats, 2.0, -1.0, device="cpu")
+        ra = pdec.decode(pn, pc, feats, 2.0, -1.0, max_active=6,
+                         device="cpu")
+        assert_results(ra, jdec.decode(jn, jc, feats, 2.0, -1.0,
+                                       max_active=6))
+        assert (ra.words, ra.times) == (r0.words, r0.times)
+        assert ra.score == pytest.approx(r0.score, rel=1e-6)
+
+
+def test_adaptive_scores_equal_exact():
+    """The certificate's contract: adaptive-exact top-A gives the exact
+    decode's scores (==), words and times, whatever A."""
+    _jc, _jn, pc, pn = nets(BIG, factored=True)
+    seqs = [["aa", "iy", "aa", "iy", "aa"], ["sil", "aa", "iy", "sil"],
+            ["iy", "sil", "iy"], ["aa", "sil", "aa"]]
+    feats = [emit_frames(s, seed=i + 4) for i, s in enumerate(seqs)]
+    exact = pdec.decode_batch(pn, pc, feats, 2.0, -1.0, pad_to=16,
+                              device="cpu")
+    for A in (1, 3, 6):
+        got = pdec.decode_batch(pn, pc, feats, 2.0, -1.0, pad_to=16,
+                                max_active=-A, device="cpu")
+        for g, e in zip(got, exact):
+            assert (g.words, g.times, g.score) == (e.words, e.times,
+                                                   e.score)
+
+
+def test_factored_equals_dense():
+    """As tests/test_lvdecode.py:266-287: with explicit bigrams above
+    their back-off products everywhere, the factored and dense forms give
+    the same decode."""
+    _jc, _jn, pc, pf = nets(BIG, factored=True)
+    _jc, _jn, pc, pd = nets(BIG, factored=False)
+    assert pf.xw_backoff is not None and pd.xw_backoff is None
+    for seed, seq in ((3, ["sil", "aa", "iy", "aa", "sil"]),
+                      (9, ["iy", "iy", "sil", "aa"])):
+        feats = emit_frames(seq, seed=seed)
+        rf = pdec.decode(pf, pc, feats, 3.0, -2.0, device="cpu")
+        rd = pdec.decode(pd, pc, feats, 3.0, -2.0, device="cpu")
+        assert (rf.words, rf.times) == (rd.words, rd.times)
+        assert rf.score == pytest.approx(rd.score, rel=1e-6)
 
 
 def test_nonbinding_topa_equals_exact():
@@ -363,20 +524,21 @@ def test_long_utterance_chunks_as_reference():
 
 
 def test_unported_legs_raise_8527():
-    jc, jn, pc, pn = nets(BIG, factored=True)
-    feats = emit_frames(["aa", "iy"], seed=1)
-    for call in (lambda: pdec.decode(pn, pc, feats, device="cpu"),
-                 lambda: pdec.decode_batch(pn, pc, [feats], device="cpu")):
-        with pytest.raises(HTKError) as e:
-            call()
-        assert e.value.code == 8527
-    d = pdec._net_dev(pn, "cpu")
-    outp = torch.zeros((1, 4, pn.n_states))
-    with pytest.raises(HTKError) as e:
-        pdec.decode_scan_uniform_batch(
-            outp, d["band"], d["a0"], d["aE"], pn.uniform_width, d["bonus"],
-            d["trans"], d["start"], 0.0, xw=pn.xw_backoff)
-    assert e.value.code == 8527
+    """The factored and trigram-guided legs, which raised HError 8527
+    before they were ported, now equal htk_tpu's through decode,
+    decode_batch and decode_scan_uniform_batch."""
+    feats = emit_frames(["aa", "iy", "aa"], seed=1)
+    for kw in ({"factored": True}, {"tri": TRI, "trigram": True}):
+        jc, jn, pc, pn = nets(BIG, **kw)
+        assert pn.xw_backoff is not None
+        assert (pn.xw_trigram is not None) == ("tri" in kw)
+        assert_results(pdec.decode(pn, pc, feats, 2.0, device="cpu"),
+                       jdec.decode(jn, jc, feats, 2.0))
+        assert_results(
+            pdec.decode_batch(pn, pc, [feats], 2.0, device="cpu")[0],
+            jdec.decode_batch(jn, jc, [feats], 2.0)[0])
+        outp = net_outp(pn, np.random.default_rng(2), 2, 12)
+        assert_planes(*scan_both(jn, pn, outp))
 
 
 def test_adaptive_topa_without_factored_tables_raises_8526():

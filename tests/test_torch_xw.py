@@ -1,0 +1,259 @@
+"""The factored cross-word leg's gather functions (htk_tpu_torch: ops/
+xw_gather, ops/xw_route, ops/xw_window) against htk_tpu's, on the CPU.
+
+The same numpy-seeded inputs go through both packages:
+
+  - `xw_route.routed_explicit_leg` against htk_tpu's in Pallas interpret
+    mode on tests/test_xw_route.py's random bigram graphs and on a
+    tie-heavy integer-score graph: values and first-slot arguments exactly
+    equal on targets with a predecessor, at or below LZERO/2 elsewhere
+    (the reference promises no more there);
+  - the decoder's flattened bucket leg (`algo.decode._xw_dev` +
+    `xw_gather.segmax`) against the reference's per-bucket loop
+    (htk_tpu/algo/decode.py:626-642, run here in jnp) on compile_lv_loop's
+    factored tables, pads and dead rows included: exactly equal;
+  - `xw_window.window_gather` against htk_tpu's in interpret mode on
+    tests/test_pallas_decode.py's window tables and on `window_tables`'
+    layout: exactly equal;
+  - `bucket_max` and `lane_gather` against the probe kernels' formulas in
+    numpy. The probes (benchmarks/gather_probe.py, dyngather_probe.py)
+    pin pltpu.VMEM and take no interpret flag, so they cannot run here;
+  - the plain segmax against a slot-by-slot loop, and the dispatchers: the
+    CPU takes the plain version and counts no launch; wrong dtypes, shapes
+    and non-contiguous operands are refused.
+
+The kernels themselves are held against these plain versions on the card
+(tests/test_torch_kernels.py, chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from htk_tpu.ops import xw_pallas as j_window
+from htk_tpu.ops import xw_route as j_route
+from htk_tpu_torch.algo import decode as pdec
+from htk_tpu_torch.ops import xw_gather as xg
+from htk_tpu_torch.ops import xw_route, xw_window
+from htk_tpu_torch.synth import random_xw_operands
+from htk_tpu_torch.utils.logmath import LZERO
+
+from test_torch_lvdecode import BIG, TIED, nets
+from test_xw_route import rand_graph
+
+
+def t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def loop_segmax(WE, preds, scores, seg_off, out_row, C_out):
+    """Slot by slot in float32: first slot seeds, strict > updates."""
+    B = WE.shape[0]
+    v = np.full((B, C_out), np.float32(2 * LZERO), np.float32)
+    a = np.full((B, C_out), -1, np.int32)
+    for r, j in enumerate(out_row):
+        for k in range(seg_off[r], seg_off[r + 1]):
+            c = WE[:, preds[k]] + scores[k]
+            upd = (c > v[:, j]) | (k == seg_off[r])
+            v[upd, j] = c[upd]
+            a[upd, j] = preds[k]
+    return v, a
+
+
+@pytest.mark.parametrize("seed,ties", [(0, False), (1, True), (2, False)])
+def test_segmax_plain_equals_slot_loop(seed, ties):
+    ops = random_xw_operands(seed, B=3, C=120, n_slots=6000, ties=ties,
+                             dead_rows=1)
+    width = np.diff(ops[3])
+    assert {0, 1} <= set(width.tolist()) and width.max() >= 500
+    got = xg.segmax(*map(t, ops), 120)
+    ref = loop_segmax(*ops, 120)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r)
+
+
+@pytest.mark.parametrize("C,N,B,ties", [(40, 200, 2, False),
+                                        (300, 3000, 3, False),
+                                        (300, 3000, 3, True)])
+def test_routed_leg_equals_reference(C, N, B, ties):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(C + N)
+    src, tgt, p = rand_graph(rng, C, N)
+    WE = rng.normal(size=(B, C)).astype(np.float32) * 10.0
+    if ties:  # integer scores: equal candidates everywhere
+        p = -rng.integers(0, 3, len(src)).astype(np.float64)
+        WE = -rng.integers(0, 3, (B, C)).astype(np.float32)
+    scale = np.float32(3.0)
+    jd = j_route.device_tables(j_route.build_route(src, tgt, p, C))
+    jd = {**jd, "t_p": jd["t_p"] * scale}
+    rv, ra = [np.asarray(x) for x in j_route.routed_explicit_leg(
+        jnp.asarray(WE), jd, interpret=True)]
+    plan = xw_route.build_route(src, tgt, p, C)
+    pd = xw_route.device_tables(plan, "cpu")
+    pd = {**pd, "scores": pd["scores"] * scale}
+    gv, ga = xw_route.routed_explicit_leg(t(WE), pd)
+    has = np.bincount(tgt, minlength=C)[None].repeat(B, 0) > 0
+    np.testing.assert_array_equal(gv.numpy()[has], rv[has])
+    np.testing.assert_array_equal(ga.numpy()[has], ra[has])
+    assert np.all(gv.numpy()[~has] == 2 * LZERO) and np.all(
+        rv[~has] <= LZERO / 2)
+    assert np.all(ga.numpy()[~has] == -1)
+
+
+def ref_bucket_leg(WE, x, scale):
+    """htk_tpu/algo/decode.py:626-642 on the net's buckets, in jnp."""
+    import jax.numpy as jnp
+
+    parts_v, parts_a = [], []
+    for preds, scores in x["buckets"]:
+        preds = jnp.asarray(preds)
+        cand = WE[:, preds] + jnp.asarray(scores * np.float32(scale))[None]
+        parts_v.append(jnp.max(cand, axis=2))
+        k = jnp.argmax(cand, axis=2)
+        parts_a.append(preds[jnp.arange(preds.shape[0])[None], k])
+    inv = jnp.asarray(x["inv"])
+    return (np.asarray(jnp.concatenate(parts_v, axis=1)[:, inv]),
+            np.asarray(jnp.concatenate(parts_a, axis=1)[:, inv]))
+
+
+@pytest.mark.parametrize("lex,integer", [(BIG, False), (TIED, True)])
+def test_flattened_bucket_leg_equals_reference(lex, integer):
+    """Pads (pred 0, score LZERO) stay in the segments: targets with no
+    live predecessor keep the reference's pad value and argument."""
+    import jax.numpy as jnp
+
+    _jc, _jn, _pc, pn = nets(lex, factored=True)
+    C = pn.n_nodes
+    rng = np.random.default_rng(5)
+    WE = rng.normal(size=(4, C)).astype(np.float32) * 5 - 20
+    if integer:
+        WE = -rng.integers(0, 3, (4, C)).astype(np.float32)
+    WE[:, rng.random(C) < 0.3] = 2 * LZERO  # dead rows
+    WE[3] = 2 * LZERO
+    x = pdec._scale_xw(pdec._xw_dev(pn.xw_backoff, "cpu"), 2.0)
+    gv, ga = pdec._segmax_leg(t(WE), x, C)
+    rv, ra = ref_bucket_leg(jnp.asarray(WE), pn.xw_backoff, 2.0)
+    np.testing.assert_array_equal(gv.numpy(), rv)
+    np.testing.assert_array_equal(ga.numpy(), ra)
+    assert int(x["seg_off"][-1]) == sum(p.size for p, _ in
+                                        pn.xw_backoff["buckets"])
+
+
+def pallas_window_tables(pred, lp):
+    """tests/test_pallas_decode.py:85-100's layout (windows 0-2)."""
+    order = np.argsort(pred >> 7, kind="stable")
+    rows_i, rows_p, wins, spans = [], [], [], []
+    k0, tile = 0, 8 * 128
+    for w in range(3):
+        sel = order[(pred[order] >> 7) == w]
+        nt = -(-len(sel) // tile)
+        ai = np.zeros(nt * tile, np.int32)
+        ap = np.full(nt * tile, -1e10, np.float32)
+        ai[: len(sel)] = pred[sel] & 127
+        ap[: len(sel)] = lp[sel]
+        rows_i.append(ai)
+        rows_p.append(ap)
+        wins += [w] * nt
+        spans.append((k0, sel))
+        k0 += nt * tile
+    return (np.asarray(wins, np.int32),
+            np.concatenate(rows_i).reshape(-1, 128),
+            np.concatenate(rows_p).reshape(-1, 128), spans)
+
+
+def test_window_gather_equals_reference():
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(0)
+    C, n_slots = 300, 5000
+    pred = rng.integers(0, C, n_slots)
+    lp = rng.normal(size=n_slots).astype(np.float32)
+    WE = rng.normal(size=(2, C)).astype(np.float32)
+    win, lidx, lpt, spans = pallas_window_tables(pred, lp)
+    ref = np.asarray(j_window.window_gather(
+        jnp.asarray(WE), jnp.asarray(win), jnp.asarray(lidx),
+        jnp.asarray(lpt), interpret=True))
+    got = xw_window.window_gather(t(WE), t(win), t(lidx), t(lpt)).numpy()
+    np.testing.assert_array_equal(got, ref)  # pads past row C-1 included
+    # window_tables builds the same layout, and each slot lands at `pos`
+    win2, lidx2, lp2, pos = xw_window.window_tables(pred, lp)
+    for a, b in ((win2, win), (lidx2, lidx), (lp2, lpt)):
+        np.testing.assert_array_equal(a, b)
+    for k0, sel in spans:
+        np.testing.assert_array_equal(pos[sel], k0 + np.arange(len(sel)))
+    np.testing.assert_array_equal(got[:, pos], WE[:, pred] + lp[None])
+
+
+def test_bucket_max_equals_probe_formula():
+    """benchmarks/gather_probe.py's kernel: max_f we[preds] + scores."""
+    rng = np.random.default_rng(0)
+    C, CB, FB = 500, 64, 16
+    preds = rng.integers(0, C, (CB, FB)).astype(np.int32)
+    scores = rng.standard_normal((CB, FB)).astype(np.float32)
+    we = rng.standard_normal(C).astype(np.float32)
+    got = xg.bucket_max(t(we), t(preds), t(scores))
+    assert got.shape == (CB,)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.max(we[preds] + scores, axis=1))
+
+
+def test_lane_gather_equals_probe_formula():
+    """benchmarks/dyngather_probe.py's kernel: take_along_axis of the
+    broadcast first table row, i.e. tbl[0][idx], exactly."""
+    rng = np.random.default_rng(0)
+    for width in (128, 2048):
+        tbl = rng.standard_normal((8, width)).astype(np.float32)
+        idx = rng.integers(0, width, (64, 128)).astype(np.int32)
+        got = xg.lane_gather(t(tbl), t(idx)).numpy()
+        tb = np.broadcast_to(tbl[0][None], (64, width))
+        np.testing.assert_array_equal(
+            got, np.take_along_axis(tb, idx, axis=1))
+
+
+def test_dispatch_cpu_takes_plain_and_counts_no_launch():
+    ops = [t(a) for a in random_xw_operands(0, B=2, C=40, n_slots=400)]
+    before = (xg.SEGMAX.launches, xg.GATHER_ADD.launches)
+    for g, r in zip(xg.segmax(*ops, 40), xg.segmax_plain(*ops, 40)):
+        assert torch.equal(g, r)
+    assert torch.equal(xg.gather_add(ops[0], ops[1], ops[2]),
+                       xg.gather_add_plain(ops[0], ops[1], ops[2]))
+    xg.bucket_max(ops[0][0], ops[1][:40].reshape(10, 4),
+                  ops[2][:40].reshape(10, 4))
+    xg.lane_gather(ops[0], ops[1][:40].reshape(4, 10))
+    assert (xg.SEGMAX.launches, xg.GATHER_ADD.launches) == before
+
+
+def test_operand_checks_raise():
+    WE, preds, scores, seg_off, out_row = [
+        t(a) for a in random_xw_operands(0, B=2, C=40, n_slots=400)]
+    ok = [WE, preds, scores, seg_off, out_row]
+    for k, bad, exc in ((0, WE.double(), TypeError),
+                        (1, preds.long(), TypeError),
+                        (2, scores[:-1], ValueError),
+                        (3, seg_off[:-1], ValueError),
+                        (0, WE.t().contiguous().t(), ValueError),
+                        (0, WE[0], ValueError)):
+        args = list(ok)
+        args[k] = bad
+        with pytest.raises(exc):
+            xg.segmax(*args, 40)
+    with pytest.raises(ValueError):
+        xg.segmax(*ok, 39)  # 40 segments do not fit 39 columns
+    with pytest.raises(ValueError):
+        xg.segmax(*[a.to("meta") for a in ok], 40)
+    with pytest.raises(ValueError):
+        xg.segmax_cuda(*ok, 40)
+    with pytest.raises(ValueError):
+        xg.gather_add_cuda(WE, preds, scores)
+    with pytest.raises(TypeError):
+        xg.gather_add(WE, preds.long(), scores)
+    with pytest.raises(ValueError):
+        xg.gather_add(WE, preds, scores[:-1])
+    with pytest.raises(ValueError):
+        xg.bucket_max(WE[0], preds[:40].reshape(4, 10).t(),
+                      scores[:40].reshape(4, 10).t())
+    with pytest.raises(ValueError):
+        xw_window.window_gather(WE, torch.zeros(1, dtype=torch.int32),
+                                torch.zeros((4, 128), dtype=torch.int32),
+                                torch.zeros((4, 128)))
