@@ -18,7 +18,8 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      fb_scans.cu, maxplus.cu and xw_gather.cu) are built from source with
      nvcc, in parallel
   2. the decode kernel against its plain torch version on random nets
-     (several seeds, B > 1, a tie-heavy integer-score case)
+     (several seeds, B > 1, a tie-heavy integer-score case), each at the
+     full grid and at forced grids of 1, 2, 3 and 7 blocks
   3. the FB scans kernel against its plain version on random composites
      (two seeds, B = 4, Q = 50 and Q = 250, whose logA does not fit shared
      memory; rows with t_real < T and t_real = 0; no beam, a loose beam,
@@ -35,10 +36,13 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      against the plain path's; then HVite decodes with the re-estimated
      MMF (exit 0, word accuracy informational)
   7. times, kernel and plain taken in turns: the decode step at B=8,
-     T=512, the FB scans on the real bucket (B=8, T=512, Q=192), HERest
-     iterations in utterances and audio seconds per second; under
-     torch.profiler, the device time of the FB kernel's two parts and the
-     device's busy share of a HERest iteration
+     T=512 (with the grid size, the decode kernel's device time under
+     torch.profiler, and a one-node net at the full grid: the kernel's
+     floor a frame); one HVite run under torch.profiler (device busy
+     share, decode kernel time); the FB scans on the real bucket (B=8,
+     T=512, Q=192), HERest iterations in utterances and audio seconds per
+     second; under torch.profiler, the device time of the FB kernel's two
+     parts and the device's busy share of a HERest iteration
   8. the maxplus kernel (both floor contracts) and the tropical wrappers
      against the plain version on random operands (two seeds, B in
      {1, 8, 17}, C in {1, 200, 1000, 2050}; normal, tie-heavy integer
@@ -84,21 +88,23 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      max_active=128; this leg launches no kernel (its scatters are torch
      ops), which the counts show
  15. times, in turns plain/kernel/kernel/plain: segmax, the routed leg,
-     window_gather, bucket_max and lane_gather per launch (and
-     index_select's time beside lane_gather's), one 20k LV batch with the
-     exact kernel and plain legs, with the adaptive and top-A legs, and
-     `decode_batch` of the 16 utterances as xRT for each leg; under
-     torch.profiler, one exact 20k batch's device busy share, segmax's
-     share, device operations per frame and top operations
+     window_gather, bucket_max and lane_gather per launch and their
+     device times under torch.profiler; lane_gather and index_select
+     per call in 40 alternating rounds (with lane_gather's plain version;
+     these go to the kernels line) and index_select's device time; one 20k
+     LV batch with the exact kernel and plain legs, with the adaptive and
+     top-A legs, and `decode_batch` of the 16 utterances as xRT for each
+     leg; under torch.profiler, one exact 20k batch's device busy share,
+     segmax's share, device operations per frame and top operations
  16. one JSON line of kernels, then the device line last
 
 Each main path runs with every launch count set to 0 just before it and
 read just after. Tolerances, kernel against plain: maxplus, tropical,
-segmax and gather-add exactly equal; decode and the LV planes: live scores
-within 1e-5 and every word-link record exactly equal; FB logP within 1e-5
-relative, alphas and betas at t < t_real with the same live sets (above
-LZERO/2) and within 1e-5 |ref| + 1e-4, xi of live utterances within rtol
-1e-4, atol 1e-6; the accumulators of a batch within 1e-2 of each field's
+segmax and gather-add exactly equal; decode (at every grid) and the LV
+planes: live scores within 1e-5 and every word-link record exactly
+equal; FB logP within 1e-5 relative, alphas and betas at t < t_real with
+the same live sets (above LZERO/2) and within 1e-5 |ref| + 1e-4, xi of
+live utterances within rtol 1e-4, atol 1e-6; the accumulators of a batch within 1e-2 of each field's
 largest magnitude (alphas of magnitude ~3e4 differ by float32 ulps of the
 sums' order, which moves occupancies by ~1e-3).
 
@@ -172,6 +178,7 @@ N_UTTS = 16
 # BASELINE config #4 widths (htk_tpu's bench.py build_tied_triphone_system)
 SYSTEM = dict(n_words=1000, n_phones=40, n_tied=2000, n_mix=8, dim=39)
 RANDOM_NET = dict(Ns=3000, Nn=200, K=3, B=4, T=48)
+FORCED_GRIDS = (1, 2, 3, 7, None)  # decode_scan blocks; None: the full grid
 TIMING_B, TIMING_T = 8, 512
 LM_SCALE, WORD_PEN = 8.0, -10.0
 FRAME_S = 0.01
@@ -183,6 +190,7 @@ MAXPLUS_MODES = {"normal": {}, "ties": {"ties": True},
                  "dead row": {"dead_rows": 1}}
 TOPA = 128  # the dense top-A leg's max_active (htk_tpu's bench.py 5k row)
 LAUNCH_LOOP = 100  # back-to-back launches per timed sample of one kernel
+LIBRARY_ROUNDS = 40  # alternating samples of lane_gather and index_select
 PAD_T = 128  # decode_batch pads T to a multiple of this
 HEREST_BATCH = 8
 RANDOM_FB = dict(B=4, T=40, t_real=[40, 33, 20, 0])
@@ -243,6 +251,11 @@ def random_net(seed, dev, ties, **sizes):
     Nn = trans.shape[0]
     return (outp, band, a0, aE, nos, bonus, trans, start,
             torch.full((Nn,), -1.0, device=dev), Nn)
+
+
+def full_grid() -> int:
+    """The decode kernel's full grid on the current card."""
+    return ds.full_grid(torch.cuda.current_device())
 
 
 def reset_counts() -> None:
@@ -344,14 +357,15 @@ def plain_maxplus():
 
 @contextlib.contextmanager
 def plain_xw():
-    """segmax and gather_add (and so the factored exact leg and every
-    xw wrapper) run their plain versions inside."""
-    saved = xg.segmax, xg.gather_add
-    xg.segmax, xg.gather_add = xg.segmax_plain, xg.gather_add_plain
+    """segmax, gather_add and lane_gather (and so the factored exact leg
+    and every xw wrapper) run their plain versions inside."""
+    saved = xg.segmax, xg.gather_add, xg.lane_gather
+    xg.segmax, xg.gather_add, xg.lane_gather = (
+        xg.segmax_plain, xg.gather_add_plain, xg.lane_gather_plain)
     try:
         yield
     finally:
-        xg.segmax, xg.gather_add = saved
+        xg.segmax, xg.gather_add, xg.lane_gather = saved
 
 
 def phase_device():
@@ -376,18 +390,22 @@ def phase_device():
 
 
 def phase_random_nets(dev) -> float:
+    """Each random net at the full grid and at forced small grids, whose
+    range edges and halos fall inside the band."""
     err = 0.0
     cases = [(seed, False) for seed in range(3)] + [(10, True), (11, True)]
     for seed, ties in cases:
         args = random_net(seed, dev, ties, **RANDOM_NET)
-        k = ds.decode_scan_cuda(*args)
         p = ds.decode_scan_plain(*args)
-        torch.cuda.synchronize(dev)
-        e = compare(k, p, f"random net seed={seed} ties={ties}")
+        for G in FORCED_GRIDS:
+            k = ds.decode_scan_cuda(*args, grid=G)
+            torch.cuda.synchronize(dev)
+            err = max(err, compare(k, p, f"random net seed={seed} "
+                                         f"ties={ties} grid={G}"))
         live = int((p[1][1] >= 0).sum())
-        log(f"random net seed={seed} ties={ties}: equal "
-            f"(max |dv| {e:.3g}, {live} live word-end records)")
-        err = max(err, e)
+        log(f"random net seed={seed} ties={ties}: equal at grids "
+            f"{[G or full_grid() for G in FORCED_GRIDS]} "
+            f"(max |dv| {err:.3g}, {live} live word-end records)")
     return err
 
 
@@ -425,6 +443,22 @@ def phase_main_path(sysm, root, dev, mmf=None, what="HVite"):
     log(f"word accuracy vs synthesised transcripts: {acc:.2f}% "
         "(informational)")
     return launches, hyps
+
+
+def phase_hvite_profile(sysm, root, card, dev):
+    """One HVite run under torch.profiler: the device's busy share and the
+    decode kernel's part of it."""
+    argv = ["-C", os.path.join(root, "hvite.cfg"), "-w", sysm.wdnet, "-H",
+            sysm.hmmdefs, "-i", os.path.join(root, "rec_profiled.mlf"),
+            "-s", str(LM_SCALE), "-p", str(WORD_PEN), "-S", sysm.scp,
+            sysm.dict, sysm.hmmlist]
+    wall, ops, _n = device_profile(lambda: hvite.run(argv), dev)
+    busy = sum(ms for _k, ms in ops)
+    dms = sum(ms for k, ms in ops if "decode_scan_kernel" in k)
+    log(f"profile on {card} of one HVite run: wall {wall:.1f} ms, device "
+        f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%), decode kernel "
+        f"{dms:.2f} ms; top: "
+        + ", ".join(f"{k[:40]} {ms:.2f} ms" for k, ms in ops[:5]))
 
 
 def phase_real_bucket(sysm, hyps, dev):
@@ -692,14 +726,29 @@ def phase_timing(net, comp, feats, card, dev):
     kms, pms = statistics.median(k), statistics.median(p)
     oms = statistics.median(time_call(
         lambda: _net_outp(net, comp, fb, "highest", dev), dev))
+    part = ds._plan(args[4], net.n_nodes, args[1].shape[0],
+                    full_grid())["part"]
     log(f"timing on {card} (B={B}, T={T}, Nn={net.n_nodes}, "
         f"Ns={net.n_states}; median of 6 synchronised calls, taken in "
-        f"turns plain/kernel/kernel/plain):")
+        f"turns plain/kernel/kernel/plain; grid {full_grid()} "
+        f"blocks of {ds.THREADS} threads, at most {part.cols_max} columns "
+        f"a block, columns in "
+        f"{'shared' if part.trans_in_smem else 'global'} memory):")
     for name, ms, ts in (("kernel", kms, k), ("plain ", pms, p)):
         log(f"  decode_scan {name} {ms:.3f} ms per decode step "
             f"({ms / T * 1e3:.2f} us per frame), decode xRT "
             f"{ms / 1e3 / audio_s:.4e}; samples "
             + " ".join(f"{x:.3f}" for x in ts))
+    _w, ops, _n = device_profile(lambda: ds.decode_scan_cuda(*args), dev)
+    dms = sum(ms for k_, ms in ops if "decode_scan_kernel" in k_)
+    # a one-node net at the full grid: the frames' barriers and phases
+    # with (almost) no work, the kernel's floor a frame
+    one = random_net(0, dev, False, Ns=1, Nn=1, K=2, B=B, T=T)
+    fms = statistics.median(time_call(lambda: ds.decode_scan_cuda(*one),
+                                      dev))
+    log(f"  decode_scan device time (torch.profiler) {dms:.3f} ms a step; "
+        f"a one-node net at the full grid {fms:.3f} ms "
+        f"({fms / T * 1e3:.2f} us a frame)")
     log(f"  OutP (GaussianScorer, {comp.n_mix} Gaussians) {oms:.3f} ms")
     return kms, pms
 
@@ -1242,11 +1291,33 @@ def phase_big_timing(sysm, net, batch, WE, paths, lops, card, dev):
             f"device operations {sum(ms for _k, ms in ops) / LAUNCH_LOOP:.6f}"
             f" ms")
     row, flat = lops[0][0], lops[1].reshape(-1)
-    ls = time_launches(lambda: torch.index_select(row, 0, flat), dev, reps=6)
-    times["lane_gather"][2] = statistics.median(ls)
-    log(f"  torch.index_select (lane_gather's function): "
-        f"{times['lane_gather'][2]:.6f} ms; samples "
-        + " ".join(f"{v:.6f}" for v in ls))
+
+    def index_select():
+        torch.index_select(row, 0, flat)
+
+    lane = paths["lane_gather"][1]
+    # index_select, lane_gather and lane_gather's plain version
+    # alternating, one sample each a round in a rotating order, so that
+    # drift in the host's speed touches all alike; these are lane_gather's
+    # times in the kernels line
+    runs = {"index_select": lambda: time_launches(index_select, dev, reps=1),
+            "lane_gather": lambda: time_launches(lane, dev, reps=1),
+            "plain": lambda: time_launches(plain(lane), dev, reps=1)}
+    got = {k: [] for k in runs}
+    for r in range(LIBRARY_ROUNDS):
+        for k in list(runs)[r % 3:] + list(runs)[:r % 3]:
+            got[k] += runs[k]()
+    lis, lks = got["index_select"], got["lane_gather"]
+    li, lk = statistics.median(lis), statistics.median(lks)
+    times["lane_gather"] = [lk, statistics.median(got["plain"]), li]
+    _w, ops, _n = device_profile(
+        lambda: [index_select() for _ in range(LAUNCH_LOOP)], dev)
+    log(f"  torch.index_select (lane_gather's function): {li:.6f} ms a "
+        f"call, device time {sum(ms for _k, ms in ops) / LAUNCH_LOOP:.6f} "
+        f"ms; lane_gather alternating with it {lk:.6f} ms, no slower in "
+        f"{sum(k <= i for k, i in zip(lks, lis))} of {LIBRARY_ROUNDS} "
+        f"rounds; samples " + " ".join(f"{v:.6f}" for v in lis)
+        + " | " + " ".join(f"{v:.6f}" for v in lks))
 
     lm = (BIG_LM_SCALE, BIG_WORD_PEN)
     B, T = len(batch), pad_T([f.shape[0] for f in batch])
@@ -1325,6 +1396,7 @@ def main() -> int:
         phase_main_path(sysm, root, dev, mmf=mmf,
                         what="HVite with the re-estimated MMF")
         kms, pms = phase_timing(net, comp, feats, card, dev)
+        phase_hvite_profile(sysm, root, card, dev)
         fkms, fpms = phase_fb_timing(fb_ops, trainer, utts, card, dev)
         phase_profile(sysm, fb_ops, root, card, dev)
         done("HVite and HERest")

@@ -29,24 +29,37 @@
 // index) pairs in registers, so each slot's (pred, score) is read once a
 // frame for up to kBatch utterances; grid = (ceil(R / kSegThreads),
 // ceil(B / kBatch)). At the 20k-word net (R = 20,000 segments, ~430k slots,
-// B = 8) that is 157 blocks, and WE (640 KB) stays in L2. gather_add: one
-// thread per output, coalesced over n, grid = (ceil(N / kGatherThreads), B).
+// B = 8) that is 157 blocks, and WE (640 KB) stays in L2. gather_add: each
+// thread takes 4 consecutive slots, reads their pred (and lp) once with one
+// 16-byte load each and loops over all B rows, gathering 4 values of WE and
+// writing them with one 16-byte store; grid = ceil(N / (4 kGatherThreads)).
+// Where WE is at most 48 KB (the probe's table row: 8 KB) every block first
+// copies it into shared memory, so that the gathers, which depend on the
+// pred loads, read shared memory instead of making a second trip to L2.
+// Where a pointer is not 16-byte aligned (a view at an odd element offset,
+// or an output row when N % 4 != 0) and at the tail, it falls to scalar
+// loads and stores.
 //
 // What bounds them: bytes. segmax must read the slot stream (8 B a slot),
 // WE and the segment tables and write val and arg; its operations (an add
 // and a compare per (b, slot)) take a tenth of that time at the card's FP32
 // rate. Both kernels gather WE at random rows, so each gathered 4 bytes
 // costs an L2 sector; the segments of skewed in-degree run serially in
-// one thread (a warp per long segment is later work).
+// one thread (a warp per long segment is later work). gather_add moves the
+// slot tables once and the B output rows once: at B = 1 (the probe's lane
+// gather) half of its bytes are the pred it reads.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float kLZero = -1.0e10f;
 constexpr int kSegThreads = 128;     // segments per block
 constexpr int kBatch = 8;            // batch rows per block
-constexpr int kGatherThreads = 256;  // outputs per block
+constexpr int kGatherThreads = 256;  // threads per block, 4 slots each
+constexpr int kStageMax = 12288;     // WE staged in shared memory up to 48 KB
+constexpr int kStage = 8;            // staging loads a thread keeps in flight
 
 __global__ void __launch_bounds__(kSegThreads)
 segmax_kernel(const float* __restrict__ we,       // (B, C)
@@ -107,17 +120,83 @@ segmax_kernel(const float* __restrict__ we,       // (B, C)
   }
 }
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// out[b, n + k] = WE[b, p[k]] (+ l[k]) for k < m and every row b; WE from
+// shared memory (kShared) or through the read-only cache
+template <bool kShared>
+__device__ __forceinline__ void gather_rows(const float* we, const int* p,
+                                            const float* l, bool add,
+                                            float* out, int B, int C, int N,
+                                            int n, int m) {
+#pragma unroll 4
+  for (int b = 0; b < B; ++b) {
+    const float* w = we + static_cast<size_t>(b) * C;
+    float g[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      g[k] = k < m ? (kShared ? w[p[k]] : __ldg(w + p[k])) : 0.f;
+      if (add) g[k] += l[k];  // without lp the values are WE's exactly
+    }
+    float* dst = out + static_cast<size_t>(b) * N + n;
+    if (m == 4 && aligned16(dst)) {
+      *reinterpret_cast<float4*>(dst) = make_float4(g[0], g[1], g[2], g[3]);
+    } else {
+      for (int k = 0; k < m; ++k) dst[k] = g[k];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kGatherThreads)
 gather_add_kernel(const float* __restrict__ we,    // (B, C)
                   const int* __restrict__ pred,    // (N,)
                   const float* __restrict__ lp,    // (N,) or null
                   float* __restrict__ out,         // (B, N)
-                  int C, int N) {
-  const int n = blockIdx.x * kGatherThreads + threadIdx.x;
-  if (n >= N) return;
-  const int b = blockIdx.y;
-  const float g = __ldg(we + static_cast<size_t>(b) * C + __ldg(pred + n));
-  out[static_cast<size_t>(b) * N + n] = lp ? g + __ldg(lp + n) : g;
+                  int B, int C, int N, int staged) {
+  extern __shared__ float table[];  // WE, when `staged`
+  const int n = (blockIdx.x * kGatherThreads + threadIdx.x) * 4;
+  const int m = max(0, min(4, N - n));
+  int p[4] = {0, 0, 0, 0};
+  float l[4] = {0.f, 0.f, 0.f, 0.f};
+  if (m == 4 && aligned16(pred + n)) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(pred + n));
+    p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
+  } else {
+    for (int k = 0; k < m; ++k) p[k] = __ldg(pred + n + k);
+  }
+  if (lp) {
+    if (m == 4 && aligned16(lp + n)) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(lp + n));
+      l[0] = v.x; l[1] = v.y; l[2] = v.z; l[3] = v.w;
+    } else {
+      for (int k = 0; k < m; ++k) l[k] = __ldg(lp + n + k);
+    }
+  }
+  if (staged) {  // the whole of WE, kStage loads in flight a thread
+    const int total = B * C;
+    for (int q0 = threadIdx.x; q0 < total; q0 += kGatherThreads * kStage) {
+      float r[kStage];
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int q = q0 + u * kGatherThreads;
+        r[u] = q < total ? __ldg(we + q) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kStage; ++u) {
+        const int q = q0 + u * kGatherThreads;
+        if (q < total) table[q] = r[u];
+      }
+    }
+    __syncthreads();
+  }
+  if (m == 0) return;
+  if (staged) {
+    gather_rows<true>(table, p, l, lp != nullptr, out, B, C, N, n, m);
+  } else {
+    gather_rows<false>(we, p, l, lp != nullptr, out, B, C, N, n, m);
+  }
 }
 
 }  // namespace
@@ -140,10 +219,13 @@ extern "C" int segmax_launch(const void* we, const void* preds,
 extern "C" int gather_add_launch(const void* we, const void* pred,
                                  const void* lp, void* out, int B, int C,
                                  int N, void* stream) {
-  const dim3 grid((N + kGatherThreads - 1) / kGatherThreads, B);
-  gather_add_kernel<<<grid, kGatherThreads, 0,
+  const int per_block = 4 * kGatherThreads;
+  const int staged = static_cast<long long>(B) * C <= kStageMax;
+  gather_add_kernel<<<(N + per_block - 1) / per_block, kGatherThreads,
+                      staged ? B * C * sizeof(float) : 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(we), static_cast<const int*>(pred),
-      static_cast<const float*>(lp), static_cast<float*>(out), C, N);
+      static_cast<const float*>(lp), static_cast<float*>(out), B, C, N,
+      staged);
   return static_cast<int>(cudaGetLastError());
 }

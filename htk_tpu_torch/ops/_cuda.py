@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels (csrc/*.cu).
 
-Each kernel source has a plain C entry point. It is compiled with nvcc for
+Each kernel source has plain C entry points. It is compiled with nvcc for
 `sm_90a` into a shared library under csrc/_build/, keyed by a hash of the
 source and the flags, at first use on a machine with a card, and loaded
 with ctypes. Nothing here runs when a module is imported.

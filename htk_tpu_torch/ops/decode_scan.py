@@ -17,7 +17,9 @@ Two implementations with one signature:
                      step. O(Ns) per frame outside the cross-word step.
   decode_scan_cuda   the hand-written Hopper kernel (csrc/decode_scan.cu),
                      built with nvcc at first use into csrc/_build/ and
-                     bound through ctypes.
+                     bound through ctypes: one cooperative grid over the
+                     card, each block owning a contiguous range of nodes
+                     (`partition`), one grid barrier a frame.
 
 `decode_scan` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises. Word-link records follow the
@@ -29,17 +31,18 @@ are -1.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..utils.errors import HError
 from ..utils.logmath import LSMALL, LZERO
-from ._cuda import SMEM_MAX as _SMEM_MAX
-from ._cuda import CudaKernel
+from ._cuda import SMEM_MAX, CudaKernel
 
-# shared memory per block: WE, entry and an (4 B each per node)
-_SMEM_PER_NODE = 12
+THREADS = 1024  # threads per block of csrc/decode_scan.cu (kThreads)
+_WARPS = THREADS // 32
 
 Outputs = Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
                 Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -47,11 +50,92 @@ Outputs = Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.decode_scan_launch.argtypes = [vp] * 16 + [ci] * 5 + [vp]
+    lib.decode_scan_launch.argtypes = [vp] * 17 + [ci] * 13 + [vp]
     lib.decode_scan_launch.restype = ci
+    lib.decode_scan_grid.argtypes = [ci]
+    lib.decode_scan_grid.restype = ci
 
 
 KERNEL = CudaKernel("decode_scan", _bind)
+
+
+@dataclass(frozen=True)
+class Partition:
+    """The kernel's cut of a network over G blocks (host numpy). Block g
+    owns nodes [nodes[g], nodes[g+1]), their states [states[g],
+    states[g+1]) and the same target columns of trans."""
+    nodes: np.ndarray   # (G + 1,) node boundaries
+    states: np.ndarray  # (G + 1,) state boundaries
+    cols_max: int       # the most columns a block owns (at least 1)
+    nnp: int            # Nn padded for 16-byte, bank-spread row reads
+    jw: int             # lanes across columns in the cross-word step
+    gw: int             # lanes per (utterance, node) in band and combine
+    trans_in_smem: bool  # columns kept in shared memory, else read from L2
+    bchunk_max: int     # the most utterances a block takes at once
+
+
+def _padded_nodes(n_nodes: int) -> int:
+    """Nn rounded up to a multiple of 4 whose quarter is odd: the row
+    stride of the kernel's shared-memory WE rows and columns."""
+    nnp = -(-n_nodes // 4) * 4
+    return nnp + 4 if nnp % 8 == 0 else nnp
+
+
+def smem_bytes(nnp: int, cols_max: int, jw: int, bchunk: int,
+               trans_in_smem: bool) -> int:
+    """Dynamic shared memory of one block, as the kernel lays it out: the
+    columns (cols_max, nnp) if kept there, then per utterance of a chunk
+    its WE row (nnp,) and its columns' entry and an, then the cross-word
+    step's (value, index) partials, then its nodes' state offsets, word
+    penalties and start entries."""
+    ngroups = -(-cols_max // jw)
+    npart = max(bchunk * ngroups, _WARPS) * jw
+    return 4 * ((nnp * cols_max if trans_in_smem else 0)
+                + bchunk * (nnp + 2 * cols_max) + 2 * npart
+                + 3 * cols_max + 1)
+
+
+def _pow2_at_least(x: int, cap: int = 32) -> int:
+    return min(cap, 1 << (max(1, x) - 1).bit_length())
+
+
+def partition(node_off: np.ndarray, K: int, G: int) -> Partition:
+    """Cut the nodes into G contiguous ranges at node boundaries,
+    balancing each range's work a frame: its columns (Nn add-and-compares
+    each in the cross-word step) and its states (2K + 6 operations each).
+    Ranges may be empty (Nn < G, or nodes wider than an even share).
+    Raises HError 8528 if one utterance's WE row and a block's columns do
+    not fit shared memory."""
+    node_off = np.asarray(node_off, np.int64)
+    Nn = len(node_off) - 1
+    cum = np.concatenate([[0], np.cumsum(Nn + (2 * K + 6)
+                                         * np.diff(node_off))])
+    tgt = cum[-1] * np.arange(G + 1) / G
+    hi = np.searchsorted(cum, tgt)
+    lo = np.maximum(hi - 1, 0)
+    nodes = np.where(tgt - cum[lo] <= cum[hi] - tgt, lo, hi)
+    nodes[0], nodes[-1] = 0, Nn
+    states = node_off[nodes]
+    cols_max = max(1, int(np.diff(nodes).max()))
+    nnp = _padded_nodes(Nn)
+    jw = _pow2_at_least(cols_max)
+    if smem_bytes(nnp, cols_max, jw, 1, False) > SMEM_MAX:
+        HError(8528, "decode_scan: %d word nodes, %d columns a block at "
+                     "G = %d: one word-end row and the columns' entries "
+                     "exceed the kernel's shared memory", Nn, cols_max, G)
+    in_smem = smem_bytes(nnp, cols_max, jw, 1, True) <= SMEM_MAX
+    lo, hi = 1, 1 << 16  # the largest chunk that fits: 1 does
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if smem_bytes(nnp, cols_max, jw, mid, in_smem) <= SMEM_MAX:
+            lo = mid
+        else:
+            hi = mid - 1
+    return Partition(nodes=nodes.astype(np.int32),
+                     states=states.astype(np.int32),
+                     cols_max=cols_max, nnp=nnp, jw=jw,
+                     gw=_pow2_at_least(-(-int(node_off[-1]) // max(Nn, 1))),
+                     trans_in_smem=in_smem, bchunk_max=lo)
 
 
 def _check_operands(outp, band, a0, aE, node_of_state, entry_bonus, trans,
@@ -160,13 +244,61 @@ def decode_scan_plain(outp, band, a0, aE, node_of_state, entry_bonus, trans,
     return (v, wn, wt), (WEs, pwns, pwts)
 
 
+_GRID = {}
+
+
+def full_grid(device_index: int) -> int:
+    """The kernel's full grid on a card: its SM count times the blocks an
+    SM holds at the full shared-memory budget (132 on an H100); asked of
+    the card once."""
+    g = _GRID.get(device_index)
+    if g is None:
+        lib = KERNEL.build()
+        with torch.cuda.device(device_index):
+            g = lib.decode_scan_grid(device_index)
+        if g <= 0:
+            raise RuntimeError(f"decode_scan: occupancy query failed with "
+                               f"cudaError {-g}")
+        _GRID[device_index] = g
+    return g
+
+
+def _plan(node_of_state, Nn: int, K: int, G: int) -> dict:
+    """What the kernel needs of node_of_state: the node offsets and the
+    partition's bounds on its device, validated (states sorted by node,
+    nodes in range). Built once per (Nn, K, G) with one host copy and kept
+    on the tensor, rebuilt if it changes in place."""
+    cache = getattr(node_of_state, "_decode_plans", None)
+    if cache is None or cache[0] != node_of_state._version:
+        cache = node_of_state._decode_plans = (node_of_state._version, {})
+    plan = cache[1].get((Nn, K, G))
+    if plan is None:
+        nos = node_of_state.cpu().numpy()
+        if len(nos) > 1 and not (nos[1:] >= nos[:-1]).all():
+            HError(8528, "decode_scan: node_of_state must be non-decreasing "
+                         "(each node's states contiguous)")
+        if len(nos) and (nos[0] < 0 or nos[-1] >= Nn):
+            HError(8528, "decode_scan: node_of_state outside [0, %d)", Nn)
+        node_off = np.searchsorted(nos, np.arange(Nn + 1))
+        part = partition(node_off, K, G)
+        dev = node_of_state.device
+        plan = cache[1][(Nn, K, G)] = {
+            "part": part,
+            "node_off": torch.as_tensor(node_off.astype(np.int32),
+                                        device=dev),
+            "bounds": torch.as_tensor(part.nodes, device=dev)}
+    return plan
+
+
 def decode_scan_cuda(outp, band, a0, aE, node_of_state, entry_bonus, trans,
-                     start_entry, word_pen, n_nodes: int) -> Outputs:
+                     start_entry, word_pen, n_nodes: int,
+                     grid: Optional[int] = None) -> Outputs:
     """The Hopper kernel (csrc/decode_scan.cu); operands on one GPU.
 
-    Raises on operands the kernel cannot take; allocates the outputs and
-    the (2, B, Ns) ping-pong scratch; launches on the current stream
-    without synchronising."""
+    Raises on operands the kernel cannot take; allocates the outputs, the
+    (2, B, Ns) ping-pong scratch and the barrier counter; launches the
+    cooperative grid on the current stream without synchronising. `grid`
+    forces the number of blocks (tests); by default the full grid."""
     B, T, Ns, Nn, K = _check_operands(
         outp, band, a0, aE, node_of_state, entry_bonus, trans, start_entry,
         word_pen, n_nodes)
@@ -177,18 +309,13 @@ def decode_scan_cuda(outp, band, a0, aE, node_of_state, entry_bonus, trans,
                                       word_pen))):
         raise ValueError("decode_scan_cuda: every operand must lie on the "
                          f"same CUDA device as outp ({dev})")
-    if Nn * _SMEM_PER_NODE > _SMEM_MAX:
-        HError(8528, "decode_scan: %d word nodes exceed the kernel's shared "
-                     "memory (at most %d)", Nn, _SMEM_MAX // _SMEM_PER_NODE)
-    nos = node_of_state.to(torch.int32).contiguous()
-    if Ns > 1 and not bool((nos[1:] >= nos[:-1]).all()):
-        HError(8528, "decode_scan: node_of_state must be non-decreasing "
-                     "(each node's states contiguous)")
-    if Ns and (int(nos[0]) < 0 or int(nos[-1]) >= Nn):
-        HError(8528, "decode_scan: node_of_state outside [0, %d)", Nn)
-    node_off = torch.searchsorted(
-        nos, torch.arange(Nn + 1, device=dev, dtype=torch.int32)
-    ).to(torch.int32)
+    G = full_grid(dev.index) if grid is None else int(grid)
+    if G < 1 or T * G >= 2 ** 32:
+        HError(8528, "decode_scan: a grid of %d blocks over %d frames is "
+                     "outside the barrier counter's range", G, T)
+    plan = _plan(node_of_state, Nn, K, G)
+    part = plan["part"]
+    bchunk = max(1, min(B, part.bchunk_max))
     f32, i32 = torch.float32, torch.int32
     WE = torch.empty((B, T, Nn), dtype=f32, device=dev)
     pwn = torch.empty((B, T, Nn), dtype=i32, device=dev)
@@ -197,20 +324,25 @@ def decode_scan_cuda(outp, band, a0, aE, node_of_state, entry_bonus, trans,
     wnbuf = torch.empty((2, B, Ns), dtype=i32, device=dev)
     wtbuf = torch.empty((2, B, Ns), dtype=i32, device=dev)
     if B:
+        barrier = torch.zeros(1, dtype=i32, device=dev)
         lib = KERNEL.build()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.decode_scan_launch(
                 outp.data_ptr(), band.data_ptr(), a0.data_ptr(),
-                aE.data_ptr(), entry_bonus.data_ptr(), nos.data_ptr(),
-                node_off.data_ptr(), trans.data_ptr(),
-                start_entry.data_ptr(), word_pen.data_ptr(),
-                WE.data_ptr(), pwn.data_ptr(), pwt.data_ptr(),
-                vbuf.data_ptr(), wnbuf.data_ptr(), wtbuf.data_ptr(),
-                B, T, Ns, Nn, K, stream)
+                aE.data_ptr(), entry_bonus.data_ptr(),
+                plan["node_off"].data_ptr(), plan["bounds"].data_ptr(),
+                trans.data_ptr(), start_entry.data_ptr(),
+                word_pen.data_ptr(), WE.data_ptr(), pwn.data_ptr(),
+                pwt.data_ptr(), vbuf.data_ptr(), wnbuf.data_ptr(),
+                wtbuf.data_ptr(), barrier.data_ptr(), B, T, Ns, Nn, K,
+                part.nnp, part.cols_max, int(part.trans_in_smem), bchunk,
+                part.jw, part.gw, G,
+                smem_bytes(part.nnp, part.cols_max, part.jw, bchunk,
+                           part.trans_in_smem), stream)
         if err != 0:
-            raise RuntimeError(f"decode_scan_cuda: launch failed with "
-                               f"cudaError {err}")
+            raise RuntimeError(f"decode_scan_cuda: cooperative launch of "
+                               f"{G} blocks failed with cudaError {err}")
         KERNEL.launches += 1
     fin = T & 1
     return (vbuf[fin], wnbuf[fin], wtbuf[fin]), (WE, pwn, pwt)

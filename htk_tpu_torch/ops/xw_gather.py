@@ -22,17 +22,21 @@ same two kernels (`bucket_max`, `lane_gather`).
 
 Implementations with one signature each:
 
-  segmax_plain, gather_add_plain   torch ops on any device: segments
-                                   grouped by width, `WE[:, P] + S` and
+  segmax_plain, gather_add_plain,  torch ops on any device: segments
+  lane_gather_plain                grouped by width, `WE[:, P] + S` and
                                    `torch.max(dim=2)` per group
-  segmax_cuda, gather_add_cuda     the hand-written Hopper kernels
-                                   (csrc/xw_gather.cu), built with nvcc at
-                                   first use into csrc/_build/ and bound
-                                   through ctypes
+  segmax_cuda, gather_add_cuda,    the hand-written Hopper kernels
+  lane_gather_cuda                 (csrc/xw_gather.cu), built with nvcc at
+                                   first use into csrc/_build/ and
+                                   bound through ctypes
 
-`segmax` and `gather_add` take the plain version for CPU tensors only; for
-CUDA tensors they launch the kernel or raise. SEGMAX and GATHER_ADD count
-the launches of the two kernels.
+`segmax`, `gather_add` and `lane_gather` take the plain version for CPU
+tensors only; for CUDA tensors they launch the kernel or raise. SEGMAX and
+GATHER_ADD count the launches of the two kernels. Each entry checks each
+operand once (`_check`: dtype, rank, contiguity, and on the card the
+card's index compared as an integer) and launches on the raw handle of the
+current stream, entering the card's device context only when it is not
+current.
 """
 
 from __future__ import annotations
@@ -60,7 +64,9 @@ SEGMAX = LaunchCount("segmax")
 GATHER_ADD = LaunchCount("gather_add")
 
 
-def _need(x, name: str, fn: str, dtype, dim: int, device) -> None:
+def _check(x, fn: str, name: str, dtype, dim: int, where) -> None:
+    """One operand, checked once per entry: dtype, rank, contiguity, and
+    that it lies where WE lies (`where` from `_where(WE)`)."""
     if x.dtype != dtype:
         raise TypeError(f"{fn}: {name} must be {dtype}, got {x.dtype}")
     if x.dim() != dim:
@@ -68,37 +74,79 @@ def _need(x, name: str, fn: str, dtype, dim: int, device) -> None:
                          f"shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{fn}: {name} must be contiguous")
-    if x.device != device:
-        raise ValueError(f"{fn}: {name} on {x.device}, WE on {device}")
+    if (x.get_device() if type(where) is int else x.device) != where:
+        raise ValueError(f"{fn}: {name} on {x.device}, WE on {where}")
 
 
-def _check_segmax(WE, preds, scores, seg_off, out_row, C_out) -> None:
-    f32, i32, dev = torch.float32, torch.int32, WE.device
-    _need(WE, "WE", "segmax", f32, 2, dev)
-    _need(preds, "preds", "segmax", i32, 1, dev)
-    _need(scores, "scores", "segmax", f32, 1, dev)
-    _need(seg_off, "seg_off", "segmax", i32, 1, dev)
-    _need(out_row, "out_row", "segmax", i32, 1, dev)
+def _where(WE):
+    """WE's place as `_check` compares it: on the card its index, an int
+    (no torch.device object is built on the kernels' path); elsewhere its
+    torch.device."""
+    return WE.get_device() if WE.is_cuda else WE.device
+
+
+def _check_segmax(WE, preds, scores, seg_off, out_row, C_out,
+                  fn="segmax") -> None:
+    f32, i32, at = torch.float32, torch.int32, _where(WE)
+    _check(WE, fn, "WE", f32, 2, at)
+    _check(preds, fn, "preds", i32, 1, at)
+    _check(scores, fn, "scores", f32, 1, at)
+    _check(seg_off, fn, "seg_off", i32, 1, at)
+    _check(out_row, fn, "out_row", i32, 1, at)
     if scores.shape != preds.shape:
-        raise ValueError(f"segmax: scores {tuple(scores.shape)} and preds "
+        raise ValueError(f"{fn}: scores {tuple(scores.shape)} and preds "
                          f"{tuple(preds.shape)} differ")
     R = out_row.shape[0]
     if seg_off.shape[0] != R + 1:
-        raise ValueError(f"segmax: seg_off must be ({R + 1},) for {R} "
+        raise ValueError(f"{fn}: seg_off must be ({R + 1},) for {R} "
                          f"segments, got {tuple(seg_off.shape)}")
     if R > C_out:
-        raise ValueError(f"segmax: {R} segments exceed C_out = {C_out}")
+        raise ValueError(f"{fn}: {R} segments exceed C_out = {C_out}")
 
 
-def _check_gather(WE, pred, lp) -> None:
-    dev = WE.device
-    _need(WE, "WE", "gather_add", torch.float32, 2, dev)
-    _need(pred, "pred", "gather_add", torch.int32, 1, dev)
+def _check_gather(WE, pred, lp, fn="gather_add") -> None:
+    at = _where(WE)
+    _check(WE, fn, "WE", torch.float32, 2, at)
+    _check(pred, fn, "pred", torch.int32, 1, at)
     if lp is not None:
-        _need(lp, "lp", "gather_add", torch.float32, 1, dev)
+        _check(lp, fn, "lp", torch.float32, 1, at)
         if lp.shape != pred.shape:
-            raise ValueError(f"gather_add: lp {tuple(lp.shape)} and pred "
+            raise ValueError(f"{fn}: lp {tuple(lp.shape)} and pred "
                              f"{tuple(pred.shape)} differ")
+
+
+def _check_lane(tbl, idx, fn="lane_gather") -> None:
+    at = _where(tbl)
+    _check(tbl, fn, "tbl", torch.float32, 2, at)
+    _check(idx, fn, "idx", torch.int32, 2, at)
+    if tbl.shape[0] == 0:
+        raise ValueError(f"{fn}: tbl has no row to gather from")
+
+
+def _to_cuda(x, fn: str) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{fn}: operands must lie on a CUDA device, not "
+                         f"{x.device}")
+
+
+def _plain_device(x, fn: str) -> None:
+    if x.device.type != "cpu":
+        raise ValueError(f"{fn}: no implementation for device {x.device}")
+
+
+def _launch(entry, fn: str, count: LaunchCount, card: int, *args) -> None:
+    """Call a C entry point with `args` and the raw handle of card
+    `card`'s current stream, entering the card's device context only if
+    it is not the current one; raise on a launch error, else count the
+    launch."""
+    if card == torch._C._cuda_getDevice():
+        err = entry(*args, torch._C._cuda_getCurrentRawStream(card))
+    else:
+        with torch.cuda.device(card):
+            err = entry(*args, torch._C._cuda_getCurrentRawStream(card))
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with cudaError {err}")
+    count.launches += 1
 
 
 def _outputs(B, C_out, R, device):
@@ -154,46 +202,32 @@ def segmax_plain(WE, preds, scores, seg_off, out_row,
     return val, arg
 
 
-def _to_cuda(x, fn: str) -> None:
-    if not x.is_cuda:
-        raise ValueError(f"{fn}: operands must lie on a CUDA device, not "
-                         f"{x.device}")
-
-
 def segmax_cuda(WE, preds, scores, seg_off, out_row,
                 C_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Hopper kernel (csrc/xw_gather.cu); operands on one GPU.
     Allocates the outputs and launches on the current stream without
     synchronising."""
-    _check_segmax(WE, preds, scores, seg_off, out_row, C_out)
     _to_cuda(WE, "segmax_cuda")
+    _check_segmax(WE, preds, scores, seg_off, out_row, C_out, "segmax_cuda")
     B, C = WE.shape
     R = out_row.shape[0]
     val, arg = _outputs(B, C_out, R, WE.device)
     if B and R:
-        lib = KERNEL.build()
-        with torch.cuda.device(WE.device):
-            stream = torch.cuda.current_stream(WE.device).cuda_stream
-            err = lib.segmax_launch(
-                WE.data_ptr(), preds.data_ptr(), scores.data_ptr(),
-                seg_off.data_ptr(), out_row.data_ptr(), val.data_ptr(),
-                arg.data_ptr(), B, C, R, C_out, stream)
-        if err != 0:
-            raise RuntimeError(f"segmax_cuda: launch failed with cudaError "
-                               f"{err}")
-        SEGMAX.launches += 1
+        _launch(KERNEL.build().segmax_launch, "segmax_cuda", SEGMAX,
+                WE.get_device(), WE.data_ptr(), preds.data_ptr(),
+                scores.data_ptr(), seg_off.data_ptr(), out_row.data_ptr(),
+                val.data_ptr(), arg.data_ptr(), B, C, R, C_out)
     return val, arg
 
 
 def segmax(WE, preds, scores, seg_off, out_row,
            C_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch on where WE lies: the plain version for CPU tensors, the
-    kernel for CUDA tensors (which raises rather than fall back)."""
-    if WE.device.type == "cpu":
-        return segmax_plain(WE, preds, scores, seg_off, out_row, C_out)
-    if WE.device.type != "cuda":
-        raise ValueError(f"segmax: no implementation for device {WE.device}")
-    return segmax_cuda(WE, preds, scores, seg_off, out_row, C_out)
+    """Dispatch on where WE lies: the kernel for CUDA tensors (which
+    raises rather than fall back), the plain version for CPU tensors."""
+    if WE.is_cuda:
+        return segmax_cuda(WE, preds, scores, seg_off, out_row, C_out)
+    _plain_device(WE, "segmax")
+    return segmax_plain(WE, preds, scores, seg_off, out_row, C_out)
 
 
 def gather_add_plain(WE, pred, lp: Optional[torch.Tensor]) -> torch.Tensor:
@@ -208,34 +242,25 @@ def gather_add_cuda(WE, pred, lp: Optional[torch.Tensor]) -> torch.Tensor:
     """The Hopper kernel (csrc/xw_gather.cu); operands on one GPU.
     Allocates the output and launches on the current stream without
     synchronising."""
-    _check_gather(WE, pred, lp)
     _to_cuda(WE, "gather_add_cuda")
+    _check_gather(WE, pred, lp, "gather_add_cuda")
     B, C = WE.shape
     N = pred.shape[0]
-    out = torch.empty((B, N), dtype=torch.float32, device=WE.device)
+    out = WE.new_empty((B, N))
     if B and N:
-        lib = KERNEL.build()
-        with torch.cuda.device(WE.device):
-            stream = torch.cuda.current_stream(WE.device).cuda_stream
-            err = lib.gather_add_launch(
-                WE.data_ptr(), pred.data_ptr(),
-                None if lp is None else lp.data_ptr(), out.data_ptr(),
-                B, C, N, stream)
-        if err != 0:
-            raise RuntimeError(f"gather_add_cuda: launch failed with "
-                               f"cudaError {err}")
-        GATHER_ADD.launches += 1
+        _launch(KERNEL.build().gather_add_launch, "gather_add_cuda",
+                GATHER_ADD, WE.get_device(), WE.data_ptr(), pred.data_ptr(),
+                None if lp is None else lp.data_ptr(), out.data_ptr(), B, C,
+                N)
     return out
 
 
 def gather_add(WE, pred, lp: Optional[torch.Tensor]) -> torch.Tensor:
     """Dispatch on where WE lies, as `segmax` does."""
-    if WE.device.type == "cpu":
-        return gather_add_plain(WE, pred, lp)
-    if WE.device.type != "cuda":
-        raise ValueError(f"gather_add: no implementation for device "
-                         f"{WE.device}")
-    return gather_add_cuda(WE, pred, lp)
+    if WE.is_cuda:
+        return gather_add_cuda(WE, pred, lp)
+    _plain_device(WE, "gather_add")
+    return gather_add_plain(WE, pred, lp)
 
 
 _UNIFORM = {}
@@ -258,9 +283,10 @@ def bucket_max(we, preds, scores) -> torch.Tensor:
     benchmarks/gather_probe.py's Pallas kernel (its (CB, 1) output as a
     vector), on the segmax kernel with B = 1."""
     fn = "bucket_max"
-    _need(we, "we", fn, torch.float32, 1, we.device)
-    _need(preds, "preds", fn, torch.int32, 2, we.device)
-    _need(scores, "scores", fn, torch.float32, 2, we.device)
+    at = _where(we)
+    _check(we, fn, "we", torch.float32, 1, at)
+    _check(preds, fn, "preds", torch.int32, 2, at)
+    _check(scores, fn, "scores", torch.float32, 2, at)
     if scores.shape != preds.shape:
         raise ValueError(f"{fn}: scores {tuple(scores.shape)} and preds "
                          f"{tuple(preds.shape)} differ")
@@ -270,13 +296,41 @@ def bucket_max(we, preds, scores) -> torch.Tensor:
                   rows, CB)[0][0]
 
 
+def lane_gather_plain(tbl, idx) -> torch.Tensor:
+    """The plain torch version (any device) of `lane_gather`."""
+    _check_lane(tbl, idx)
+    return tbl[0][idx.long()]
+
+
+def lane_gather_cuda(tbl, idx) -> torch.Tensor:
+    """`lane_gather` on the gather-add kernel with B = 1 (the table's
+    first row) and no add; operands on one GPU, each checked once. The
+    output is shaped like idx (`empty_like`, the cheapest allocation on
+    the host), since a call is little more than its host work."""
+    fn = "lane_gather_cuda"
+    card = tbl.get_device()
+    if card < 0:
+        _to_cuda(tbl, fn)
+    _check(tbl, fn, "tbl", torch.float32, 2, card)
+    _check(idx, fn, "idx", torch.int32, 2, card)
+    if tbl.shape[0] == 0:
+        raise ValueError(f"{fn}: tbl has no row to gather from")
+    out = torch.empty_like(idx, dtype=torch.float32)
+    n = out.numel()
+    if n:
+        _launch(KERNEL.build().gather_add_launch, fn, GATHER_ADD, card,
+                tbl.data_ptr(), idx.data_ptr(), None, out.data_ptr(), 1,
+                tbl.shape[1], n)
+    return out
+
+
 def lane_gather(tbl, idx) -> torch.Tensor:
     """tbl[0][idx] for tbl (R, W) float32 and idx (n, L) int32: the function
     of benchmarks/dyngather_probe.py's Pallas kernel (a take_along_axis of
     the broadcast first table row), on the gather-add kernel with B = 1 and
-    no add, so the result is the table's values exactly."""
-    fn = "lane_gather"
-    _need(tbl, "tbl", fn, torch.float32, 2, tbl.device)
-    _need(idx, "idx", fn, torch.int32, 2, tbl.device)
-    n, L = idx.shape
-    return gather_add(tbl[:1], idx.reshape(-1), None).reshape(n, L)
+    no add, so the result is the table's values exactly. Dispatches as
+    `segmax` does."""
+    if tbl.is_cuda:
+        return lane_gather_cuda(tbl, idx)
+    _plain_device(tbl, "lane_gather")
+    return lane_gather_plain(tbl, idx)

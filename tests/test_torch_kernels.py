@@ -4,14 +4,18 @@ its callers ops/xw_route.py and ops/xw_window.py).
 
 No JAX here, so the `cuda`-marked tests also run on a machine with a card
 and no JAX (`--noconftest`; see README). On the CPU: the dispatchers take
-the plain versions for CPU tensors and count no launch, and the wrappers
-refuse what the kernels cannot take. On the card: the decode kernel equals
-its plain version (live scores within 1e-5, word-link records exactly),
-on random nets and with tie-heavy integer scores, and HVite on the card
-writes the same rec.mlf as on the CPU; the FB scans kernel agrees with its
-plain version (logP within 1e-5 relative; alphas and betas at t < t_real
-with the same live sets and within 1e-5 |ref| + 1e-4; xi of live
-utterances within rtol 1e-4, atol 1e-6), with and without a beam, with
+the plain versions for CPU tensors and count no launch, the wrappers
+refuse what the kernels cannot take, and the decode kernel's partition
+(node ranges, shared-memory budget) and its once-per-tensor plan
+hold. On the card: the decode kernel equals its plain version (live
+scores within 1e-5, word-link records exactly), on random nets and with
+tie-heavy integer scores, at forced grids of 1, 2, 3 and 7 blocks and the
+full grid, B up to 40, in chunks of utterances with its columns in shared
+memory and (3,000 nodes over 2 blocks) in global memory, and HVite on the
+card writes the same rec.mlf as on the CPU; the FB scans kernel agrees
+with its plain version (logP within 1e-5 relative; alphas and betas at
+t < t_real with the same live sets and within 1e-5 |ref| + 1e-4; xi of
+live utterances within rtol 1e-4, atol 1e-6), with and without a beam, with
 logA in shared memory and (Q above 239) in global memory, and HERest on
 the card trains the same model as on the CPU; the maxplus kernel equals
 its plain version exactly (values and first-max arguments, both floor
@@ -19,13 +23,15 @@ contracts, ties and dead rows), through ops/maxplus and the tropical
 wrappers, and the LV decoder on the card gives the CPU's words and
 times; the segmax and gather-add kernels equal their plain versions
 exactly (values and first-slot arguments; empty, single, long segments,
-ties, dead rows), through the routed, window and probe wrappers too, and
-the factored LV decoder on the card gives the CPU's words and times with
-one segmax launch a padded frame. The CPU-side tests of the maxplus
-wrappers are in tests/test_torch_maxplus.py, of the xw wrappers in
-tests/test_torch_xw.py.
+ties, dead rows; gather-add at N % 4 in {0, 1, 2, 3} and on views at an
+odd element offset), through the routed, window and probe wrappers too,
+operands off the card are refused, and the factored LV decoder on the
+card gives the CPU's words and times with one segmax launch a padded
+frame. The CPU-side tests of the maxplus wrappers are in
+tests/test_torch_maxplus.py, of the xw wrappers in tests/test_torch_xw.py.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,6 +40,7 @@ from htk_tpu_torch.ops import fb_scans as fbs
 from htk_tpu_torch.ops import maxplus as mp
 from htk_tpu_torch.ops import tropical as trop
 from htk_tpu_torch.ops import xw_gather as xg
+from htk_tpu_torch.ops._cuda import SMEM_MAX
 from htk_tpu_torch.synth import (random_decode_net, random_fb_operands,
                                  random_maxplus_operands, random_xw_operands)
 from htk_tpu_torch.utils.errors import HTKError
@@ -116,6 +123,124 @@ def test_kernel_matches_plain_on_card(ties):
         ref = ds.decode_scan_plain(*args)
         torch.cuda.synchronize()
         assert_same(got, ref)
+
+
+def partition_of(net, K, G):
+    nos = net[0]
+    node_off = np.searchsorted(nos, np.arange(net[6].shape[0] + 1))
+    return node_off, ds.partition(node_off, K, G)
+
+
+@pytest.mark.parametrize("seed,G", [(0, 1), (1, 2), (2, 3), (3, 7),
+                                    (4, 132), (5, 300)])
+@pytest.mark.parametrize("wide", [False, True])
+def test_partition_covers_states_at_node_boundaries(seed, G, wide):
+    """Every state in exactly one range, ranges on node boundaries (empty
+    ones where Nn < G or a node is wider than an even share), a block's
+    columns are its nodes, and the shared-memory flag and chunk follow the
+    budget."""
+    K = 3
+    net = random_decode_net(seed, Ns=900, Nn=60, K=K, B=1, T=2)
+    if wide:  # one node holds half the states
+        nos = net[0].copy()
+        nos[100:550] = nos[100]
+        net = (np.sort(nos),) + net[1:]
+    node_off, part = partition_of(net, K, G)
+    nodes, states = part.nodes, part.states
+    assert len(nodes) == G + 1 and nodes[0] == 0 and nodes[-1] == 60
+    assert (np.diff(nodes) >= 0).all()
+    np.testing.assert_array_equal(states, node_off[nodes])
+    owner = np.repeat(np.arange(G), np.diff(states))
+    assert len(owner) == 900  # each state in exactly one range
+    np.testing.assert_array_equal(
+        net[0], np.repeat(np.arange(60), np.diff(node_off)))
+    for g in range(G):  # a block's states are its nodes' states
+        s0, s1 = states[g], states[g + 1]
+        assert set(net[0][s0:s1]) <= set(range(nodes[g], nodes[g + 1]))
+    assert part.cols_max == max(1, int(np.diff(nodes).max()))
+    if G > 60:
+        assert (np.diff(nodes) == 0).any()
+    assert part.nnp % 4 == 0 and (part.nnp // 4) % 2 == 1 and (
+        60 <= part.nnp < 68)
+    budget = ds.smem_bytes(part.nnp, part.cols_max, part.jw, 1, True)
+    assert part.trans_in_smem == (budget <= SMEM_MAX)
+    b = part.bchunk_max
+    assert ds.smem_bytes(part.nnp, part.cols_max, part.jw, b,
+                         part.trans_in_smem) <= SMEM_MAX < ds.smem_bytes(
+        part.nnp, part.cols_max, part.jw, b + 1, part.trans_in_smem)
+    assert part.jw in (1, 2, 4, 8, 16, 32) and (
+        part.jw >= min(part.cols_max, 32))
+    assert part.gw == 16  # 15 states a node on average
+
+
+def test_partition_balances_and_flags_global_columns():
+    """Config-4's shape on the full H100 grid keeps its ~8 columns in
+    shared memory; 3,000 nodes over 2 blocks read theirs from L2; a net
+    whose WE row cannot fit is refused with HError 8528."""
+    off = np.searchsorted(np.sort(np.random.default_rng(0).integers(
+        0, 1000, 11955)), np.arange(1001))
+    part = ds.partition(off, 2, 132)
+    assert part.trans_in_smem and part.cols_max <= 10 and part.bchunk_max >= 8
+    work = np.diff(np.concatenate([[0], np.cumsum(
+        1000 + 10 * np.diff(off))])[part.nodes])
+    assert work.max() < 1.5 * work.mean()
+    part = ds.partition(np.arange(3001) * 3, 3, 2)
+    assert not part.trans_in_smem and part.cols_max == 1500
+    with pytest.raises(HTKError) as e:
+        ds.partition(np.arange(60001), 2, 132)
+    assert e.value.code == 8528
+
+
+def test_plan_validates_once_per_node_of_state_tensor():
+    """The node_of_state checks, node offsets and partition are built once
+    per tensor and (Nn, K, G), and again after an in-place change."""
+    net = random_decode_net(0, Ns=300, Nn=20, K=3, B=1, T=2)
+    nos = torch.as_tensor(net[0])
+    p1 = ds._plan(nos, 20, 3, 7)
+    assert ds._plan(nos, 20, 3, 7) is p1
+    assert ds._plan(nos, 20, 3, 5) is not p1
+    np.testing.assert_array_equal(p1["node_off"].numpy(),
+                                  np.searchsorted(net[0], np.arange(21)))
+    nos.flip(0).contiguous()  # a copy: the cache stays
+    assert ds._plan(nos, 20, 3, 7) is p1
+    nos[0] = 19  # in place: rebuilt, and refused
+    with pytest.raises(HTKError) as e:
+        ds._plan(nos, 20, 3, 7)
+    assert e.value.code == 8528
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 3, 7, None])
+@pytest.mark.parametrize("B", [1, 8, 17, 40])
+def test_kernel_matches_plain_at_forced_grids_on_card(G, B):
+    """Range edges and halos fall inside the K-band; None is the full
+    grid (more blocks than nodes)."""
+    need_card()
+    for seed, ties in ((B, True), (B + 1, False)):
+        args = operands(random_decode_net(seed, Ns=600, Nn=40, K=3, B=B,
+                                          T=24, ties=ties), "cuda")
+        got = ds.decode_scan_cuda(*args, grid=G)
+        ref = ds.decode_scan_plain(*args)
+        torch.cuda.synchronize()
+        assert_same(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ns,Nn,G,B,in_smem", [(6000, 3000, 2, 7, False),
+                                              (3000, 600, 7, 9, True)])
+def test_kernel_takes_utterances_in_chunks_on_card(Ns, Nn, G, B, in_smem):
+    """More utterances than a block's shared memory holds at once, with
+    the columns read from L2 (3,000 nodes over 2 blocks: 1,500 columns a
+    block) and kept in shared memory."""
+    need_card()
+    net = random_decode_net(0, Ns=Ns, Nn=Nn, K=3, B=B, T=10, ties=True)
+    _off, part = partition_of(net, 3, G)
+    assert part.trans_in_smem == in_smem and part.bchunk_max < B
+    args = operands(net, "cuda", wpen=0.0)
+    got = ds.decode_scan_cuda(*args, grid=G)
+    ref = ds.decode_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert_same(got, ref)
 
 
 @pytest.mark.cuda
@@ -244,6 +369,59 @@ def test_xw_kernels_match_plain_on_card(B, ties):
         torch.cuda.synchronize()
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
         assert torch.equal(g2, xg.gather_add_plain(*ops[:3]))
+
+
+def on(a, device):
+    return torch.as_tensor(a, device=device)
+
+
+def odd_view(a, device):
+    """`a` as a contiguous view one element into a larger buffer, so that
+    its data pointer is not 16-byte aligned."""
+    t = torch.as_tensor(a, device=device)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 17])
+@pytest.mark.parametrize("tail", [0, 1, 2, 3])
+def test_gather_add_kernel_edges_on_card(B, tail):
+    """N % 4 in {0, 1, 2, 3} (misaligned output rows at B > 1), lp given
+    and None, operands at an odd element offset: exactly the plain
+    version, one launch a call; lane_gather on such views too."""
+    need_card()
+    rng = np.random.default_rng(B * 4 + tail)
+    C, N = 300, 4 * 257 + tail
+    WE = rng.normal(size=(B, C)).astype(np.float32)
+    pred = rng.integers(0, C, N).astype(np.int32)
+    lp = rng.normal(size=N).astype(np.float32)
+    for view in (on, odd_view):
+        W, P, L = (view(a, "cuda") for a in (WE, pred, lp))
+        for lpt in (L, None):
+            before = xg.GATHER_ADD.launches
+            got = xg.gather_add(W, P, lpt)
+            assert xg.GATHER_ADD.launches == before + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, xg.gather_add_plain(W, P, lpt))
+        idx = view(pred[:N - N % 4].reshape(-1, 4), "cuda")
+        assert torch.equal(xg.lane_gather(W, idx), W[0][idx.long()])
+
+
+@pytest.mark.cuda
+def test_xw_wrappers_refuse_operands_off_the_card():
+    need_card()
+    ops = [torch.as_tensor(a, device="cuda")
+           for a in random_xw_operands(0, B=2, C=40, n_slots=400)]
+    with pytest.raises(ValueError):
+        xg.gather_add(ops[0], ops[1].cpu(), ops[2])
+    with pytest.raises(ValueError):
+        xg.segmax(ops[0], ops[1], ops[2].cpu(), ops[3], ops[4], 40)
+    with pytest.raises(ValueError):
+        xg.lane_gather(ops[0], ops[1][:40].reshape(4, 10).cpu())
+    with pytest.raises(ValueError):  # a table with no row to gather from
+        xg.lane_gather(ops[0][:0], ops[1][:40].reshape(4, 10))
 
 
 @pytest.mark.cuda

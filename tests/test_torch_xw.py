@@ -16,11 +16,14 @@ The same numpy-seeded inputs go through both packages:
     tests/test_pallas_decode.py's window tables and on `window_tables`'
     layout: exactly equal;
   - `bucket_max` and `lane_gather` against the probe kernels' formulas in
-    numpy. The probes (benchmarks/gather_probe.py, dyngather_probe.py)
-    pin pltpu.VMEM and take no interpret flag, so they cannot run here;
+    numpy, gather-add and lane_gather also at N % 4 != 0 and on views at an
+    odd element offset. The probes (benchmarks/gather_probe.py,
+    dyngather_probe.py) pin pltpu.VMEM and take no interpret flag, so they
+    cannot run here;
   - the plain segmax against a slot-by-slot loop, and the dispatchers: the
-    CPU takes the plain version and counts no launch; wrong dtypes, shapes
-    and non-contiguous operands are refused.
+    CPU takes the plain version and counts no launch; wrong dtypes, shapes,
+    places and non-contiguous operands are refused, each entry checking
+    each operand once.
 
 The kernels themselves are held against these plain versions on the card
 (tests/test_torch_kernels.py, chip_smoke.py).
@@ -209,6 +212,96 @@ def test_lane_gather_equals_probe_formula():
         tb = np.broadcast_to(tbl[0][None], (64, width))
         np.testing.assert_array_equal(
             got, np.take_along_axis(tb, idx, axis=1))
+
+
+@pytest.mark.parametrize("tail", [1, 2, 3])
+def test_gather_add_and_lane_gather_odd_sizes_and_views(tail):
+    """N % 4 != 0 and operands at an odd element offset (the kernel's
+    scalar edges), against the probe formulas."""
+    rng = np.random.default_rng(tail)
+    C, N = 200, 4 * 33 + tail
+    WE = rng.normal(size=(3, C)).astype(np.float32)
+    pred = rng.integers(0, C, N).astype(np.int32)
+    lp = rng.normal(size=N).astype(np.float32)
+
+    def odd(a):
+        buf = torch.empty(a.size + 1, dtype=t(a).dtype)
+        buf[1:] = t(a).reshape(-1)
+        return buf[1:].view(a.shape)
+
+    for view in (t, odd):
+        got = xg.gather_add(view(WE), view(pred), view(lp)).numpy()
+        np.testing.assert_array_equal(got, WE[:, pred] + lp[None])
+        got = xg.gather_add_plain(view(WE), view(pred), None).numpy()
+        np.testing.assert_array_equal(got, WE[:, pred])
+        idx = pred.reshape(1, N)
+        got = xg.lane_gather(view(WE), view(idx)).numpy()
+        np.testing.assert_array_equal(
+            got, np.take_along_axis(np.broadcast_to(WE[0][None], (1, C)),
+                                    idx, axis=1))
+
+
+def test_each_entry_checks_each_operand_once(monkeypatch):
+    calls = []
+    real = xg._check
+    monkeypatch.setattr(xg, "_check",
+                        lambda x, fn, name, *a: (calls.append((fn, name)),
+                                                 real(x, fn, name, *a)))
+    ops = [t(a) for a in random_xw_operands(0, B=2, C=40, n_slots=400)]
+    for call, want in (
+            (lambda: xg.segmax(*ops, 40),
+             ["WE", "preds", "scores", "seg_off", "out_row"]),
+            (lambda: xg.gather_add(*ops[:3]), ["WE", "pred", "lp"]),
+            (lambda: xg.gather_add(ops[0], ops[1], None), ["WE", "pred"]),
+            (lambda: xg.lane_gather(ops[0], ops[1][:40].reshape(4, 10)),
+             ["tbl", "idx"])):
+        calls.clear()
+        call()
+        assert [n for _f, n in calls] == want
+
+
+def test_kernel_binding_declares_every_entry_point_argument():
+    """The ctypes declarations match csrc/xw_gather.cu's C entry points:
+    one argtype per parameter, pointers as c_void_p, ints as c_int."""
+    import ctypes
+    import re
+    import types
+    with open(xg.KERNEL.source) as f:
+        src = f.read()
+    lib = types.SimpleNamespace(segmax_launch=types.SimpleNamespace(),
+                                gather_add_launch=types.SimpleNamespace())
+    xg._bind(lib)
+    for name in ("segmax_launch", "gather_add_launch"):
+        params = re.search(r'extern "C" int %s\(([^)]*)\)' % name,
+                           src).group(1).split(",")
+        want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                for p in params]
+        assert getattr(lib, name).argtypes == want
+        assert getattr(lib, name).restype is ctypes.c_int
+
+
+def test_checks_refuse_dtype_rank_contiguity_and_place():
+    """Each entry refuses, with one check per operand: a wrong dtype,
+    rank or layout; and the kernel entries refuse operands off the card
+    (the card-side mismatch is in tests/test_torch_kernels.py)."""
+    WE, pred, lp = [t(a) for a in random_xw_operands(
+        0, B=2, C=40, n_slots=400)[:3]]
+    idx = pred[:40].reshape(4, 10)
+    for fn, args, exc in (
+            (xg.gather_add, (WE.double(), pred, lp), TypeError),
+            (xg.gather_add, (WE, pred[None], lp), ValueError),
+            (xg.gather_add, (WE, pred, lp[None]), ValueError),
+            (xg.gather_add, (WE.t().contiguous().t(), pred, lp), ValueError),
+            (xg.gather_add, (WE, pred.to("meta"), lp), ValueError),
+            (xg.lane_gather, (WE, idx.long()), TypeError),
+            (xg.lane_gather, (WE[0], idx), ValueError),
+            (xg.lane_gather, (WE, idx.t()), ValueError),
+            (xg.lane_gather, (WE.to("meta"), idx), ValueError),
+            (xg.lane_gather, (WE[:0], idx), ValueError),
+            (xg.lane_gather_cuda, (WE, idx), ValueError),
+            (xg.gather_add_cuda, (WE, pred, None), ValueError)):
+        with pytest.raises(exc):
+            fn(*args)
 
 
 def test_dispatch_cpu_takes_plain_and_counts_no_launch():
