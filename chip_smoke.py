@@ -21,9 +21,11 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      (several seeds, B > 1, a tie-heavy integer-score case), each at the
      full grid and at forced grids of 1, 2, 3 and 7 blocks
   3. the FB scans kernel against its plain version on random composites
-     (two seeds, B = 4, Q = 50 and Q = 250, whose logA does not fit shared
-     memory; rows with t_real < T and t_real = 0; no beam, a loose beam,
-     one that kills some rows and one that kills all)
+     (two seeds, B = 4; banded at Q = 50, 250 and 1,100 and dense at
+     Q = 250 and 1,100, whose live-cell lists do not fit shared memory;
+     rows with t_real < T and t_real = 0; no beam (the two scans in
+     separate blocks), a loose beam, one that kills some rows and one
+     that kills all); xi exactly 0 on every dead cell
   4. the config-#4 system written with the port's own writers
   5. HVite on the card: exit 0, one decode launch per bucket, a transcript
      for every utterance; for one bucket the kernel and the plain version
@@ -41,11 +43,14 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      floor a frame); one HVite run under torch.profiler (device busy
      share, decode kernel time); the FB scans on the real bucket (B=8,
      T=512, Q=192), HERest iterations in utterances and audio seconds per
-     second; under torch.profiler, the device time of the FB kernel's two
-     parts and the device's busy share of a HERest iteration
-  8. the maxplus kernel (both floor contracts) and the tropical wrappers
-     against the plain version on random operands (two seeds, B in
-     {1, 8, 17}, C in {1, 200, 1000, 2050}; normal, tie-heavy integer
+     second; under torch.profiler, the device time of each of the FB
+     launch's parts (lists, scans, xi), the live cells per utterance, a
+     one-state composite's scan time a step (the kernel's floor) and the
+     device's busy share of a HERest iteration
+  8. the maxplus kernel (both floor contracts, the source range forced
+     into 1, 2, 3 and 7 chunks and the grid's own) and the tropical
+     wrappers against the plain version on random operands (two seeds, B
+     in {1, 8, 17}, C in {1, 200, 1000, 2050}; normal, tie-heavy integer
      scores and all-dead rows): values and arguments exactly equal
   9. the LV decoder: `compile_lv_loop` over the system's dict and
      lm.arpa (1,000 rows, S=16); `decode_batch` of the 16 utterances in
@@ -60,9 +65,9 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
  10. times, in turns plain/kernel/kernel/plain: maxplus and tropical per
      launch (CUDA events over 100 launches) at B=8, C=1,000 on a real
      frame, one LV batch (B=8, T=512) with each leg, and `decode_batch`
-     of the 16 utterances as xRT; under torch.profiler, one LV batch's
-     device busy share, the maxplus kernel's share and the top device
-     operations
+     of the 16 utterances as xRT; under torch.profiler, maxplus's device
+     time a launch, one LV batch's device busy share, the maxplus
+     kernel's share and the top device operations
  11. the segmax and gather-add kernels (csrc/xw_gather.cu) against their
      plain versions on random operands (three seeds, B in {1, 8, 17},
      segments of 0, 1, 4-64 and 500-700 slots, tie-heavy integer scores,
@@ -72,7 +77,8 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      `decode_batch` of 16 utterances in 2 batches of 8 at LM scale 12,
      word penalty 0 (bench.py's settings) on three legs: exact (one
      segmax launch per padded frame per batch), adaptive-exact top-A
-     (-128: the same launches, and scores, words and times == exact's)
+     (-128: the same launches, each gated on the device by the frame's
+     certificate, and scores, words and times == exact's)
      and top-A 128 (no segmax launch); for one batch the kernel leg and
      the plain leg on the same real outp (planes as for decode, and the
      same 1-best); word accuracy (informational) and peak device memory
@@ -94,8 +100,9 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      these go to the kernels line) and index_select's device time; one 20k
      LV batch with the exact kernel and plain legs, with the adaptive and
      top-A legs, and `decode_batch` of the 16 utterances as xRT for each
-     leg; under torch.profiler, one exact 20k batch's device busy share,
-     segmax's share, device operations per frame and top operations
+     leg; under torch.profiler, one 20k batch of each leg: its device
+     busy share, segmax's device time, device operations per frame and
+     top operations
  16. one JSON line of kernels, then the device line last
 
 Each main path runs with every launch count set to 0 just before it and
@@ -113,16 +120,19 @@ once, outputs written once) over 3.35 TB/s and its operations over the
 67 TFLOP/s of FP32 outside the tensor cores (H100 SXM data sheet; exp
 and log counted as one operation each); for the FB scans only the live
 (above LZERO/2) cells of logA count, since the others add exactly
-nothing; for maxplus and tropical, trans and WE in, values and arguments
-out, an add and a compare per (b, i, j); for segmax (and the routed leg
-and bucket_max on it) the slot stream (pred and score), WE and the
-segment tables in, values and arguments out, an add and a compare per
-(b, slot); for gather-add (window_gather, lane_gather) the slot tables
-and WE in (only the first table row for lane_gather), the candidates
-out, an add per (b, slot). No single PyTorch call computes max-plus with
-argmax or a segmented max with its argmax, or a gather and an add, so
-`library_ms` is null for all but lane_gather, whose function is one
-`torch.index_select` of the first table row.
+nothing and the kernel leaves them out; for maxplus and tropical, trans
+and WE in, values and arguments out, an add and a compare per (b, i, j)
+(on the decoder's path trans stays in L2 from frame to frame, so L2's
+rate, not the HBM rate the bound uses, is the floor there); for segmax
+(and the routed leg and bucket_max on it) the slot stream (pred and
+score), WE and the segment tables in, values and arguments out, an add
+and a compare per (b, slot); for gather-add (window_gather,
+lane_gather) the slot tables and WE in (only the first table row for
+lane_gather), the candidates out, an add per (b, slot). No single
+PyTorch call computes max-plus with argmax or a segmented max with its
+argmax, or a gather and an add, so `library_ms` is null for all but
+lane_gather, whose function is one `torch.index_select` of the first
+table row.
 
 Usage: python3 chip_smoke.py        (exit 0 only if every phase passed)
 """
@@ -186,15 +196,21 @@ KERNELS = (ds.KERNEL, fbs.KERNEL, mp.KERNEL, xg.KERNEL)
 # tropical launches the maxplus kernel; xw_gather counts its two entries
 COUNTS = KERNELS + (trop.LAUNCHES, xg.SEGMAX, xg.GATHER_ADD)
 MAXPLUS_BS, MAXPLUS_CS = (1, 8, 17), (1, 200, 1000, 2050)
+MAXPLUS_CHUNKS = (1, 2, 3, 7, None)  # forced source chunks; None: the grid's
 MAXPLUS_MODES = {"normal": {}, "ties": {"ties": True},
                  "dead row": {"dead_rows": 1}}
 TOPA = 128  # the dense top-A leg's max_active (htk_tpu's bench.py 5k row)
 LAUNCH_LOOP = 100  # back-to-back launches per timed sample of one kernel
+PLAIN_LOOP = 10  # calls per timed sample of a slow plain version
 LIBRARY_ROUNDS = 40  # alternating samples of lane_gather and index_select
 PAD_T = 128  # decode_batch pads T to a multiple of this
 HEREST_BATCH = 8
 RANDOM_FB = dict(B=4, T=40, t_real=[40, 33, 20, 0])
-FB_QS = (50, 250)  # Q = 250: logA in global memory
+# (Q, layout): banded composites and dense ones (every cell among the live
+# states live); the dense and Q = 1,100 cases' lists do not fit shared
+# memory, so the kernel reads them from global memory
+FB_CASES = ((50, "banded"), (250, "banded"), (1100, "banded"),
+            (250, "dense"), (1100, "dense"))
 FB_BEAMS = (None, 10.0, 5.0, 2.0)  # 5 kills some rows, 2 all of them
 ACC_TOL = 1e-2
 HBM_BPS, FP32_OPS = 3.35e12, 67e12  # H100 SXM data sheet
@@ -506,23 +522,38 @@ def phase_real_bucket(sysm, hyps, dev):
     return err, net, comp, feats
 
 
+def fb_operands(seed, Q, layout, dev):
+    """random_fb_operands on the card; `dense` makes every cell among the
+    live states live (an ergodic composite)."""
+    ops = random_fb_operands(seed, Q=Q, **RANDOM_FB)
+    if layout == "dense":
+        live = Q - 4  # random_fb_operands' padded states
+        rng = np.random.default_rng(seed + 100)
+        ops[1][:, :live, :live] = np.log(rng.uniform(
+            0.05, 1.0, (ops[1].shape[0], live, live))).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in ops]
+
+
 def phase_random_fb(dev) -> float:
     err = 0.0
-    for Q in FB_QS:
-        where = ("shared" if fbs.smem_bytes(Q) <= fbs.SMEM_MAX
-                 else "global")
+    for Q, layout in FB_CASES:
         for seed in range(2):
-            args = [torch.as_tensor(a, device=dev) for a in
-                    random_fb_operands(seed, Q=Q, **RANDOM_FB)]
+            args = fb_operands(seed, Q, layout, dev)
             for beam in FB_BEAMS:
-                what = f"random FB Q={Q} seed={seed} beam={beam}"
+                what = f"random FB Q={Q} {layout} seed={seed} beam={beam}"
                 k = fbs.fb_scans_cuda(*args, beam=beam)
                 p = fbs.fb_scans_plain(*args, beam=beam)
                 torch.cuda.synchronize(dev)
                 e = compare_scans(k, p, args[4], what)
+                if not bool((k[3][args[1] <= LZERO / 2] == 0).all()):
+                    raise AssertionError(f"{what}: xi not 0 on a dead cell")
                 dead = int((p[2] <= LZERO / 2).sum())
-                log(f"{what} (logA in {where} memory): agree (max |d| "
-                    f"{e:.3g}; {dead} of {len(p[2])} rows without a path)")
+                nnz = int((args[1] > LZERO / 2).sum(dim=(1, 2)).max())
+                in_smem = fbs.lists_in_smem(args[1], beam is not None)
+                log(f"{what} ({nnz} live cells, lists in "
+                    f"{'shared' if in_smem else 'global'} memory): "
+                    f"agree (max |d| {e:.3g}; {dead} of {len(p[2])} rows "
+                    f"without a path)")
                 err = max(err, e)
     return err
 
@@ -675,9 +706,24 @@ def phase_profile(sysm, ops, root, card, dev):
     device's share of one HERest iteration's wall time."""
     fbs.fb_scans_cuda(*ops)
     wall, ks, _n = device_profile(lambda: fbs.fb_scans_cuda(*ops), dev)
-    log(f"profile on {card} of one fb_scans call ({wall:.3f} ms wall): "
+    live = (ops[1] > LZERO / 2).sum(dim=(1, 2)).tolist()
+    log(f"profile on {card} of one fb_scans call ({wall:.3f} ms wall; "
+        f"live cells per utterance {live} of {ops[1].shape[1] ** 2}): "
         + (", ".join(f"{k[:40]} {ms:.3f} ms" for k, ms in ks)
            or "no device time seen"))
+    # a one-state composite (a self-loop) at the same B and T: the two
+    # scans' steps with no work, the kernel's floor a step
+    B, T, _Q = ops[0].shape
+    one = [torch.zeros((B, T, 1), device=dev),
+           torch.full((B, 1, 1), -0.5, device=dev),
+           torch.zeros((B, 1), device=dev), torch.zeros((B, 1), device=dev),
+           torch.full((B,), T, dtype=torch.int32, device=dev)]
+    fms = statistics.median(time_call(lambda: fbs.fb_scans_cuda(*one), dev))
+    _w, ks1, _n = device_profile(lambda: fbs.fb_scans_cuda(*one), dev)
+    scan1 = sum(ms for k, ms in ks1 if "fb_scan_kernel" in k)
+    log(f"  a one-state composite (B={B}, T={T}): {fms:.3f} ms a call, "
+        f"scan kernel {scan1:.3f} ms of device time "
+        f"({scan1 / T * 1e3:.3f} us a step of each scan, both at once)")
     out = os.path.join(root, "hmm_profiled")
     argv = ["-H", sysm.hmmdefs, "-M", out, "-S", sysm.train_scp, "-I",
             sysm.train_mlf, sysm.hmmlist]
@@ -786,10 +832,11 @@ def phase_random_maxplus(dev) -> float:
                               random_maxplus_operands(seed, B=B, C=C, **kw)]
                     what = f"maxplus {mode} seed={seed} B={B} C={C}"
                     for floor in (False, True):
-                        err = max(err, check_equal(
-                            mp.maxplus_cuda(WE, tr, floor),
-                            mp.maxplus_plain(WE, tr, floor),
-                            f"{what} floor={floor}"))
+                        ref = mp.maxplus_plain(WE, tr, floor)
+                        for ch in MAXPLUS_CHUNKS:
+                            err = max(err, check_equal(
+                                mp.maxplus_cuda(WE, tr, floor, chunks=ch),
+                                ref, f"{what} floor={floor} chunks={ch}"))
                     tT = trop.pad_tropical_operand(tr)
                     out = trop.tropical_matvec_argmax_padded(
                         padded(WE, tT.shape[0]), tT)
@@ -802,8 +849,10 @@ def phase_random_maxplus(dev) -> float:
                         f"tropical {what} unfloored"))
                     n += 1
     torch.cuda.synchronize(dev)
-    log(f"maxplus (floor off and on) and tropical (padded, and unfloored) "
-        f"== plain exactly on {n} random operand sets")
+    log(f"maxplus (floor off and on; source chunks forced to "
+        f"{MAXPLUS_CHUNKS[:-1]} and the grid's, {mp.grid_chunks(8, 1000)} "
+        f"at B=8, C=1000) and tropical (padded, and unfloored) == plain "
+        f"exactly on {n} random operand sets")
     return err
 
 
@@ -952,12 +1001,14 @@ def time_launches(fn, dev, n=LAUNCH_LOOP, reps=3):
     return ts
 
 
-def in_turns(timer, plain, kernel, dev):
-    """Medians of 6 (plain, kernel, kernel, plain; 3 samples each)."""
-    p = timer(plain, dev)
+def in_turns(timer, plain, kernel, dev, plain_timer=None):
+    """Medians of 6 (plain, kernel, kernel, plain; 3 samples each);
+    `plain_timer` times the plain version where given."""
+    pt = plain_timer or timer
+    p = pt(plain, dev)
     k = timer(kernel, dev)
     k += timer(kernel, dev)
-    p += timer(plain, dev)
+    p += pt(plain, dev)
     return statistics.median(k), statistics.median(p), k, p
 
 
@@ -980,6 +1031,13 @@ def phase_lv_timing(net, comp, feats, batch, args, WEs, trop_ops, card,
     log(f"  maxplus B={B} C={C} (a real frame): kernel {mk:.6f} ms, plain "
         f"{mpl:.6f} ms; samples " + " ".join(f"{x:.6f}" for x in ks)
         + " | " + " ".join(f"{x:.6f}" for x in ps))
+    _w, prof, _n = device_profile(
+        lambda: [mp.maxplus_cuda(WE, trans, False)
+                 for _ in range(LAUNCH_LOOP)], dev)
+    mdev = sum(ms for k_, ms in prof if "maxplus_kernel" in k_)
+    log(f"  maxplus device time a launch (torch.profiler, {LAUNCH_LOOP} "
+        f"calls, {mp.grid_chunks(B, C)} source chunks): "
+        f"{mdev / LAUNCH_LOOP:.6f} ms, against {mk:.6f} ms a call")
     log(f"  tropical padded {tuple(WEp.shape)} x {tuple(tT.shape)}: kernel "
         f"{tk:.6f} ms, plain {tpl:.6f} ms; samples "
         + " ".join(f"{x:.6f}" for x in tks) + " | "
@@ -1272,9 +1330,12 @@ def phase_big_timing(sysm, net, batch, WE, paths, lops, card, dev):
         return run
 
     log(f"timing on {card} (per launch, CUDA events over {LAUNCH_LOOP} "
-        f"launches; median of 6, in turns plain/kernel/kernel/plain):")
+        f"launches, {PLAIN_LOOP} calls of a plain version; median of 6, in "
+        f"turns plain/kernel/kernel/plain):")
     for name, fn in fns.items():
-        k, p, ks, ps = in_turns(time_launches, plain(fn), fn, dev)
+        # the plain versions take 0.04-11 ms a call: PLAIN_LOOP of them
+        k, p, ks, ps = in_turns(time_launches, plain(fn), fn, dev,
+                                lambda f, d: time_launches(f, d, PLAIN_LOOP))
         times[name] = [k, p, None]
         log(f"  {name}: kernel {k:.6f} ms, plain {p:.6f} ms; samples "
             + " ".join(f"{v:.6f}" for v in ks) + " | "
@@ -1332,10 +1393,12 @@ def phase_big_timing(sysm, net, batch, WE, paths, lops, card, dev):
         f"{bk:.3f} ms ({bk / T * 1e3:.1f} us per frame), exact plain leg "
         f"{bp:.3f} ms; samples " + " ".join(f"{v:.3f}" for v in bks)
         + " | " + " ".join(f"{v:.3f}" for v in bps))
+    batch_ms = {"exact": bk}
     for leg, ma in (("adaptive", ADAPTIVE), ("topA", TOPA)):
         ts = time_call(one_batch(ma), dev)
+        batch_ms[leg] = statistics.median(ts)
         log(f"  20k LV batch, {leg} leg (max_active={ma}): "
-            f"{statistics.median(ts):.3f} ms; samples "
+            f"{batch_ms[leg]:.3f} ms; samples "
             + " ".join(f"{v:.3f}" for v in ts))
     audio = sum(f.shape[0] for f in sysm.feats) * FRAME_S
     for leg, ma in (("exact", None), ("adaptive", ADAPTIVE), ("topA", TOPA)):
@@ -1346,16 +1409,22 @@ def phase_big_timing(sysm, net, batch, WE, paths, lops, card, dev):
             f"({audio:.2f} s of audio), {leg} leg: {w:.3f} ms, xRT "
             f"{w / 1e3 / audio:.6f}; samples "
             + " ".join(f"{v:.3f}" for v in walls))
-    wall, ops, n_ops = device_profile(one_batch(), dev)
-    busy = sum(ms for _k, ms in ops)
-    sm = sum(ms for k, ms in ops if "segmax" in k)
-    log(f"profile on {card} of one exact 20k LV batch: wall {wall:.1f} ms "
-        f"(unprofiled {bk:.1f} ms), device busy {busy:.1f} ms "
-        f"({100 * busy / wall:.1f}% of the profiled wall, "
-        f"{100 * busy / bk:.1f}% of the unprofiled), {n_ops} device "
-        f"operations ({n_ops / T:.1f} per frame), segmax kernel {sm:.2f} ms "
-        f"({100 * sm / max(busy, 1e-9):.1f}% of busy); top: "
-        + ", ".join(f"{k[:48]} {ms:.2f} ms" for k, ms in ops[:8]))
+    # each leg's device busy share and segmax's device time (the adaptive
+    # leg launches segmax every frame, gated on the device)
+    for leg, ma in (("exact", None), ("adaptive", ADAPTIVE),
+                    ("topA", TOPA)):
+        wall, ops, n_ops = device_profile(one_batch(ma), dev)
+        busy = sum(ms for _k, ms in ops)
+        sm = sum(ms for k, ms in ops if "segmax" in k)
+        bms = batch_ms[leg]
+        log(f"profile on {card} of one {leg} 20k LV batch: wall {wall:.1f} "
+            f"ms (unprofiled {bms:.1f} ms), device busy {busy:.1f} ms "
+            f"({100 * busy / wall:.1f}% of the profiled wall, "
+            f"{100 * busy / bms:.1f}% of the unprofiled), {n_ops} device "
+            f"operations ({n_ops / T:.1f} per frame), segmax kernel "
+            f"{sm:.2f} ms ({100 * sm / max(busy, 1e-9):.1f}% of busy); "
+            "top: " + ", ".join(f"{k[:48]} {ms:.2f} ms"
+                                for k, ms in ops[:8]))
     return times
 
 

@@ -267,11 +267,12 @@ def _scatter_max(cand, tgt, src, C: int):
     return ex[:, :C], anx[:, :C]
 
 
-def _segmax_leg(WE, xw, C: int):
+def _segmax_leg(WE, xw, C: int, skip=None):
     """The exact explicit-bigram leg: one segmax over the buckets' slots,
-    written straight into target rows."""
+    written straight into target rows; unspecified where the device flag
+    `skip` holds True."""
     return _xw_gather.segmax(WE, xw["preds"], xw["scores"], xw["seg_off"],
-                             xw["out_row"], C)
+                             xw["out_row"], C, skip)
 
 
 def _take(m, an, exp_v, exp_a):
@@ -285,9 +286,12 @@ def _factored_leg(xw, C: int, A: Optional[int], adaptive: bool):
     """cross(WE, pwn) -> (m, an) (B, C) for the factored tables `xw`
     (LM-scaled): htk_tpu/algo/decode.py:546-643 without the routed hook.
     The reference picks adaptive-exact's leg with a lax.cond on one
-    batch-wide certificate; here both legs run every frame and
-    torch.where selects on the same batch-wide flag, so the frame loop
-    never waits on the device (segmax launches every frame)."""
+    batch-wide certificate; here the certificate stays on the device:
+    segmax launches every frame with it as its `skip` flag, so on the
+    card its blocks return at once where the top-A leg is safe, and
+    torch.where selects on the same flag. The frame loop never waits on
+    the device, and the unspecified outputs of a skipped launch are only
+    ever passed over by the where."""
     use_topa = A is not None and A < C and xw["succ_j"] is not None
     has_slots = xw["out_row"].numel() > 0
     bow_r, uni_r = xw["bow"][None], xw["uni"][None]
@@ -305,7 +309,7 @@ def _factored_leg(xw, C: int, A: Optional[int], adaptive: bool):
                 # bo_best + uni[j] only if WE[i] + marg[i] > bo_best
                 ex_m = (WE + xw["marg"][None]).scatter(1, idxs, 2 * LZERO)
                 safe = (ex_m.amax(dim=1) <= bo_best).all()
-                slow_v, slow_a = _segmax_leg(WE, xw, C)
+                slow_v, slow_a = _segmax_leg(WE, xw, C, skip=safe)
                 exp_v = torch.where(safe, exp_v, slow_v)
                 exp_a = torch.where(safe, exp_a, slow_a)
         elif has_slots:

@@ -20,7 +20,11 @@
 // bucket row (pads included) and torch.max(dim). Each candidate is one fp32
 // add of WE and the already-scaled score, as in the plain torch version
 // (ops/xw_gather.py), so values agree bit for bit. An empty segment writes
-// (2 * LZERO, -1).
+// (2 * LZERO, -1). `skip` is an optional device flag (a 0-dim bool, or
+// null): where it is set every block returns before it reads a slot and
+// val / arg are left unspecified, so a caller can gate the launch on a
+// value computed on the device (the adaptive-exact leg's certificate)
+// without waiting for it on the host.
 //
 // gather_add: out[b, n] = WE[b, pred[n]] + lp[n], or WE[b, pred[n]] alone
 // when lp is null (the probe's plain lane gather).
@@ -67,9 +71,11 @@ segmax_kernel(const float* __restrict__ we,       // (B, C)
               const float* __restrict__ scores,   // (N,)
               const int* __restrict__ seg_off,    // (R + 1,)
               const int* __restrict__ out_row,    // (R,)
+              const unsigned char* __restrict__ skip,  // () or null
               float* __restrict__ val,            // (B, C_out)
               int* __restrict__ arg,              // (B, C_out)
               int B, int C, int R, int C_out) {
+  if (skip && *skip) return;
   const int r = blockIdx.x * kSegThreads + threadIdx.x;
   if (r >= R) return;
   const int b0 = blockIdx.y * kBatch;
@@ -204,14 +210,16 @@ gather_add_kernel(const float* __restrict__ we,    // (B, C)
 // Launch on `stream`; each returns the cudaError_t of its launch.
 extern "C" int segmax_launch(const void* we, const void* preds,
                              const void* scores, const void* seg_off,
-                             const void* out_row, void* val, void* arg,
-                             int B, int C, int R, int C_out, void* stream) {
+                             const void* out_row, const void* skip,
+                             void* val, void* arg, int B, int C, int R,
+                             int C_out, void* stream) {
   const dim3 grid((R + kSegThreads - 1) / kSegThreads,
                   (B + kBatch - 1) / kBatch);
   segmax_kernel<<<grid, kSegThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(we), static_cast<const int*>(preds),
       static_cast<const float*>(scores), static_cast<const int*>(seg_off),
-      static_cast<const int*>(out_row), static_cast<float*>(val),
+      static_cast<const int*>(out_row),
+      static_cast<const unsigned char*>(skip), static_cast<float*>(val),
       static_cast<int*>(arg), B, C, R, C_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,8 @@ import subprocess
 import time
 from typing import Callable
 
+import torch
+
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "_build")
@@ -45,6 +47,21 @@ class LaunchCount:
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+
+
+def launch(entry, fn: str, count: LaunchCount, card: int, *args) -> None:
+    """Call a C entry point with `args` and the raw handle of card
+    `card`'s current stream, entering the card's device context only if
+    it is not the current one; raise on a launch error, else count the
+    launch. No torch.device or Stream object is built on this path."""
+    if card == torch._C._cuda_getDevice():
+        err = entry(*args, torch._C._cuda_getCurrentRawStream(card))
+    else:
+        with torch.cuda.device(card):
+            err = entry(*args, torch._C._cuda_getCurrentRawStream(card))
+    if err != 0:
+        raise RuntimeError(f"{fn}: launch failed with cudaError {err}")
+    count.launches += 1
 
 
 class CudaKernel(LaunchCount):

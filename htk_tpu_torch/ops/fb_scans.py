@@ -19,7 +19,9 @@ signature:
   fb_scans_plain  the three batched torch scans of algo/fb.py
   fb_scans_cuda   the hand-written Hopper kernel (csrc/fb_scans.cu), built
                   with nvcc at first use into csrc/_build/ and bound
-                  through ctypes
+                  through ctypes; it works on the live cells of logA
+                  only (above LZERO/2; the others add exactly nothing),
+                  listed per state on the card at every launch
 
 `fb_scans` takes the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises.
@@ -33,16 +35,16 @@ from typing import Optional, Tuple
 import torch
 
 from ..algo import fb as _fb
-from ..utils.logmath import ladd_reduce
-from ._cuda import SMEM_MAX, CudaKernel
+from ..utils.logmath import LZERO, ladd_reduce
+from ._cuda import SMEM_MAX, CudaKernel, launch
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
-_WARPS = 32  # the scan kernel's warps per block (csrc/fb_scans.cu kThreads)
+_MAX_WARPS = 32  # csrc/fb_scans.cu kMaxWarps
 
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fb_scans_launch.argtypes = ([vp] * 10 + [ci] * 5
+    lib.fb_scans_launch.argtypes = ([vp] * 12 + [ci] * 5
                                     + [ctypes.c_float, vp])
     lib.fb_scans_launch.restype = ci
 
@@ -50,10 +52,34 @@ def _bind(lib):
 KERNEL = CudaKernel("fb_scans", _bind)
 
 
-def smem_bytes(Q: int) -> int:
-    """The scan kernel's dynamic shared memory with logA in it: two state
-    vectors, the per-warp maxima and logA at a row stride of Q + 1."""
-    return 4 * (2 * Q + _WARPS + Q * (Q + 1))
+def smem_bytes(Q: int, dirs: int, entries: int) -> int:
+    """The scan kernel's shared memory for a block that runs `dirs` scans
+    (1, or 2 under a beam) with `entries` live cells in its lists: two
+    state vectors, the per-warp maxima, the lists' offsets and entries."""
+    return 4 * (2 * Q + _MAX_WARPS + dirs * (Q + 1)) + 8 * entries
+
+
+def scan_smem(Q: int, beam: bool) -> int:
+    """The scan kernel's dynamic shared memory at launch: room for every
+    cell of logA in each list, or SMEM_MAX; a block whose lists exceed it
+    reads them from global memory. Raises where not even the state
+    vectors and offsets fit."""
+    dirs = 2 if beam else 1
+    if smem_bytes(Q, dirs, 0) > SMEM_MAX:
+        raise ValueError(f"fb_scans_cuda: Q = {Q} states do not fit the "
+                         "scan kernel's shared memory")
+    return min(SMEM_MAX, smem_bytes(Q, dirs, dirs * Q * Q))
+
+
+def lists_in_smem(logA, beam: bool) -> bool:
+    """Whether every scan block keeps its live-cell lists in shared memory
+    for this logA (B, Q, Q), as the kernel decides at launch; else it
+    reads them from global memory. Reads logA's values (a host sync on
+    the card): for tests and reports, not the launch path."""
+    Q = logA.shape[1]
+    dirs = 2 if beam else 1
+    nnz = int((logA > LZERO / 2).sum(dim=(1, 2)).max())
+    return smem_bytes(Q, dirs, dirs * nnz) <= scan_smem(Q, beam)
 
 
 def _check_operands(outp, logA, a0, aE, t_real):
@@ -97,37 +123,33 @@ def fb_scans_cuda(outp, logA, a0, aE, t_real,
                   beam: Optional[float] = None) -> Outputs:
     """The Hopper kernel (csrc/fb_scans.cu); operands on one GPU.
 
-    Raises on operands the kernel cannot take; allocates the outputs;
-    launches on the current stream without synchronising. logA sits in
-    shared memory when it fits (Q <= 239), else the kernel reads it and a
-    transposed copy from global memory."""
+    Raises on operands the kernel cannot take; allocates the outputs and
+    the live-cell lists' scratch (B, 2, Q + 1) and 2 x (B, 2, Q, Q);
+    launches on the current stream without synchronising. The lists sit
+    in shared memory when they fit (`smem_bytes` against `scan_smem`),
+    else the scan reads them from global memory."""
     B, T, Q = _check_operands(outp, logA, a0, aE, t_real)
-    dev = outp.device
-    if not (outp.is_cuda and all(x.device == dev
+    card = outp.get_device()
+    if not (outp.is_cuda and all(x.get_device() == card
                                  for x in (logA, a0, aE, t_real))):
         raise ValueError("fb_scans_cuda: every operand must lie on the same "
-                         f"CUDA device as outp ({dev})")
+                         f"CUDA device as outp ({outp.device})")
+    dev = outp.device
     alphas = torch.empty((B, T, Q), dtype=torch.float32, device=dev)
     betas = torch.empty((B, T, Q), dtype=torch.float32, device=dev)
     logp = torch.empty((B,), dtype=torch.float32, device=dev)
     xi = torch.empty((B, Q, Q), dtype=torch.float32, device=dev)
-    if B:
-        in_smem = smem_bytes(Q) <= SMEM_MAX
-        logAT = None if in_smem else logA.transpose(1, 2).contiguous()
-        lib = KERNEL.build()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.fb_scans_launch(
-                outp.data_ptr(), logA.data_ptr(),
-                None if logAT is None else logAT.data_ptr(), a0.data_ptr(),
-                aE.data_ptr(), t_real.data_ptr(), alphas.data_ptr(),
-                betas.data_ptr(), logp.data_ptr(), xi.data_ptr(),
-                B, T, Q, int(in_smem), int(beam is not None),
-                0.0 if beam is None else float(beam), stream)
-        if err != 0:
-            raise RuntimeError(f"fb_scans_cuda: launch failed with "
-                               f"cudaError {err}")
-        KERNEL.launches += 1
+    if B and Q:
+        smem = scan_smem(Q, beam is not None)
+        off = torch.empty((B, 2, Q + 1), dtype=torch.int32, device=dev)
+        lists = torch.empty((2, B, 2, Q, Q), dtype=torch.int32, device=dev)
+        launch(KERNEL.build().fb_scans_launch, "fb_scans_cuda", KERNEL, card,
+               outp.data_ptr(), logA.data_ptr(), a0.data_ptr(),
+               aE.data_ptr(), t_real.data_ptr(), alphas.data_ptr(),
+               betas.data_ptr(), logp.data_ptr(), xi.data_ptr(),
+               off.data_ptr(), lists[0].data_ptr(), lists[1].data_ptr(), B,
+               T, Q, smem, int(beam is not None),
+               0.0 if beam is None else float(beam))
     return alphas, betas, logp, xi
 
 

@@ -28,26 +28,58 @@ source rows dead). Implementations with one signature:
 `maxplus` takes the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises. `maxplus_matvec(WE, trans)` is the
 counterpart of the TPU kernel's function (floor=True).
+
+The kernel splits the source range i into `chunks` (`grid_chunks`: enough
+that the grid covers the card twice over) and merges the chunks' partial
+maxima in ascending order with a strict `>`, which is the serial first
+maximum. It keeps, per card and stream, a scratch of partials and a row
+of ticket counters that every launch leaves at zero.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..utils.logmath import LZERO
-from ._cuda import CudaKernel
+from ._cuda import CudaKernel, LaunchCount, launch
 
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.maxplus_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+    lib.maxplus_launch.argtypes = [vp] * 7 + [ci] * 4 + [vp]
     lib.maxplus_launch.restype = ci
 
 
 KERNEL = CudaKernel("maxplus", _bind)
+COLS, BATCH, WARPS = 32, 8, 8  # csrc/maxplus.cu: kCols, kBatch, kWarps
+MIN_BLOCKS = 264  # twice the H100's 132 SMs
+_WORK = {}  # (card, stream) -> (tickets, partials), grown on demand
+
+
+def grid_chunks(B: int, C: int) -> int:
+    """The kernel's source chunks at (B, C): enough for MIN_BLOCKS blocks,
+    with at least one source row for each warp of a block."""
+    tiles = -(-C // COLS) * -(-B // BATCH)
+    return max(1, min(-(-MIN_BLOCKS // tiles), C // WARPS))
+
+
+def _workspace(card: int, tiles: int, n_part: int):
+    """Ticket counters (zero) and an int32 scratch of 2 n_part partials,
+    kept per card and stream; a launch leaves the counters at zero, and
+    launches on one stream never overlap."""
+    key = (card, torch._C._cuda_getCurrentRawStream(card))
+    held = _WORK.get(key)
+    n_t, n_p = (0, 0) if held is None else (held[0].numel(),
+                                            held[1].numel())
+    if n_t < tiles or n_p < 2 * n_part:
+        held = (torch.zeros(max(tiles, n_t), dtype=torch.int32, device=card),
+                torch.empty(max(2 * n_part, n_p), dtype=torch.int32,
+                            device=card))
+        _WORK[key] = held
+    return held
 
 
 def _check_operands(WE, trans) -> Tuple[int, int]:
@@ -81,9 +113,11 @@ def maxplus_plain(WE, trans, floor: bool) -> Tuple[torch.Tensor,
     return val, arg
 
 
-def _launch(WE, trans, floor: bool):
-    """One kernel launch on the current stream, uncounted (the counted
-    wrappers are maxplus_cuda and ops/tropical's)."""
+def _launch(WE, trans, floor: bool, count: LaunchCount,
+            chunks: Optional[int] = None):
+    """One kernel launch on the current stream, counted on `count`
+    (KERNEL for maxplus_cuda, ops/tropical's own count for its wrappers).
+    `chunks` forces the number of source chunks (default grid_chunks)."""
     B, C = _check_operands(WE, trans)
     if not WE.is_cuda:
         raise ValueError(f"maxplus_cuda: operands must lie on a CUDA device, "
@@ -91,26 +125,28 @@ def _launch(WE, trans, floor: bool):
     val = torch.empty((B, C), dtype=torch.float32, device=WE.device)
     arg = torch.empty((B, C), dtype=torch.int32, device=WE.device)
     if B and C:
-        lib = KERNEL.build()
-        with torch.cuda.device(WE.device):
-            stream = torch.cuda.current_stream(WE.device).cuda_stream
-            err = lib.maxplus_launch(WE.data_ptr(), trans.data_ptr(),
-                                     val.data_ptr(), arg.data_ptr(), B, C,
-                                     int(bool(floor)), stream)
-        if err != 0:
-            raise RuntimeError(f"maxplus_cuda: launch failed with cudaError "
-                               f"{err}")
+        chunks = grid_chunks(B, C) if chunks is None else int(chunks)
+        if chunks < 1:
+            raise ValueError(f"maxplus_cuda: chunks must be >= 1, got "
+                             f"{chunks}")
+        card = WE.get_device()
+        n_part = chunks * B * C if chunks > 1 else 0
+        tickets, part = _workspace(card, -(-C // COLS) * -(-B // BATCH),
+                                   n_part)
+        ptr = part.data_ptr()
+        launch(KERNEL.build().maxplus_launch, "maxplus_cuda", count, card,
+               WE.data_ptr(), trans.data_ptr(), val.data_ptr(),
+               arg.data_ptr(), ptr, ptr + 4 * n_part, tickets.data_ptr(), B,
+               C, chunks, int(bool(floor)))
     return val, arg
 
 
-def maxplus_cuda(WE, trans, floor: bool) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
+def maxplus_cuda(WE, trans, floor: bool, chunks: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Hopper kernel (csrc/maxplus.cu); operands on one GPU. Allocates
-    the outputs and launches on the current stream without synchronising."""
-    out = _launch(WE, trans, floor)
-    if WE.numel():
-        KERNEL.launches += 1
-    return out
+    the outputs and launches on the current stream without synchronising;
+    `chunks` forces the split of the source range (tests)."""
+    return _launch(WE, trans, floor, KERNEL, chunks)
 
 
 def maxplus(WE, trans, floor: bool) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -70,10 +70,7 @@ def _product(WE, trans, floor: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     if WE.device.type != "cuda":
         raise ValueError(f"tropical: no implementation for device "
                          f"{WE.device}")
-    out = _mp._launch(WE, trans, floor)
-    if WE.numel():
-        LAUNCHES.launches += 1
-    return out
+    return _mp._launch(WE, trans, floor, LAUNCHES)
 
 
 def tropical_matvec_argmax_padded(WE_p, transT_p):

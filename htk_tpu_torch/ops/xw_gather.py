@@ -48,12 +48,12 @@ import numpy as np
 import torch
 
 from ..utils.logmath import LZERO
-from ._cuda import CudaKernel, LaunchCount
+from ._cuda import CudaKernel, LaunchCount, launch
 
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.segmax_launch.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+    lib.segmax_launch.argtypes = [vp] * 8 + [ci] * 4 + [vp]
     lib.segmax_launch.restype = ci
     lib.gather_add_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp]
     lib.gather_add_launch.restype = ci
@@ -86,13 +86,15 @@ def _where(WE):
 
 
 def _check_segmax(WE, preds, scores, seg_off, out_row, C_out,
-                  fn="segmax") -> None:
+                  fn="segmax", skip=None) -> None:
     f32, i32, at = torch.float32, torch.int32, _where(WE)
     _check(WE, fn, "WE", f32, 2, at)
     _check(preds, fn, "preds", i32, 1, at)
     _check(scores, fn, "scores", f32, 1, at)
     _check(seg_off, fn, "seg_off", i32, 1, at)
     _check(out_row, fn, "out_row", i32, 1, at)
+    if skip is not None:
+        _check(skip, fn, "skip", torch.bool, 0, at)
     if scores.shape != preds.shape:
         raise ValueError(f"{fn}: scores {tuple(scores.shape)} and preds "
                          f"{tuple(preds.shape)} differ")
@@ -134,21 +136,6 @@ def _plain_device(x, fn: str) -> None:
         raise ValueError(f"{fn}: no implementation for device {x.device}")
 
 
-def _launch(entry, fn: str, count: LaunchCount, card: int, *args) -> None:
-    """Call a C entry point with `args` and the raw handle of card
-    `card`'s current stream, entering the card's device context only if
-    it is not the current one; raise on a launch error, else count the
-    launch."""
-    if card == torch._C._cuda_getDevice():
-        err = entry(*args, torch._C._cuda_getCurrentRawStream(card))
-    else:
-        with torch.cuda.device(card):
-            err = entry(*args, torch._C._cuda_getCurrentRawStream(card))
-    if err != 0:
-        raise RuntimeError(f"{fn}: launch failed with cudaError {err}")
-    count.launches += 1
-
-
 def _outputs(B, C_out, R, device):
     """val and arg; filled with (2 * LZERO, -1) unless every column gets
     a segment's result."""
@@ -182,12 +169,14 @@ def _groups(seg_off):
     return groups
 
 
-def segmax_plain(WE, preds, scores, seg_off, out_row,
-                 C_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def segmax_plain(WE, preds, scores, seg_off, out_row, C_out: int,
+                 skip: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain torch version (any device): per group of equal-width
     segments the (B, n, width) candidates, their max and the pred of the
-    first maximum."""
-    _check_segmax(WE, preds, scores, seg_off, out_row, C_out)
+    first maximum. `skip` is accepted and ignored: the outputs are always
+    computed, which the kernel's contract allows."""
+    _check_segmax(WE, preds, scores, seg_off, out_row, C_out, skip=skip)
     B = WE.shape[0]
     val = torch.full((B, C_out), 2 * LZERO, dtype=torch.float32,
                      device=WE.device)
@@ -202,32 +191,40 @@ def segmax_plain(WE, preds, scores, seg_off, out_row,
     return val, arg
 
 
-def segmax_cuda(WE, preds, scores, seg_off, out_row,
-                C_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def segmax_cuda(WE, preds, scores, seg_off, out_row, C_out: int,
+                skip: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Hopper kernel (csrc/xw_gather.cu); operands on one GPU.
     Allocates the outputs and launches on the current stream without
-    synchronising."""
+    synchronising. `skip`, a 0-dim bool tensor on the card, is read by
+    the kernel: where it holds True every block returns at once and val
+    and arg are unspecified (the launch still counts); the host never
+    reads it."""
     _to_cuda(WE, "segmax_cuda")
-    _check_segmax(WE, preds, scores, seg_off, out_row, C_out, "segmax_cuda")
+    _check_segmax(WE, preds, scores, seg_off, out_row, C_out, "segmax_cuda",
+                  skip)
     B, C = WE.shape
     R = out_row.shape[0]
     val, arg = _outputs(B, C_out, R, WE.device)
     if B and R:
-        _launch(KERNEL.build().segmax_launch, "segmax_cuda", SEGMAX,
+        launch(KERNEL.build().segmax_launch, "segmax_cuda", SEGMAX,
                 WE.get_device(), WE.data_ptr(), preds.data_ptr(),
                 scores.data_ptr(), seg_off.data_ptr(), out_row.data_ptr(),
-                val.data_ptr(), arg.data_ptr(), B, C, R, C_out)
+                None if skip is None else skip.data_ptr(), val.data_ptr(),
+                arg.data_ptr(), B, C, R, C_out)
     return val, arg
 
 
-def segmax(WE, preds, scores, seg_off, out_row,
-           C_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def segmax(WE, preds, scores, seg_off, out_row, C_out: int,
+           skip: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch on where WE lies: the kernel for CUDA tensors (which
-    raises rather than fall back), the plain version for CPU tensors."""
+    raises rather than fall back), the plain version for CPU tensors.
+    Where `skip` holds True the outputs are unspecified."""
     if WE.is_cuda:
-        return segmax_cuda(WE, preds, scores, seg_off, out_row, C_out)
+        return segmax_cuda(WE, preds, scores, seg_off, out_row, C_out, skip)
     _plain_device(WE, "segmax")
-    return segmax_plain(WE, preds, scores, seg_off, out_row, C_out)
+    return segmax_plain(WE, preds, scores, seg_off, out_row, C_out, skip)
 
 
 def gather_add_plain(WE, pred, lp: Optional[torch.Tensor]) -> torch.Tensor:
@@ -248,7 +245,7 @@ def gather_add_cuda(WE, pred, lp: Optional[torch.Tensor]) -> torch.Tensor:
     N = pred.shape[0]
     out = WE.new_empty((B, N))
     if B and N:
-        _launch(KERNEL.build().gather_add_launch, "gather_add_cuda",
+        launch(KERNEL.build().gather_add_launch, "gather_add_cuda",
                 GATHER_ADD, WE.get_device(), WE.data_ptr(), pred.data_ptr(),
                 None if lp is None else lp.data_ptr(), out.data_ptr(), B, C,
                 N)
@@ -318,7 +315,7 @@ def lane_gather_cuda(tbl, idx) -> torch.Tensor:
     out = torch.empty_like(idx, dtype=torch.float32)
     n = out.numel()
     if n:
-        _launch(KERNEL.build().gather_add_launch, fn, GATHER_ADD, card,
+        launch(KERNEL.build().gather_add_launch, fn, GATHER_ADD, card,
                 tbl.data_ptr(), idx.data_ptr(), None, out.data_ptr(), 1,
                 tbl.shape[1], n)
     return out

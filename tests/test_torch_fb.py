@@ -15,7 +15,12 @@ tests/test_composite_device.py, and go through both packages:
   - the accumulators of a training pass, both trainers, at rtol 1e-5 (as
     tests/test_fb_pallas.py) plus 1e-5 of each field's scale: the scatter
     sums in another order than segment_sum, and OutP's and the moment
-    sums' matmuls round differently.
+    sums' matmuls round differently;
+  - the dead-cell argument the CUDA kernel rests on (csrc/fb_scans.cu):
+    on banded, dense and all-dead composites, with and without a beam,
+    `fb_scans_plain`'s outputs are bit-identical when every cell of logA
+    at or below LZERO/2 takes other values in [2 LZERO, LZERO/2], and xi
+    is exactly 0 on those cells.
 """
 
 import jax
@@ -39,6 +44,7 @@ from htk_tpu_torch.algo.trainer import (DeviceCompositeTrainer, Trainer,
                                         prepare_utterance,
                                         prepare_utterance_ids)
 from htk_tpu_torch.ops import fb_scans as fbs
+from htk_tpu_torch.synth import random_fb_operands
 from htk_tpu_torch.utils.logmath import LZERO
 
 from test_composite_device import tee_set
@@ -223,3 +229,45 @@ def test_retry_ladder_matches_jax(capsys):
     assert "retrying 1 utterance(s) at beam 10.0" in capsys.readouterr().out
     assert float(got.n_utts) == 1.0
     assert_accs_close(got, convert.accumulators_from(ref))
+
+
+def composite(kind, seed):
+    """fb_scans operands (numpy) whose logA is banded (random_fb_operands:
+    a band, random long links, 4 padded states), dense among the live
+    states, or all dead; rows with t_real < T and t_real = 0."""
+    ops = list(random_fb_operands(seed, B=4, T=30, Q=40,
+                                  t_real=[30, 21, 9, 0]))
+    if kind == "dense":
+        rng = np.random.default_rng(seed + 50)
+        ops[1][:, :36, :36] = np.log(rng.uniform(0.05, 1.0, (4, 36, 36)))
+    elif kind == "all_dead":
+        ops[1][:] = LZERO
+    return ops
+
+
+@pytest.mark.parametrize("kind", ["banded", "dense", "all_dead"])
+@pytest.mark.parametrize("beam", [None, 10.0, 3.0])
+def test_dead_cells_change_nothing(kind, beam):
+    """Every cell of logA at or below LZERO/2 replaced by other values in
+    [2 LZERO, LZERO/2] (uniform draws, and the interval's lower end):
+    alphas, betas, logP and xi bit-identical; xi exactly 0 on those
+    cells. The kernel leaves such cells out of its sums."""
+    ops = composite(kind, seed=3)
+    ref = fbs.fb_scans_plain(*[torch.as_tensor(x) for x in ops], beam=beam)
+    dead = ops[1] <= LZERO / 2
+    rng = np.random.default_rng(11)
+    for fill in (rng.uniform(2 * LZERO, LZERO / 2, ops[1].shape),
+                 np.full(ops[1].shape, 2 * LZERO)):
+        logA = np.where(dead, fill, ops[1]).astype(np.float32)
+        assert bool((logA[dead] <= LZERO / 2).all())
+        got = fbs.fb_scans_plain(
+            *[torch.as_tensor(x) for x in (ops[0], logA, *ops[2:])],
+            beam=beam)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    xi = ref[3].numpy()
+    assert (xi[dead] == 0).all()
+    if kind == "all_dead":
+        assert (ref[2].numpy() == np.float32(LZERO)).all()
+    else:
+        assert (ref[2].numpy()[:3] > LZERO / 2).all() and (xi != 0).any()

@@ -15,13 +15,16 @@ memory and (3,000 nodes over 2 blocks) in global memory, and HVite on the
 card writes the same rec.mlf as on the CPU; the FB scans kernel agrees
 with its plain version (logP within 1e-5 relative; alphas and betas at
 t < t_real with the same live sets and within 1e-5 |ref| + 1e-4; xi of
-live utterances within rtol 1e-4, atol 1e-6), with and without a beam, with
-logA in shared memory and (Q above 239) in global memory, and HERest on
-the card trains the same model as on the CPU; the maxplus kernel equals
-its plain version exactly (values and first-max arguments, both floor
-contracts, ties and dead rows), through ops/maxplus and the tropical
-wrappers, and the LV decoder on the card gives the CPU's words and
-times; the segmax and gather-add kernels equal their plain versions
+live utterances within rtol 1e-4, atol 1e-6; xi exactly 0 on dead
+cells), with and without a beam, on banded and dense composites at
+Q = 50, 192, 250 and 1,100, with the live-cell lists in shared and in
+global memory, and HERest on the card trains the same model as on the
+CPU; the maxplus kernel equals its plain version exactly (values and
+first-max arguments, both floor contracts, ties and dead rows), at
+forced chunk counts of the source range too, through ops/maxplus and the
+tropical wrappers, and the LV decoder on the card gives the CPU's words
+and times; segmax's skip flag leaves the outputs unwritten; the segmax
+and gather-add kernels equal their plain versions
 exactly (values and first-slot arguments; empty, single, long segments,
 ties, dead rows; gather-add at N % 4 in {0, 1, 2, 3} and on views at an
 odd element offset), through the routed, window and probe wrappers too,
@@ -317,6 +320,50 @@ def test_tropical_wrappers_match_plain_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 2, 3, 7, None])
+def test_maxplus_kernel_at_forced_chunks_on_card(chunks):
+    """The source range split into 1, 2, 3 and 7 chunks and the full grid
+    (None): exactly the plain version, values and first-max arguments,
+    for B in {1, 8, 17} and C in {1, 200, 1000, 2050}, tie-heavy and with
+    dead rows, both floor contracts."""
+    need_card()
+    for B in (1, 8, 17):
+        for C in (1, 200, 1000, 2050):
+            for mode in ({"ties": True}, {"dead_rows": 1}):
+                WE, tr = [torch.as_tensor(a, device="cuda") for a in
+                          random_maxplus_operands(B + C, B=B, C=C, **mode)]
+                for floor in (False, True):
+                    got = mp.maxplus_cuda(WE, tr, floor, chunks=chunks)
+                    ref = mp.maxplus_plain(WE, tr, floor)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got[0], ref[0]), (B, C, mode, floor)
+                    assert torch.equal(got[1], ref[1]), (B, C, mode, floor)
+
+
+@pytest.mark.cuda
+def test_segmax_skip_flag_on_card():
+    """segmax_cuda(skip=...): a false flag gives the plain result; a true
+    one leaves every output as allocated (no block writes); both launch
+    once."""
+    need_card()
+    ops = [torch.as_tensor(a, device="cuda") for a in random_xw_operands(
+        0, B=8, C=700, n_slots=30000, ties=True, dead_rows=1)]
+    C_out = 705  # more columns than segments: outputs start filled
+    ref = xg.segmax_plain(*ops, C_out)
+    for flag in (False, True):
+        skip = torch.tensor(flag, device="cuda")
+        before = xg.SEGMAX.launches
+        got = xg.segmax(*ops, C_out, skip=skip)
+        assert xg.SEGMAX.launches == before + 1
+        torch.cuda.synchronize()
+        if flag:
+            assert bool((got[0] == 2 * LZERO).all())
+            assert bool((got[1] == -1).all())
+        else:
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
 def test_lv_decode_on_card_equals_cpu(tmp_path):
     """decode_batch on a uniform-row net (write_system's lm.arpa): the
     same words and times as on the CPU, scores within 1e-5 relative, one
@@ -534,22 +581,59 @@ def test_fb_operand_checks_raise():
         fbs.fb_scans_cuda(*args)
 
 
+def dense_fb_operands(seed=0, device="cpu", **kw):
+    """random_fb_operands with every cell among the live states live (an
+    ergodic composite): each state's list is the whole live range."""
+    ops = random_fb_operands(seed, **kw)
+    dead = kw.get("dead", 4)
+    Q = ops[0].shape[2]
+    rng = np.random.default_rng(seed + 100)
+    live = Q - dead
+    ops[1][:, :live, :live] = np.log(rng.uniform(
+        0.05, 1.0, (ops[1].shape[0], live, live))).astype(np.float32)
+    return [torch.as_tensor(a, device=device) for a in ops]
+
+
+FB_LAYOUTS = {"banded": fb_operands, "dense": dense_fb_operands}
+
+
+@pytest.mark.parametrize("Q,layout,in_smem", [
+    (50, "banded", True), (192, "banded", True), (250, "banded", True),
+    (50, "dense", True), (192, "dense", False), (1100, "banded", False),
+    (1100, "dense", False)])
+def test_fb_list_layouts_cover_shared_and_global(Q, layout, in_smem):
+    """The card tests' operands put the live-cell lists in shared memory
+    (banded composites up to Q = 250, and the dense one at Q = 50) and in
+    global memory (dense at Q = 192 and above; at Q = 1,100 the banded
+    composite's 2% random long links alone are ~24,000 cells), with a
+    beam and without."""
+    logA = FB_LAYOUTS[layout](0, B=4, T=3, Q=Q)[1]
+    for beam in (False, True):
+        assert fbs.lists_in_smem(logA, beam) == in_smem
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("Q", [50, 250])
+@pytest.mark.parametrize("Q", [50, 192, 250, 1100])
 @pytest.mark.parametrize("beam", [None, 10.0, 5.0, 2.0])
-def test_fb_kernel_matches_plain_on_card(Q, beam):
-    """Q = 250 reads logA from global memory; beam 5 kills some rows and
-    beam 2 all of them on these operands."""
+@pytest.mark.parametrize("layout", ["banded", "dense"])
+def test_fb_kernel_matches_plain_on_card(Q, beam, layout):
+    """Banded composites and dense ones, their lists in shared and in
+    global memory (test_fb_list_layouts_cover_shared_and_global); no beam
+    runs the two scans in separate blocks;
+    beam 5 kills some rows and beam 2 all of them on the banded
+    operands; rows with t_real < T and t_real = 0."""
     need_card()
     for seed in range(2):
-        args = fb_operands(seed, "cuda", B=4, T=40, Q=Q,
-                           t_real=[40, 33, 20, 0])
+        args = FB_LAYOUTS[layout](seed, "cuda", B=4, T=40, Q=Q,
+                                  t_real=[40, 33, 20, 0])
         before = fbs.KERNEL.launches
         got = fbs.fb_scans(*args, beam=beam)
         assert fbs.KERNEL.launches == before + 1
         ref = fbs.fb_scans_plain(*args, beam=beam)
         torch.cuda.synchronize()
         assert_scans_agree(got, ref, args[4])
+        dead = args[1] <= LZERO / 2
+        assert bool((got[3][dead] == 0).all())
 
 
 @pytest.mark.cuda

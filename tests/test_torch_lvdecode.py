@@ -432,6 +432,33 @@ def test_adaptive_scores_equal_exact():
                                                    e.score)
 
 
+def test_adaptive_gates_segmax_per_frame(monkeypatch):
+    """The adaptive-exact leg hands segmax the certificate as its `skip`
+    flag, one launch a frame; at A = 1 some frames take the slow path
+    (flag False) and some skip it (True), and the decode equals exact."""
+    from htk_tpu_torch.ops import xw_gather as xg
+
+    _jc, _jn, pc, pn = nets(BIG, factored=True)
+    seqs = [["aa", "iy", "aa", "iy", "aa"], ["sil", "aa", "iy", "sil"]]
+    feats = [emit_frames(s, seed=i + 4) for i, s in enumerate(seqs)]
+    exact = pdec.decode_batch(pn, pc, feats, 2.0, -1.0, pad_to=16,
+                              device="cpu")
+    flags, real = [], xg.segmax
+
+    def record(WE, preds, scores, seg_off, out_row, C_out, skip=None):
+        flags.append(None if skip is None else bool(skip))
+        return real(WE, preds, scores, seg_off, out_row, C_out, skip)
+
+    monkeypatch.setattr(xg, "segmax", record)
+    got = pdec.decode_batch(pn, pc, feats, 2.0, -1.0, pad_to=16,
+                            max_active=-1, device="cpu")
+    T = -(-max(f.shape[0] for f in feats) // 16) * 16
+    assert len(flags) == T and None not in flags
+    assert True in flags and False in flags
+    for g, e in zip(got, exact):
+        assert (g.words, g.times, g.score) == (e.words, e.times, e.score)
+
+
 def test_factored_equals_dense():
     """As tests/test_lvdecode.py:266-287: with explicit bigrams above
     their back-off products everywhere, the factored and dense forms give

@@ -18,6 +18,12 @@ against `_tropical_pallas_t` in interpret mode, which runs on the CPU.
 Values and arguments must be exactly equal: every candidate is one fp32
 add in both packages. The dispatchers take the plain versions on CPU
 tensors and count no launch; the kernel wrapper refuses CPU tensors.
+
+The CUDA kernel (csrc/maxplus.cu) splits the source range into chunks
+and each chunk among a block's warps, then merges the partial maxima in
+ascending order with a strict `>`; a torch emulation of that split and
+merge equals `maxplus_plain` exactly at 1, 2, 3 and 7 chunks, with chunk
+edges on tied maxima. `grid_chunks` covers the card twice over.
 """
 
 import jax.numpy as jnp
@@ -153,3 +159,63 @@ def test_operand_checks_raise():
         mp.maxplus(WE.to("meta"), tr.to("meta"), floor=True)
     with pytest.raises(ValueError):  # the kernel takes CUDA tensors only
         mp.maxplus_cuda(WE, tr, floor=True)
+
+
+def split_merge(WE, trans, floor, chunks):
+    """The kernel's split of the source rows, emulated: chunk k holds rows
+    [C k / chunks, C (k+1) / chunks), cut again among the block's warps;
+    each range's first maximum (seeded at (-inf, 0)) is merged in
+    ascending order with a strict `>`, from the floor contract's seed."""
+    B, C = WE.shape
+    acc = torch.full((B, C), LZERO if floor else -np.inf)
+    arg = torch.zeros((B, C), dtype=torch.int32)
+    for k in range(chunks):
+        c0, c1 = C * k // chunks, C * (k + 1) // chunks
+        for w in range(mp.WARPS):
+            r0 = c0 + (c1 - c0) * w // mp.WARPS
+            r1 = c0 + (c1 - c0) * (w + 1) // mp.WARPS
+            if r0 == r1:
+                continue
+            v, a = torch.max(WE[:, r0:r1, None] + trans[None, r0:r1], dim=1)
+            win = v > acc
+            acc = torch.where(win, v, acc)
+            arg = torch.where(win, (a + r0).to(torch.int32), arg)
+    return acc, arg
+
+
+def tied_across_edges(C, chunks):
+    """Every target's maximum reached at the last row of each chunk and
+    the first row of the next (and nowhere else): only the first-maximum
+    rule across the merge picks the right one."""
+    WE = np.zeros((3, C), np.float32)
+    WE[2] = 2 * LZERO  # a dead row: the floor contracts differ there
+    trans = np.full((C, C), -5.0, np.float32)
+    for k in range(1, chunks):
+        e = C * k // chunks
+        trans[e - 1] = trans[e] = 1.0
+    return WE, trans
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 7])
+@pytest.mark.parametrize("floor", [False, True])
+def test_split_merge_equals_plain(chunks, floor):
+    cases = [operands(B, C, mode, seed=6 + chunks)
+             for mode in ("ties", "dead") for B, C in ((1, 1), (5, 130),
+                                                       (8, 200), (3, 1000))]
+    cases.append(tied_across_edges(210, max(chunks, 2)))
+    for WE, tr in cases:
+        WE, tr = torch.as_tensor(WE), torch.as_tensor(tr)
+        got = split_merge(WE, tr, floor, chunks)
+        ref = mp.maxplus_plain(WE, tr, floor)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_grid_chunks_cover_the_card():
+    """At least MIN_BLOCKS blocks where the source range allows it (one
+    row a warp at least), one chunk for tiny shapes."""
+    for B, C in ((8, 1000), (1, 1000), (17, 2050), (8, 200), (1, 1)):
+        k = mp.grid_chunks(B, C)
+        blocks = -(-C // mp.COLS) * -(-B // mp.BATCH) * k
+        assert 1 <= k <= max(1, C // mp.WARPS)
+        assert blocks >= mp.MIN_BLOCKS or k == max(1, C // mp.WARPS)
+    assert mp.grid_chunks(8, 1000) == 9  # 288 blocks at the decoder's shape

@@ -23,7 +23,8 @@ The same numpy-seeded inputs go through both packages:
   - the plain segmax against a slot-by-slot loop, and the dispatchers: the
     CPU takes the plain version and counts no launch; wrong dtypes, shapes,
     places and non-contiguous operands are refused, each entry checking
-    each operand once.
+    each operand once; segmax's `skip` flag is checked and, in the plain
+    version, ignored.
 
 The kernels themselves are held against these plain versions on the card
 (tests/test_torch_kernels.py, chip_smoke.py).
@@ -350,3 +351,19 @@ def test_operand_checks_raise():
         xw_window.window_gather(WE, torch.zeros(1, dtype=torch.int32),
                                 torch.zeros((4, 128), dtype=torch.int32),
                                 torch.zeros((4, 128)))
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_plain_segmax_accepts_skip_and_ignores_it(flag):
+    """The kernel leaves its outputs unspecified under a set flag; the
+    plain version computes them all the same."""
+    ops = [t(a) for a in random_xw_operands(1, B=3, C=40, n_slots=400,
+                                            ties=True)]
+    ref = xg.segmax_plain(*ops, 45)
+    for fn in (xg.segmax, xg.segmax_plain):
+        got = fn(*ops, 45, skip=torch.tensor(flag))
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    for bad, exc in ((torch.tensor([flag]), ValueError),
+                     (torch.tensor(1), TypeError)):
+        with pytest.raises(exc):
+            xg.segmax(*ops, 45, skip=bad)
