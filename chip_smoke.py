@@ -71,7 +71,9 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
  11. the segmax and gather-add kernels (csrc/xw_gather.cu) against their
      plain versions on random operands (three seeds, B in {1, 8, 17},
      segments of 0, 1, 4-64 and 500-700 slots, tie-heavy integer scores,
-     dead rows): exactly equal
+     dead rows, -inf cells), segmax at every forced lane count (1-32 and
+     the schedule's own) with WE copied into shared memory, read from L2
+     and as the launch chooses: exactly equal
  12. the 20k factored LV decoder: `lv_system(20000)` and
      `compile_lv_loop` (over 8,000 rows, so factored: no dense matrix);
      `decode_batch` of 16 utterances in 2 batches of 8 at LM scale 12,
@@ -95,14 +97,20 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      ops), which the counts show
  15. times, in turns plain/kernel/kernel/plain: segmax, the routed leg,
      window_gather, bucket_max and lane_gather per launch and their
-     device times under torch.profiler; lane_gather and index_select
-     per call in 40 alternating rounds (with lane_gather's plain version;
-     these go to the kernels line) and index_select's device time; one 20k
+     device times under torch.profiler; on the real frame, segmax's
+     device time at each forced lane count and staging choice (each ==
+     plain), a launch skipped by its device flag, and the values-only
+     yardstick `torch.segment_reduce` over the gathered candidates (or a
+     line saying that it does not run on the card); lane_gather and
+     index_select per call in 40 alternating rounds (with lane_gather's
+     plain version; these go to the kernels line) and index_select's
+     device time; one 20k
      LV batch with the exact kernel and plain legs, with the adaptive and
      top-A legs, and `decode_batch` of the 16 utterances as xRT for each
      leg; under torch.profiler, one 20k batch of each leg: its device
      busy share, segmax's device time, device operations per frame and
-     top operations
+     top operations, with the adaptive batch's frames whose certificate
+     fails (counted offline from the exact leg's word-end planes)
  16. one JSON line of kernels, then the device line last
 
 Each main path runs with every launch count set to 0 just before it and
@@ -132,7 +140,9 @@ lane_gather), the candidates out, an add per (b, slot). No single
 PyTorch call computes max-plus with argmax or a segmented max with its
 argmax, or a gather and an add, so `library_ms` is null for all but
 lane_gather, whose function is one `torch.index_select` of the first
-table row.
+table row. `torch.segment_reduce` computes segmax's values but not its
+first-slot argument, so phase 15 times it beside segmax as a yardstick
+only.
 
 Usage: python3 chip_smoke.py        (exit 0 only if every phase passed)
 """
@@ -221,6 +231,9 @@ BIG_LM_SCALE, BIG_WORD_PEN = 12.0, 0.0
 TRI = dict(n_words=5000, lm_order=3, seed=7)
 ADAPTIVE = -TOPA  # adaptive-exact top-A
 XW_CASE = dict(C=2000, n_slots=80000)  # random segmax / gather-add operands
+XW_INF_EVERY = 37  # -inf in every 37th column of the random WE
+SEGMAX_LANES = (1, 2, 4, 8, 16, 32, None)  # forced lanes; None: by width
+SEGMAX_STAGED = (True, False, None)  # WE copied, read from L2, or chosen
 PROBE = dict(C=22000, NNZ=640000, FB=16)  # benchmarks/gather_probe.py
 LANE = dict(W=2048, n=4096, L=128)  # benchmarks/dyngather_probe.py
 
@@ -802,7 +815,7 @@ def phase_timing(net, comp, feats, card, dev):
 def check_equal(got, ref, what: str) -> float:
     """Kernel outputs exactly equal: (values, arguments) of maxplus and
     segmax, or one tensor (gather-add); returns the max |diff| of the
-    values (0.0)."""
+    finite values (0.0)."""
     if isinstance(got, torch.Tensor):
         got, ref = (got,), (ref,)
     for k, (g, r) in enumerate(zip(got, ref)):
@@ -810,7 +823,9 @@ def check_equal(got, ref, what: str) -> float:
             n = int((g != r).sum())
             raise AssertionError(f"{what}: {('values', 'args')[k]} differ "
                                  f"at {n} places")
-    return float((got[0] - ref[0]).abs().max()) if got[0].numel() else 0.0
+    fin = torch.isfinite(ref[0])
+    return float((got[0][fin] - ref[0][fin]).abs().max()) if bool(
+        fin.any()) else 0.0
 
 
 def padded(WE, Cp):
@@ -1077,7 +1092,9 @@ def phase_lv_timing(net, comp, feats, batch, args, WEs, trop_ops, card,
 
 
 def phase_random_xw(dev) -> float:
-    err, n = 0.0, 0
+    """segmax at every forced lane count and staging choice, and
+    gather-add with and without lp, against their plain versions."""
+    err, n, variants = 0.0, 0, 0
     for seed in range(3):
         for B in MAXPLUS_BS:
             for ties in (False, True):
@@ -1085,11 +1102,17 @@ def phase_random_xw(dev) -> float:
                        random_xw_operands(seed, B=B, ties=ties,
                                           dead_rows=min(B - 1, 2),
                                           **XW_CASE)]
+                ops[0][:, ::XW_INF_EVERY] = -float("inf")
                 what = f"xw seed={seed} B={B} ties={ties}"
                 C = XW_CASE["C"]
-                err = max(err, check_equal(
-                    xg.segmax_cuda(*ops, C), xg.segmax_plain(*ops, C),
-                    f"segmax {what}"))
+                ref = xg.segmax_plain(*ops, C)
+                for lanes in SEGMAX_LANES:
+                    for staged in SEGMAX_STAGED:
+                        err = max(err, check_equal(
+                            xg.segmax_cuda(*ops, C, lanes=lanes,
+                                           staged=staged), ref,
+                            f"segmax {what} lanes={lanes} staged={staged}"))
+                        variants += 1
                 for lp in (ops[2], None):
                     err = max(err, check_equal(
                         xg.gather_add_cuda(ops[0], ops[1], lp),
@@ -1098,8 +1121,10 @@ def phase_random_xw(dev) -> float:
                 n += 1
     torch.cuda.synchronize(dev)
     width = np.diff(random_xw_operands(0, **XW_CASE)[3])
-    log(f"segmax and gather_add (with and without lp) == plain exactly on "
-        f"{n} random operand sets (C={XW_CASE['C']}, "
+    log(f"segmax ({variants} launches: lanes {SEGMAX_LANES}, staged "
+        f"{SEGMAX_STAGED}) and gather_add (with and without lp) == plain "
+        f"exactly on {n} random operand sets (C={XW_CASE['C']}, -inf in "
+        f"every {XW_INF_EVERY}th column of WE, "
         f"{int(width.sum())} slots in the first: widths 0 x "
         f"{int((width == 0).sum())}, 1 x {int((width == 1).sum())}, "
         f">= 500 x {int((width >= 500).sum())})")
@@ -1187,8 +1212,26 @@ def phase_big_real_batch(net, comp, feats, dev):
         f"(max |dv| {err:.3g}; records and 1-best equal); peak device "
         f"memory with its full (B, T, Ns) outp and both legs' planes "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    fails = certificate_failures(net, k[1][0], dev)
     del args, p
-    return err, batch, k[1][0][:, T // 2].contiguous()
+    return err, batch, k[1][0][:, T // 2].contiguous(), fails
+
+
+def certificate_failures(net, WEs, dev) -> int:
+    """Frames of one batch whose adaptive-exact certificate fails, so that
+    segmax runs in full: algo/decode.py's `safe` (no word end outside the
+    top A can beat the back-off floor), counted offline from the exact
+    leg's word-end planes WEs (B, T, C), which are the adaptive leg's too
+    (its results equal exact's); the step itself gains no operation."""
+    x = dec._scale_xw(dec._net_dev(net, dev)["xw"], BIG_LM_SCALE)
+    fails = torch.zeros((), dtype=torch.int64, device=dev)
+    for t in range(WEs.shape[1]):
+        WE = WEs[:, t]
+        bo_best = torch.max(WE + x["bow"][None], dim=1).values
+        _v, idxs = dec._top_a(WE, -ADAPTIVE)
+        ex_m = (WE + x["marg"][None]).scatter(1, idxs, 2 * LZERO)
+        fails += ~(ex_m.amax(dim=1) <= bo_best).all()
+    return int(fails)
 
 
 def phase_xw_paths(net, WE, dev):
@@ -1314,9 +1357,12 @@ def xw_bounds(net, WE, tabs, wtabs, bops, lops):
     }
 
 
-def phase_big_timing(sysm, net, batch, WE, paths, lops, card, dev):
-    """Per launch times of segmax and the four xw functions, LV batch
-    times per leg, xRT per leg, and a profile of one exact batch."""
+def phase_big_timing(sysm, net, batch, WE, paths, lops, fails, card, dev):
+    """Per launch times of segmax and the four xw functions, segmax at
+    each forced lane count and staging choice, a launch skipped by its
+    flag and the values-only segment_reduce yardstick; LV batch times per
+    leg, xRT per leg, and a profile of one batch of each leg, with the
+    adaptive leg's frames whose certificate fails (`fails`)."""
     x = dec._scale_xw(dec._net_dev(net, dev)["xw"], BIG_LM_SCALE)
     C = WE.shape[1]
     times = {}
@@ -1351,6 +1397,7 @@ def phase_big_timing(sysm, net, batch, WE, paths, lops, card, dev):
             f"{LAUNCH_LOOP} calls): kernel {kern / LAUNCH_LOOP:.6f} ms, all "
             f"device operations {sum(ms for _k, ms in ops) / LAUNCH_LOOP:.6f}"
             f" ms")
+    segmax_variants(WE, x, C, card, dev)
     row, flat = lops[0][0], lops[1].reshape(-1)
 
     def index_select():
@@ -1409,6 +1456,9 @@ def phase_big_timing(sysm, net, batch, WE, paths, lops, card, dev):
             f"({audio:.2f} s of audio), {leg} leg: {w:.3f} ms, xRT "
             f"{w / 1e3 / audio:.6f}; samples "
             + " ".join(f"{v:.3f}" for v in walls))
+    log(f"  adaptive leg: {fails} of {T} frames of this batch fail the "
+        f"certificate (counted offline from the exact leg's word-end "
+        f"planes), so {T - fails} of its {T} segmax launches are skipped")
     # each leg's device busy share and segmax's device time (the adaptive
     # leg launches segmax every frame, gated on the device)
     for leg, ma in (("exact", None), ("adaptive", ADAPTIVE),
@@ -1426,6 +1476,67 @@ def phase_big_timing(sysm, net, batch, WE, paths, lops, card, dev):
             "top: " + ", ".join(f"{k[:48]} {ms:.2f} ms"
                                 for k, ms in ops[:8]))
     return times
+
+
+def segmax_variants(WE, x, C, card, dev):
+    """On the real frame WE: segmax at each forced lane count and staging
+    choice (each == plain) and its device time; a launch skipped by its
+    device flag; and `torch.segment_reduce` (max over the same gathered
+    candidates, values only) as a yardstick, or a line saying that it does
+    not run on the card. segment_reduce gives no argmax, so it is not
+    segmax's function and segmax's `library_ms` stays null."""
+    args = (WE, x["preds"], x["scores"], x["seg_off"], x["out_row"], C)
+    ref = xg.segmax_plain(*args)
+
+    def per_launch(fn, every_op=False):
+        """Device ms a call: segmax's kernel, or every device operation."""
+        _w, ops, _n = device_profile(
+            lambda: [fn() for _ in range(LAUNCH_LOOP)], dev)
+        return sum(ms for k, ms in ops
+                   if every_op or "segmax_kernel" in k) / LAUNCH_LOOP
+
+    log(f"  segmax on {card} at each lane count and staging choice, the "
+        f"real frame (device time a launch, torch.profiler, {LAUNCH_LOOP} "
+        f"launches; each == plain):")
+    for staged in (True, False):
+        ms = {}
+        for lanes in SEGMAX_LANES:
+            def fn(lanes=lanes, staged=staged):
+                return xg.segmax_cuda(*args, lanes=lanes, staged=staged)
+            check_equal(fn(), ref, f"segmax lanes={lanes} staged={staged}")
+            ms[lanes] = per_launch(fn)
+        log(f"    {'WE in shared memory' if staged else 'WE from L2'}: "
+            + ", ".join(f"{'by width' if g is None else f'{g} lanes'} "
+                        f"{v:.6f} ms" for g, v in ms.items()))
+    skip = torch.tensor(True, device=dev)
+
+    def skipped():
+        return dec._segmax_leg(WE, x, C, skip=skip)
+
+    sk = statistics.median(time_launches(skipped, dev))
+    log(f"  segmax skipped by its device flag: {sk:.6f} ms a call, device "
+        f"time {per_launch(skipped):.6f} ms a launch")
+    cand = (WE[:, x["preds"].long()] + x["scores"][None]).t().contiguous()
+    width = torch.diff(x["seg_off"]).long()
+    try:
+        got = torch.segment_reduce(cand, "max", lengths=width, axis=0)
+    except RuntimeError as e:
+        log(f"  torch.segment_reduce (values only) does not run on the "
+            f"card: {str(e).splitlines()[0]}")
+        return
+    has = width > 0
+    want = ref[0][:, x["out_row"].long()].t()
+    if not torch.equal(got[has], want[has]):
+        raise AssertionError("segment_reduce values != segmax's")
+
+    def seg_reduce():
+        return torch.segment_reduce(cand, "max", lengths=width, axis=0)
+
+    sr = statistics.median(time_launches(seg_reduce, dev))
+    log(f"  torch.segment_reduce, max over the gathered candidates "
+        f"{tuple(cand.shape)} (values only, == segmax's): {sr:.6f} ms a "
+        f"call, device time {per_launch(seg_reduce, True):.6f} ms (all "
+        f"its device operations)")
 
 
 def kernel_entry(name, source, replaces, launches, err, times, bnd,
@@ -1484,12 +1595,14 @@ def main() -> int:
     big, bnet = big_system(dev)
     done("20k system set-up")
     sm_launches = phase_big_main(big, bnet, dev)
-    sm_err, bbatch, bWE = phase_big_real_batch(bnet, big.comp, big.feats, dev)
+    sm_err, bbatch, bWE, fails = phase_big_real_batch(bnet, big.comp,
+                                                      big.feats, dev)
     paths, rtabs, wtabs, bops, lops = phase_xw_paths(bnet, bWE, dev)
     done("20k factored LV decoder and xw paths")
     phase_trigram(dev)
     done("5k trigram guidance")
-    xt = phase_big_timing(big, bnet, bbatch, bWE, paths, lops, card, dev)
+    xt = phase_big_timing(big, bnet, bbatch, bWE, paths, lops, fails, card,
+                          dev)
     done("20k timing")
     dbound = decode_bound(TIMING_B, TIMING_T, net.n_states, net.n_nodes,
                           net.band.shape[0])

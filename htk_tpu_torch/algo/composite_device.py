@@ -144,6 +144,6 @@ class Assembler:
                     exit_seg=exit_seg)
 
 
-def make_assembler(comp: CompiledHMMSet, device="cpu") -> Assembler:
+def make_assembler(comp: CompiledHMMSet, *, device) -> Assembler:
     """Batched device assembler closed over a compiled HMM set's tables."""
     return Assembler(comp, device)

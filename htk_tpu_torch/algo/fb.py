@@ -46,7 +46,7 @@ class Accumulators(NamedTuple):
 
 
 def zero_accs(n_mix: int, dim: int, n_states: int, max_mix: int,
-              tr_flat: int, device="cpu") -> Accumulators:
+              tr_flat: int, *, device) -> Accumulators:
     def z(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
 

@@ -161,7 +161,7 @@ class Trainer:
     def _zero(self) -> Accumulators:
         c = self.comp
         return zero_accs(c.n_mix, c.dim, c.n_states, c.max_mix, self.tr_flat,
-                         self.device)
+                         device=self.device)
 
     def _fb(self, params, arrs, beam):
         """One fb_batch call on device tensors `arrs`."""
@@ -243,7 +243,7 @@ class DeviceCompositeTrainer(Trainer):
                  device):
         super().__init__(comp, precision=precision, prune=prune,
                          device=device)
-        self._assembler = make_assembler(comp, self.device)
+        self._assembler = make_assembler(comp, device=self.device)
 
     def batches(self, utts, batch_size):
         c = self.comp

@@ -30,6 +30,15 @@ Implementations with one signature each:
                                    first use into csrc/_build/ and
                                    bound through ctypes
 
+The segmax kernel gives each segment a group of 2 to 32 lanes, as its
+quads (4 slots from a multiple of 4) ask (`lane_class`), and merges their
+(value, slot) pairs so that the first slot reaching the max wins, as in
+the serial walk. Its host schedule (`schedule`: the segments sorted by
+lanes, cut into warp tasks) and launch shape (`launch_shape`: batch rows
+a block, so that they fit in shared memory, and blocks a row group) are
+built once per seg_off tensor and kept on it (`_plan`); both are plain
+numpy, tested on the CPU.
+
 `segmax`, `gather_add` and `lane_gather` take the plain version for CPU
 tensors only; for CUDA tensors they launch the kernel or raise. SEGMAX and
 GATHER_ADD count the launches of the two kernels. Each entry checks each
@@ -48,12 +57,12 @@ import numpy as np
 import torch
 
 from ..utils.logmath import LZERO
-from ._cuda import CudaKernel, LaunchCount, launch
+from ._cuda import SMEM_MAX, CudaKernel, LaunchCount, launch
 
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.segmax_launch.argtypes = [vp] * 8 + [ci] * 4 + [vp]
+    lib.segmax_launch.argtypes = [vp] * 8 + [ci] * 8 + [vp]
     lib.segmax_launch.restype = ci
     lib.gather_add_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp]
     lib.gather_add_launch.restype = ci
@@ -62,6 +71,11 @@ def _bind(lib):
 KERNEL = CudaKernel("xw_gather", _bind)
 SEGMAX = LaunchCount("segmax")
 GATHER_ADD = LaunchCount("gather_add")
+# csrc/xw_gather.cu: kClasses, kSegThreads / 32, kRowsMax
+CLASSES, SEG_WARPS, ROWS_MAX = 6, 32, 8
+# the lanes of a segment: at least LANES_MIN, and enough that none takes
+# more than LANE_QUADS quads (4 slots), up to a warp
+LANE_QUADS, LANES_MIN = 3, 2
 
 
 def _check(x, fn: str, name: str, dtype, dim: int, where) -> None:
@@ -191,15 +205,103 @@ def segmax_plain(WE, preds, scores, seg_off, out_row, C_out: int,
     return val, arg
 
 
+def quads(seg_off) -> np.ndarray:
+    """The quads (4 slots from a multiple of 4) each segment touches; 0
+    for an empty one."""
+    off = np.asarray(seg_off, np.int64)
+    k0, k1 = off[:-1], off[1:]
+    return np.where(k1 > k0, (k1 + 3) // 4 - k0 // 4, 0)
+
+
+def lane_class(seg_off) -> np.ndarray:
+    """log2 of the lanes the kernel gives each segment: the fewest (a
+    power of two, at least LANES_MIN, at most 32) that leave a lane at
+    most LANE_QUADS of its quads."""
+    need = np.maximum(-(-quads(seg_off) // LANE_QUADS), LANES_MIN)
+    return sum((need > 1 << c).astype(np.int64) for c in range(CLASSES - 1))
+
+
+def schedule(seg_off, lanes: Optional[int] = None) -> np.ndarray:
+    """The kernel's host schedule (int32): CLASSES + 1 prefix counts of
+    warp tasks, CLASSES + 1 prefix counts of segments, each position's
+    slot range (k0, k1), then the segment at each position: the segments
+    sorted by class, stably. Class c gives each segment 2**c lanes and a
+    warp task 32 >> c segments; `lanes` (a power of two, 1-32) puts every
+    segment in one class."""
+    off = np.asarray(seg_off, np.int64)
+    if lanes is None:
+        cls = lane_class(off)
+    else:
+        c = int(lanes).bit_length() - 1
+        if lanes < 1 or 1 << c != lanes or c >= CLASSES:
+            raise ValueError(f"segmax_cuda: lanes must be 1, 2, 4, 8, 16 or "
+                             f"32, got {lanes}")
+        cls = np.full(len(off) - 1, c, np.int64)
+    count = np.bincount(cls, minlength=CLASSES)
+    tasks = -(-count // (32 >> np.arange(CLASSES)))
+    order = np.argsort(cls, kind="stable")
+    span = np.stack([off[order], off[order + 1]], axis=1)
+    return np.concatenate([[0], np.cumsum(tasks), [0], np.cumsum(count),
+                           span.reshape(-1), order]).astype(np.int32)
+
+
+def launch_shape(B: int, C: int, n_tasks: int, sms: int,
+                 staged: Optional[bool] = None) -> Tuple[int, int, bool]:
+    """(rows, chunks, staged) of a launch: `rows` batch rows a block and
+    `chunks` blocks a row group, so that the grid holds one block an SM
+    when staged (each block copies its rows) or two (the threads' limit),
+    but no more blocks than the warp tasks need. Staged, `rows` is a power
+    of two: the most of WE's rows that fit in shared memory, at most
+    ROWS_MAX and no more than B asks; unstaged, up to ROWS_MAX, the B rows
+    shared evenly among the row groups. `staged` forces the copy on or off
+    (tests)."""
+    fit = SMEM_MAX // (4 * C)
+    if staged is None:
+        staged = fit >= 1
+    elif staged and fit < 1:
+        raise ValueError(f"segmax_cuda: a row of WE ({4 * C} bytes) does not "
+                         f"fit in shared memory ({SMEM_MAX} bytes)")
+    if staged:
+        rows = 1 << (min(ROWS_MAX, fit).bit_length() - 1)
+        rows = min(rows, 1 << (B - 1).bit_length())
+        groups = -(-B // rows)
+    else:
+        groups = -(-B // ROWS_MAX)
+        rows = -(-B // groups)
+    blocks = sms if staged else 2 * sms
+    chunks = max(1, min(-(-blocks // groups), -(-n_tasks // SEG_WARPS)))
+    return rows, chunks, bool(staged)
+
+
+def _plan(seg_off, B: int, C: int, card: int, lanes, staged):
+    """The schedule on the card and the launch shape, built once per
+    (B, C, lanes, staged) and kept on seg_off (one host copy of the
+    offsets), rebuilt if it changes in place."""
+    key = (B, C, lanes, staged)
+    cached = getattr(seg_off, "_xw_plan", None)
+    if cached is None or cached[0] != seg_off._version:
+        cached = seg_off._xw_plan = (seg_off._version, {})
+    plan = cached[1].get(key)
+    if plan is None:
+        sched = schedule(seg_off.cpu().numpy(), lanes)
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        plan = cached[1][key] = (
+            torch.as_tensor(sched, device=seg_off.device),
+            *launch_shape(B, C, int(sched[CLASSES]), sms, staged))
+    return plan
+
+
 def segmax_cuda(WE, preds, scores, seg_off, out_row, C_out: int,
-                skip: Optional[torch.Tensor] = None
+                skip: Optional[torch.Tensor] = None,
+                lanes: Optional[int] = None, staged: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Hopper kernel (csrc/xw_gather.cu); operands on one GPU.
     Allocates the outputs and launches on the current stream without
     synchronising. `skip`, a 0-dim bool tensor on the card, is read by
     the kernel: where it holds True every block returns at once and val
     and arg are unspecified (the launch still counts); the host never
-    reads it."""
+    reads it. `lanes` forces the lanes a segment (1-32) and `staged` the
+    copy of WE into shared memory on or off (tests)."""
     _to_cuda(WE, "segmax_cuda")
     _check_segmax(WE, preds, scores, seg_off, out_row, C_out, "segmax_cuda",
                   skip)
@@ -207,11 +309,14 @@ def segmax_cuda(WE, preds, scores, seg_off, out_row, C_out: int,
     R = out_row.shape[0]
     val, arg = _outputs(B, C_out, R, WE.device)
     if B and R:
-        launch(KERNEL.build().segmax_launch, "segmax_cuda", SEGMAX,
-                WE.get_device(), WE.data_ptr(), preds.data_ptr(),
-                scores.data_ptr(), seg_off.data_ptr(), out_row.data_ptr(),
-                None if skip is None else skip.data_ptr(), val.data_ptr(),
-                arg.data_ptr(), B, C, R, C_out)
+        card = WE.get_device()
+        sched, rows, chunks, st = _plan(seg_off, B, C, card, lanes, staged)
+        launch(KERNEL.build().segmax_launch, "segmax_cuda", SEGMAX, card,
+               WE.data_ptr(), preds.data_ptr(), scores.data_ptr(),
+               out_row.data_ptr(), sched.data_ptr(),
+               None if skip is None else skip.data_ptr(), val.data_ptr(),
+               arg.data_ptr(), B, C, preds.shape[0], R, C_out, rows,
+               int(st), chunks)
     return val, arg
 
 

@@ -159,13 +159,29 @@ def test_assembler_matches_jax(seq, kpad, tees):
     ref = {k: np.asarray(v) for k, v in
            jax.jit(j_assembler(jcomp))(jnp.asarray(ids)).items()}
     got = {k: v.numpy() for k, v in
-           make_assembler(comp, "cpu")(torch.as_tensor(ids)).items()}
+           make_assembler(comp, device="cpu")(torch.as_tensor(ids)).items()}
     assert set(got) == set(ref)
     for k in ("comp_state", "q_mask", "tr_seg", "entry_seg", "exit_seg"):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     for k in ("logA", "a0", "aE"):
         np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-6,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("entry", ["make_assembler", "zero_accs"])
+def test_library_entries_take_no_default_device(entry):
+    """The library entry points run where the caller says: `device` is a
+    required keyword, positional or missing it is refused."""
+    from htk_tpu_torch.algo.fb import zero_accs
+
+    comp = convert.compiled_hmmset_from(small_set(nmix=2, seed=1))
+    call = {"make_assembler": lambda *a, **k: make_assembler(comp, *a, **k),
+            "zero_accs": lambda *a, **k: zero_accs(2, 3, 4, 2, 5, *a, **k)
+            }[entry]
+    for args in ((), ("cpu",)):
+        with pytest.raises(TypeError):
+            call(*args)
+    assert call(device="cpu") is not None
 
 
 def _utts(jcomp, n=5, seed=3):

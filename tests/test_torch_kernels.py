@@ -26,7 +26,10 @@ tropical wrappers, and the LV decoder on the card gives the CPU's words
 and times; segmax's skip flag leaves the outputs unwritten; the segmax
 and gather-add kernels equal their plain versions
 exactly (values and first-slot arguments; empty, single, long segments,
-ties, dead rows; gather-add at N % 4 in {0, 1, 2, 3} and on views at an
+ties, dead rows, -inf cells; segmax at every forced lane count with WE's
+rows in shared memory and read from L2, on views at an odd element
+offset at C = 701, and at C = 60,000, whose rows do not fit in shared
+memory; gather-add at N % 4 in {0, 1, 2, 3} and on views at an
 odd element offset), through the routed, window and probe wrappers too,
 operands off the card are refused, and the factored LV decoder on the
 card gives the CPU's words and times with one segmax launch a padded
@@ -341,19 +344,21 @@ def test_maxplus_kernel_at_forced_chunks_on_card(chunks):
 
 
 @pytest.mark.cuda
-def test_segmax_skip_flag_on_card():
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("B", [1, 8])
+def test_segmax_skip_flag_on_card(B, staged):
     """segmax_cuda(skip=...): a false flag gives the plain result; a true
     one leaves every output as allocated (no block writes); both launch
-    once."""
+    once, with WE's rows in shared memory and read from L2."""
     need_card()
     ops = [torch.as_tensor(a, device="cuda") for a in random_xw_operands(
-        0, B=8, C=700, n_slots=30000, ties=True, dead_rows=1)]
+        0, B=B, C=700, n_slots=30000, ties=True, dead_rows=B // 8)]
     C_out = 705  # more columns than segments: outputs start filled
     ref = xg.segmax_plain(*ops, C_out)
     for flag in (False, True):
         skip = torch.tensor(flag, device="cuda")
         before = xg.SEGMAX.launches
-        got = xg.segmax(*ops, C_out, skip=skip)
+        got = xg.segmax_cuda(*ops, C_out, skip=skip, staged=staged)
         assert xg.SEGMAX.launches == before + 1
         torch.cuda.synchronize()
         if flag:
@@ -361,6 +366,80 @@ def test_segmax_skip_flag_on_card():
             assert bool((got[1] == -1).all())
         else:
             assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def inf_cells(ops, every=37):
+    """random_xw_operands' WE with -inf in every `every`-th column."""
+    ops[0][:, ::every] = -np.inf
+    return ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [None, True, False])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32, None])
+def test_segmax_kernel_at_forced_lanes_and_staging_on_card(lanes, staged):
+    """Every segment on G lanes (1-32, or the schedule's own per width),
+    WE's rows in shared memory, read from L2, or as the launch chooses:
+    exactly the plain version, values and first-slot arguments, for B in
+    {1, 8, 17} (one, one and three row groups when staged), tie-heavy and
+    normal scores, dead rows, -inf cells, segments of 0, 1, 4-64 and
+    500-700 slots."""
+    need_card()
+    for B in (1, 8, 17):
+        for ties in (False, True):
+            ops = [torch.as_tensor(a, device="cuda") for a in inf_cells(
+                random_xw_operands(B + 3 * ties, B=B, C=700, n_slots=30000,
+                                   ties=ties, dead_rows=min(B - 1, 2)))]
+            got = xg.segmax_cuda(*ops, 705, lanes=lanes, staged=staged)
+            ref = xg.segmax_plain(*ops, 705)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], ref[0]), (B, ties)
+            assert torch.equal(got[1], ref[1]), (B, ties)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("B", [1, 8])
+def test_segmax_kernel_scalar_edges_on_card(B, staged):
+    """WE, preds and scores as views at an odd element offset (no 16-byte
+    loads of the slot stream, nor of WE's rows into shared memory) and
+    C = 701 (rows not a multiple of 4 floats): exactly the plain
+    version."""
+    need_card()
+    ops = inf_cells(random_xw_operands(B, B=B, C=701, n_slots=30000,
+                                       ties=True, dead_rows=B // 8))
+    ops = [odd_view(a, "cuda") for a in ops[:3]] + [
+        torch.as_tensor(a, device="cuda") for a in ops[3:]]
+    for lanes in (1, 4, None):
+        got = xg.segmax_cuda(*ops, 701, lanes=lanes, staged=staged)
+        ref = xg.segmax_plain(*ops, 701)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [4, None])
+@pytest.mark.parametrize("B", [1, 8, 17])
+def test_segmax_kernel_rows_beyond_shared_memory_on_card(B, lanes):
+    """C = 60,000: one row of WE (240 KB) does not fit in shared memory, so
+    the kernel gathers through L2 (and refuses a forced copy); exactly the
+    plain version."""
+    need_card()
+    rng = np.random.default_rng(B)
+    ops = list(inf_cells(random_xw_operands(B, B=B, C=700, n_slots=30000,
+                                            ties=True, dead_rows=B // 8)))
+    C = 60000
+    ops[0] = inf_cells([np.where(rng.random((B, C)) < 0.2, 2 * LZERO,
+                                 -rng.integers(0, 3, (B, C)))
+                        .astype(np.float32)])[0]
+    ops[1] = rng.integers(0, C, ops[1].shape[0]).astype(np.int32)
+    ops = [torch.as_tensor(a, device="cuda") for a in ops]
+    got = xg.segmax_cuda(*ops, 700, lanes=lanes)
+    ref = xg.segmax_plain(*ops, 700)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    with pytest.raises(ValueError):
+        xg.segmax_cuda(*ops, 700, lanes=lanes, staged=True)
 
 
 @pytest.mark.cuda

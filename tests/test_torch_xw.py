@@ -353,6 +353,218 @@ def test_operand_checks_raise():
                                 torch.zeros((4, 128)))
 
 
+# the 20k-word net's bucket leg: segments per width (chip_smoke phase 12's
+# net, lv_system(20000, seed=11) and compile_lv_loop)
+BUCKET_WIDTHS = {8: 41, 12: 729, 16: 3715, 20: 6772, 24: 5552, 28: 2494,
+                 32: 598, 36: 88, 40: 11}
+# each class's edges: the widest segment of a class and the narrowest of
+# the next (4 slots a lane)
+EDGE_WIDTHS = [0, 1, 2, 3, 4, 5, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129]
+
+
+def widths_of(mix: str, rng) -> np.ndarray:
+    """Segment widths in a random order: "random" as random_xw_operands
+    draws them (0 or 1 for a tenth each, 4-64, two of 500-700), "bucket"
+    the 20k net's bucket widths at a hundredth of the counts (at least one
+    each), "edges" both sides of every class boundary, "empty" only empty
+    segments, "mixed" all of these together."""
+    if mix == "random":
+        kind = rng.random(60)
+        w = np.where(kind < 0.1, 0, np.where(kind < 0.2, 1,
+                                             rng.integers(4, 65, 60)))
+        w = np.concatenate([w, rng.integers(500, 701, 2)])
+    elif mix == "bucket":
+        w = np.concatenate([np.full(max(1, n // 100), k)
+                            for k, n in BUCKET_WIDTHS.items()])
+    elif mix == "edges":
+        w = np.asarray(EDGE_WIDTHS * 2)
+    elif mix == "empty":
+        w = np.zeros(7, np.int64)
+    else:
+        w = np.concatenate([widths_of(m, rng)
+                            for m in ("random", "bucket", "edges")])
+    return rng.permutation(w)
+
+
+def offsets(width) -> np.ndarray:
+    return np.concatenate([[0], np.cumsum(width)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("lanes", [None, 1, 2, 8, 32])
+@pytest.mark.parametrize("mix", ["random", "bucket", "edges", "empty",
+                                 "mixed"])
+def test_schedule_covers_every_segment_once(mix, lanes):
+    """Walking the schedule as the kernel does (a warp task's class from
+    the prefix counts, its segments from the class's run of `order`)
+    reaches every segment exactly once, with its slot range; each class's
+    tasks are the fewest that hold its segments; each segment has the
+    fewest lanes (a power of two, at least 2, at most 32) that leave a lane
+    at most three of its quads (4 slots from a multiple of 4), or the
+    forced count."""
+    rng = np.random.default_rng(len(mix) + (lanes or 0))
+    width = widths_of(mix, rng)
+    sched = xg.schedule(offsets(width), lanes)
+    K, R = xg.CLASSES, len(width)
+    warp_pre, seg_pre = sched[:K + 1], sched[K + 1:2 * K + 2]
+    span = sched[2 * K + 2:2 * K + 2 + 2 * R].reshape(R, 2)
+    order = sched[2 * K + 2 + 2 * R:]
+    assert len(order) == R
+    assert warp_pre[0] == seg_pre[0] == 0 and seg_pre[-1] == R
+    off = offsets(width)
+    np.testing.assert_array_equal(span, np.stack([off[order],
+                                                  off[order + 1]], 1))
+    seen = []
+    for t in range(int(warp_pre[-1])):
+        c = int((warp_pre[1:K] <= t).sum())
+        G = 1 << c
+        for lane in range(0, 32, G):
+            pos = seg_pre[c] + (t - warp_pre[c]) * (32 >> c) + lane // G
+            if pos < seg_pre[c + 1]:
+                seen.append((int(order[pos]), G))
+    assert sorted(s for s, _G in seen) == list(range(len(width)))
+    for c in range(K):
+        n = seg_pre[c + 1] - seg_pre[c]
+        assert warp_pre[c + 1] - warp_pre[c] == -(-n // (32 >> c))
+    nq = (off[1:] + 3) // 4 - off[:-1] // 4
+    for s, G in seen:
+        if lanes is None:
+            assert G == 32 or nq[s] <= 3 * G or width[s] == 0
+            assert G == 2 or nq[s] > 3 * (G // 2)
+            assert G >= 2
+        else:
+            assert G == lanes
+    np.testing.assert_array_equal(xg.quads(off), np.where(width > 0, nq, 0))
+    with pytest.raises(ValueError):
+        xg.schedule(offsets(width), 3)
+
+
+@pytest.mark.parametrize("B,C,sms,staged,want", [
+    (8, 20000, 132, None, (2, 33, True)),    # the 20k frame: 4 row groups
+    (1, 22000, 132, None, (1, 132, True)),   # bucket_max's probe shape
+    (17, 700, 132, None, (8, 4, True)),      # few tasks: few blocks
+    (3, 700, 132, None, (4, 132, True)),     # rows a power of two
+    (3, 20000, 132, None, (2, 66, True)),
+    (8, 100000, 132, None, (8, 157, False)),  # a row does not fit
+    (8, 20000, 132, False, (8, 157, False)),
+    (3, 58112, 132, True, (1, 44, True)),    # exactly one row fits
+])
+def test_launch_shape(B, C, sms, staged, want):
+    """Rows a block: staged, a power of two that fits in 227 KB, at most 8
+    and no more than B asks; unstaged, up to 8, B shared evenly among the
+    row groups. One block an SM when staged, two unstaged, no more than
+    the warp tasks need (32 a block)."""
+    assert xg.launch_shape(B, C, 100 if (B, C) == (17, 700) else 5000, sms,
+                           staged) == want
+    rows, chunks, st = want
+    if st:
+        assert 4 * rows * C <= xg.SMEM_MAX and rows & (rows - 1) == 0
+    with pytest.raises(ValueError):
+        xg.launch_shape(B, 58113, 5000, sms, True)
+
+
+INT_MAX = np.iinfo(np.int32).max
+
+
+def emulate_segmax(WE, preds, scores, seg_off, out_row, C_out, lanes):
+    """The kernel's split and merge in torch ops: per class of the
+    schedule, lane j of a segment's G walks quads q0 + j, q0 + j + G, ...
+    (q0 = k0 // 4, k0 and k1 from the schedule's spans), the slots of a
+    quad in order and only those in [k0, k1), keeping the (value, slot,
+    pred) that beats its own (a larger value, or
+    an equal one at an earlier slot), empty lanes holding (-inf, INT_MAX);
+    then log2 G xor-shuffle steps merge the lanes by the same rule, after
+    which every lane of a group holds the same triple."""
+    sched = xg.schedule(seg_off.numpy(), lanes)
+    K, R = xg.CLASSES, len(seg_off) - 1
+    seg_pre, order = sched[K + 1:2 * K + 2], sched[2 * K + 2 + 2 * R:]
+    B = WE.shape[0]
+    val = torch.full((B, C_out), 2 * LZERO)
+    arg = torch.full((B, C_out), -1, dtype=torch.int32)
+    for c in range(K):
+        segs = torch.as_tensor(order[seg_pre[c]:seg_pre[c + 1]]).long()
+        if not len(segs):
+            continue
+        G = 1 << c
+        span = torch.as_tensor(sched[2 * K + 2:2 * K + 2 + 2 * R]).reshape(
+            R, 2)[seg_pre[c]:seg_pre[c + 1]].long()
+        k0, k1 = span[:, 0], span[:, 1]
+        L = max(1, -(-int(((k1 + 3) // 4 - k0 // 4).max()) // G))
+        qd = (k0[:, None, None] // 4 + torch.arange(G)[None, :, None]
+              + G * torch.arange(L)[None, None, :])  # (n, G, L) quads
+        k = (4 * qd[..., None] + torch.arange(4)).reshape(len(segs), G,
+                                                          4 * L)
+        live = (k >= k0[:, None, None]) & (k < k1[:, None, None])
+        kc = torch.where(live, k, 0)
+        p = preds[kc].long()
+        cand = torch.where(live, WE[:, p] + scores[kc], -torch.inf)
+        kk = torch.where(live, k, INT_MAX).expand(B, -1, -1, -1)
+        pp = p.expand(B, -1, -1, -1)
+        bv = torch.full(cand.shape[:3], -torch.inf)
+        bk = torch.full(cand.shape[:3], INT_MAX, dtype=torch.int64)
+        bp = torch.full(cand.shape[:3], -1, dtype=torch.int64)
+
+        def take(v, kx, px):
+            win = (v > bv) | ((v == bv) & (kx < bk))
+            return (torch.where(win, v, bv), torch.where(win, kx, bk),
+                    torch.where(win, px, bp))
+
+        for i in range(4 * L):
+            bv, bk, bp = take(cand[..., i], kk[..., i], pp[..., i])
+        step = G >> 1
+        while step:
+            perm = torch.arange(G) ^ step
+            bv, bk, bp = take(bv[..., perm], bk[..., perm], bp[..., perm])
+            step >>= 1
+        for x in (bv, bk, bp):
+            assert bool((x == x[..., :1]).all())  # every lane agrees
+        none = bk[..., 0] == INT_MAX
+        cols = out_row[segs].long()
+        val[:, cols] = torch.where(none, 2 * LZERO, bv[..., 0])
+        arg[:, cols] = torch.where(none, -1, bp[..., 0]).to(torch.int32)
+    return val, arg
+
+
+def tie_heavy_operands(seed: int, B: int, C: int = 300):
+    """segmax operands over the "mixed" widths: integer scores from
+    {0, -1, -2} (ties everywhere), a tenth of the slots pads (LZERO), WE
+    from {0, -1, -2} with 2 LZERO at a fifth of its cells and -inf at a
+    twentieth and in its last column, which every other one-slot segment
+    names; the last row dead (2 LZERO) and, for B > 8, another all -inf;
+    out_row a permutation into R + 5 columns."""
+    rng = np.random.default_rng(seed)
+    seg_off = offsets(widths_of("mixed", rng))
+    R, N = len(seg_off) - 1, int(seg_off[-1])
+    preds = rng.integers(0, C, N).astype(np.int32)
+    scores = np.where(rng.random(N) < 0.1, LZERO,
+                      -rng.integers(0, 3, N)).astype(np.float32)
+    WE = -rng.integers(0, 3, (B, C)).astype(np.float32)
+    cell = rng.random((B, C))
+    WE[cell < 0.2] = 2 * LZERO
+    WE[cell > 0.95] = -np.inf
+    WE[:, -1] = -np.inf
+    preds[seg_off[:-1][np.diff(seg_off) == 1][::2]] = C - 1
+    if B > 1:
+        WE[-1] = 2 * LZERO
+    if B > 8:
+        WE[-2] = -np.inf
+    out_row = rng.permutation(R + 5)[:R].astype(np.int32)
+    return [t(a) for a in (WE, preds, scores, seg_off, out_row)], R + 5
+
+
+@pytest.mark.parametrize("B", [1, 8, 17])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 32, None])
+def test_kernel_split_and_merge_equal_plain(lanes, B):
+    """The kernel's partition of each segment over G lanes and its
+    (value, then earliest slot) merge give segmax_plain's values and
+    first-slot arguments exactly, at every forced G and the schedule's
+    own, on tie-heavy scores with pads, dead rows and -inf cells."""
+    ops, C_out = tie_heavy_operands(B * 7 + (lanes or 0), B)
+    got = emulate_segmax(*ops, C_out, lanes)
+    ref = xg.segmax_plain(*ops, C_out)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert bool((ref[0] == -torch.inf).any())  # all -inf segments reached
+
+
 @pytest.mark.parametrize("flag", [False, True])
 def test_plain_segmax_accepts_skip_and_ignores_it(flag):
     """The kernel leaves its outputs unspecified under a set flag; the
