@@ -1,9 +1,11 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: HVite -w recognition,
-HERest Baum-Welch training and the uniform-row LV decoder, dense and
+"""Smoke run of the PyTorch port on one NVIDIA GPU: HCopy's frontend,
+HVite -w recognition and -z lattices, HERest Baum-Welch training, the
+demo chain through HResults, and the uniform-row LV decoder, dense and
 factored.
 
-Drives htk_tpu_torch's main paths, `htk_tpu_torch.tools.hvite.run`,
-`htk_tpu_torch.tools.herest.run` and `algo.decode.decode_batch` on
+Drives htk_tpu_torch's main paths, `htk_tpu_torch.tools.hcopy.run`,
+`htk_tpu_torch.tools.hvite.run`, `htk_tpu_torch.tools.herest.run`,
+`recipes.demo.run_chain` and `algo.decode.decode_batch` on
 `compile_lv_loop` networks, on a synthetic system at htk_tpu's BASELINE
 config #4 widths (1,000-word back-off bigram, as a word network and as
 ARPA tables; 40 phones, word-internal triphones over 2,000 tied 8-mixture
@@ -111,7 +113,24 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      busy share, segmax's device time, device operations per frame and
      top operations, with the adaptive batch's frames whose certificate
      fails (counted offline from the exact leg's word-end planes)
- 16. one JSON line of kernels, then the device line last
+ 17. (run after phase 11) HCopy at the batched frontend's full chunk:
+     64 synthetic utterances of 3-8 s at 16 kHz (recipes/speech.py,
+     seed 5) as MFCC_E_D_A, PLP_E_D_A and FBANK, with BATCHFRONTEND T and
+     F in turns (T, F, F, T): exit 0, every file against the port's
+     frontend on the CPU (max |diff| 1e-3, mean 2e-5; of the scale for
+     PLP), audio seconds per second; under torch.profiler, one batched
+     run's device busy share; the golden fixture (tests/golden) on the
+     card at tests/test_golden_frontend.py's tolerances
+ 18. (run after phase 6) HVite -z on the config-4 system: one decode
+     launch per bucket, a lattice for every utterance, rec.mlf
+     byte-identical to phase 5's; every bucket's lattices walked again
+     from the kernel's planes on the same outp equal the tool's files
+     byte for byte, and for the first bucket equal those from the plain
+     version's planes; the wall split into decode and lattice build
+ 19. (run after phase 15) the demo twin (recipes/demo.py, run_demo.sh's
+     chain through HResults) in a temporary directory: 100% word
+     accuracy, each tool's wall, the decode_scan and fb_scans launches
+ 20. one JSON line of kernels, then the device line last
 
 Each main path runs with every launch count set to 0 just before it and
 read just after. Tolerances, kernel against plain: maxplus, tropical,
@@ -159,6 +178,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -172,11 +192,12 @@ from htk_tpu_torch.algo.net import compile_network, word_internal_phone_map
 from htk_tpu_torch.algo.trainer import (DeviceCompositeTrainer, _bucket,
                                         prepare_utterance_ids)
 from htk_tpu_torch.io.dictionary import read_dict
+from htk_tpu_torch.io import parmkind as pk
 from htk_tpu_torch.io.htkfeat import read_htk_file
 from htk_tpu_torch.io.lm import read_arpa
 from htk_tpu_torch.io.mlf import MLF
 from htk_tpu_torch.io.mmf import load_mmf
-from htk_tpu_torch.io.slf import read_slf
+from htk_tpu_torch.io.slf import read_slf, write_slf
 from htk_tpu_torch.models.hmmset import compile_hmmset
 from htk_tpu_torch.ops import decode_scan as ds
 from htk_tpu_torch.ops import fb_scans as fbs
@@ -184,11 +205,15 @@ from htk_tpu_torch.ops import maxplus as mp
 from htk_tpu_torch.ops import tropical as trop
 from htk_tpu_torch.ops import xw_gather as xg
 from htk_tpu_torch.ops import xw_route, xw_window
+from htk_tpu_torch.ops.dsp import (FrontendConfig, compute_features,
+                                   compute_features_batch)
+from htk_tpu_torch.recipes import demo
+from htk_tpu_torch.recipes.speech import utterance_set, write_wav
 from htk_tpu_torch.synth import (lv_system, random_decode_net,
                                  random_fb_operands, random_maxplus_operands,
                                  random_xw_operands, word_accuracy,
                                  write_system)
-from htk_tpu_torch.tools import herest, hvite
+from htk_tpu_torch.tools import hcopy, herest, hvite
 from htk_tpu_torch.tools._common import DEVICE_ENV
 from htk_tpu_torch.utils.logmath import LZERO
 
@@ -211,6 +236,7 @@ MAXPLUS_MODES = {"normal": {}, "ties": {"ties": True},
                  "dead row": {"dead_rows": 1}}
 TOPA = 128  # the dense top-A leg's max_active (htk_tpu's bench.py 5k row)
 LAUNCH_LOOP = 100  # back-to-back launches per timed sample of one kernel
+PROFILE_TRIES = 6  # torch.profiler sessions before a profile fails
 PLAIN_LOOP = 10  # calls per timed sample of a slow plain version
 LIBRARY_ROUNDS = 40  # alternating samples of lane_gather and index_select
 PAD_T = 128  # decode_batch pads T to a multiple of this
@@ -236,6 +262,18 @@ SEGMAX_LANES = (1, 2, 4, 8, 16, 32, None)  # forced lanes; None: by width
 SEGMAX_STAGED = (True, False, None)  # WE copied, read from L2, or chosen
 PROBE = dict(C=22000, NNZ=640000, FB=16)  # benchmarks/gather_probe.py
 LANE = dict(W=2048, n=4096, L=128)  # benchmarks/dyngather_probe.py
+# HCopy at the batched frontend's full chunk (ops/dsp.BATCH_WIDTH files)
+HCOPY_SET = dict(n=64, min_s=3.0, max_s=8.0, seed=5)
+HCOPY_KINDS = ("MFCC_E_D_A", "PLP_E_D_A", "FBANK")
+FE_MAX, FE_MEAN = 1e-3, 2e-5  # card vs CPU frontend, max and mean |diff|
+FE_REL_MAX, FE_REL_MEAN = 5e-5, 2e-6  # the same over PLP's largest value
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                      "golden", "mfcc_golden.npz")
+# (kind, channels, max, mean): tests/test_golden_frontend.py's tolerances
+GOLDEN_TOL = (("MFCC_E_D_A_Z", 20, 2.0e-3, 3.0e-4),
+              ("MFCC_0", 20, 2.0e-3, 5.0e-4), ("FBANK", 24, 3.0e-4, 1.0e-4),
+              ("PLP", 20, 2.0e-3, 2.0e-4))
+LATTICE_BEAM = 200.0  # HREC: LATTICEBEAM's default
 
 
 def log(msg: str) -> None:
@@ -481,13 +519,13 @@ def phase_hvite_profile(sysm, root, card, dev):
             sysm.hmmdefs, "-i", os.path.join(root, "rec_profiled.mlf"),
             "-s", str(LM_SCALE), "-p", str(WORD_PEN), "-S", sysm.scp,
             sysm.dict, sysm.hmmlist]
-    wall, ops, _n = device_profile(lambda: hvite.run(argv), dev)
-    busy = sum(ms for _k, ms in ops)
-    dms = sum(ms for k, ms in ops if "decode_scan_kernel" in k)
-    log(f"profile on {card} of one HVite run: wall {wall:.1f} ms, device "
-        f"busy {busy:.1f} ms ({100 * busy / wall:.1f}%), decode kernel "
-        f"{dms:.2f} ms; top: "
-        + ", ".join(f"{k[:40]} {ms:.2f} ms" for k, ms in ops[:5]))
+    p = device_profile(lambda: hvite.run(argv), dev, "decode_scan_kernel",
+                       -(-len(sysm.feats) // DECODEBATCH))
+    busy = p.ms()
+    log(f"profile on {card} of one HVite run: wall {p.wall:.1f} ms, device "
+        f"busy {busy:.1f} ms ({100 * busy / p.wall:.1f}%), decode kernel "
+        f"{p.ms('decode_scan_kernel'):.2f} ms in "
+        f"{p.count('decode_scan_kernel')} launches; top: {p.top(5)}")
 
 
 def phase_real_bucket(sysm, hyps, dev):
@@ -695,35 +733,93 @@ def phase_fb_timing(ops, trainer, utts, card, dev):
     return kms, pms
 
 
-def device_profile(fn, dev):
-    """Wall ms of one synchronised fn() under torch.profiler, the device
-    ms of each kernel it ran, largest first (empty when the profiler saw
-    no device time), and the number of device operations it ran."""
+def _holds(key: str, name) -> bool:
+    return any(n in key for n in ((name,) if isinstance(name, str)
+                                  else name))
+
+
+class Profile:
+    """One torch.profiler session: `wall` ms of the synchronised call and
+    `ops`, each device operation's (name, device ms, count), largest
+    first."""
+
+    def __init__(self, wall, ops):
+        self.wall, self.ops = wall, ops
+
+    @property
+    def n(self) -> int:
+        """Device operations recorded."""
+        return sum(c for _k, _ms, c in self.ops)
+
+    def ms(self, name="") -> float:
+        """Device ms of the operations whose name holds `name` (or one of
+        a tuple of names)."""
+        return sum(ms for k, ms, _c in self.ops if _holds(k, name))
+
+    def count(self, name="") -> int:
+        return sum(c for k, _ms, c in self.ops if _holds(k, name))
+
+    def per_launch(self, name) -> float:
+        """Device ms a recorded launch of the operations named `name`."""
+        return self.ms(name) / self.count(name)
+
+    def top(self, n: int, width: int = 40, fmt: str = ".2f") -> str:
+        return ", ".join(f"{k[:width]} {ms:{fmt}} ms"
+                         for k, ms, _c in self.ops[:n])
+
+
+def device_profile(fn, dev, expect, launches: Optional[int] = None
+                   ) -> Profile:
+    """One synchronised fn() under torch.profiler, where fn launches a
+    device operation whose name holds `expect` (`""`: any; or one of a
+    tuple of names), `launches` times where that is known.
+
+    The card's torch.profiler at times returns a session that lacks some
+    or all of its device records, for our kernels and torch's alike:
+    PR 8's decode_scan session came back empty after the HCopy profile,
+    one fb_scans session lacked its table kernel, and a loop of 100
+    maxplus launches held 99 records in six sessions running. So a
+    session without a record of `expect` is run again, up to
+    PROFILE_TRIES sessions, and the profile fails if none holds one; a
+    shortfall against `launches` is logged, and per-launch times divide
+    by the launches recorded."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for k in range(PROFILE_TRIES):
         torch.cuda.synchronize(dev)
-        wall = (time.perf_counter() - t0) * 1e3
-    times, n = {}, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            times[e.key] = e.self_device_time_total / 1e3
-            n += e.count
-    return wall, sorted(times.items(), key=lambda kv: -kv[1]), n
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1e3
+        p = Profile(wall, sorted(
+            ((e.key, e.self_device_time_total / 1e3, e.count)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda op: -op[1]))
+        if p.count(expect) and p.ms(expect) > 0:
+            if k or (launches is not None and p.count(expect) < launches):
+                name = (expect if isinstance(expect, str)
+                        else "/".join(expect)) or "any operation"
+                log(f"  (torch.profiler recorded {p.count(expect)}"
+                    + ("" if launches is None else f" of {launches}")
+                    + f" launches of {name}"
+                    + (f" after {k} empty sessions" if k else "") + ")")
+            return p
+    raise AssertionError(f"torch.profiler: no session of {PROFILE_TRIES} "
+                         f"held a device record of '{expect}'")
 
 
 def phase_profile(sysm, ops, root, card, dev):
     """Where the time goes: the two kernels of one fb_scans call, and the
     device's share of one HERest iteration's wall time."""
     fbs.fb_scans_cuda(*ops)
-    wall, ks, _n = device_profile(lambda: fbs.fb_scans_cuda(*ops), dev)
+    p = device_profile(lambda: fbs.fb_scans_cuda(*ops), dev,
+                       "fb_scan_kernel")
     live = (ops[1] > LZERO / 2).sum(dim=(1, 2)).tolist()
-    log(f"profile on {card} of one fb_scans call ({wall:.3f} ms wall; "
+    log(f"profile on {card} of one fb_scans call ({p.wall:.3f} ms wall; "
         f"live cells per utterance {live} of {ops[1].shape[1] ** 2}): "
-        + (", ".join(f"{k[:40]} {ms:.3f} ms" for k, ms in ks)
-           or "no device time seen"))
+        + p.top(len(p.ops), fmt=".3f"))
     # a one-state composite (a self-loop) at the same B and T: the two
     # scans' steps with no work, the kernel's floor a step
     B, T, _Q = ops[0].shape
@@ -732,20 +828,21 @@ def phase_profile(sysm, ops, root, card, dev):
            torch.zeros((B, 1), device=dev), torch.zeros((B, 1), device=dev),
            torch.full((B,), T, dtype=torch.int32, device=dev)]
     fms = statistics.median(time_call(lambda: fbs.fb_scans_cuda(*one), dev))
-    _w, ks1, _n = device_profile(lambda: fbs.fb_scans_cuda(*one), dev)
-    scan1 = sum(ms for k, ms in ks1 if "fb_scan_kernel" in k)
+    scan1 = device_profile(lambda: fbs.fb_scans_cuda(*one), dev,
+                           "fb_scan_kernel").per_launch("fb_scan_kernel")
     log(f"  a one-state composite (B={B}, T={T}): {fms:.3f} ms a call, "
         f"scan kernel {scan1:.3f} ms of device time "
         f"({scan1 / T * 1e3:.3f} us a step of each scan, both at once)")
     out = os.path.join(root, "hmm_profiled")
     argv = ["-H", sysm.hmmdefs, "-M", out, "-S", sysm.train_scp, "-I",
             sysm.train_mlf, sysm.hmmlist]
-    wall, ks, _n = device_profile(lambda: herest.run(argv), dev)
-    busy = sum(ms for _k, ms in ks)
-    log(f"profile on {card} of one HERest iteration: wall {wall:.1f} ms, "
+    p = device_profile(lambda: herest.run(argv), dev, "fb_scan_kernel")
+    busy = p.ms()
+    log(f"profile on {card} of one HERest iteration: wall {p.wall:.1f} ms, "
         f"device busy "
-        f"{busy:.1f} ms ({100 * busy / wall:.1f}%); top kernels: "
-        + ", ".join(f"{k[:40]} {ms:.2f} ms" for k, ms in ks[:6]))
+        f"{busy:.1f} ms ({100 * busy / p.wall:.1f}%), fb_scans' scan kernel "
+        f"{p.ms('fb_scan_kernel'):.2f} ms in {p.count('fb_scan_kernel')} "
+        f"launches; top kernels: {p.top(6)}")
 
 
 def decode_args(net, comp, fb, dev):
@@ -798,8 +895,8 @@ def phase_timing(net, comp, feats, card, dev):
             f"({ms / T * 1e3:.2f} us per frame), decode xRT "
             f"{ms / 1e3 / audio_s:.4e}; samples "
             + " ".join(f"{x:.3f}" for x in ts))
-    _w, ops, _n = device_profile(lambda: ds.decode_scan_cuda(*args), dev)
-    dms = sum(ms for k_, ms in ops if "decode_scan_kernel" in k_)
+    dms = device_profile(lambda: ds.decode_scan_cuda(*args), dev,
+                         "decode_scan_kernel").per_launch("decode_scan_kernel")
     # a one-node net at the full grid: the frames' barriers and phases
     # with (almost) no work, the kernel's floor a frame
     one = random_net(0, dev, False, Ns=1, Nn=1, K=2, B=B, T=T)
@@ -1046,13 +1143,13 @@ def phase_lv_timing(net, comp, feats, batch, args, WEs, trop_ops, card,
     log(f"  maxplus B={B} C={C} (a real frame): kernel {mk:.6f} ms, plain "
         f"{mpl:.6f} ms; samples " + " ".join(f"{x:.6f}" for x in ks)
         + " | " + " ".join(f"{x:.6f}" for x in ps))
-    _w, prof, _n = device_profile(
+    mdev = device_profile(
         lambda: [mp.maxplus_cuda(WE, trans, False)
-                 for _ in range(LAUNCH_LOOP)], dev)
-    mdev = sum(ms for k_, ms in prof if "maxplus_kernel" in k_)
+                 for _ in range(LAUNCH_LOOP)], dev, "maxplus_kernel",
+        LAUNCH_LOOP).per_launch("maxplus_kernel")
     log(f"  maxplus device time a launch (torch.profiler, {LAUNCH_LOOP} "
         f"calls, {mp.grid_chunks(B, C)} source chunks): "
-        f"{mdev / LAUNCH_LOOP:.6f} ms, against {mk:.6f} ms a call")
+        f"{mdev:.6f} ms, against {mk:.6f} ms a call")
     log(f"  tropical padded {tuple(WEp.shape)} x {tuple(tT.shape)}: kernel "
         f"{tk:.6f} ms, plain {tpl:.6f} ms; samples "
         + " ".join(f"{x:.6f}" for x in tks) + " | "
@@ -1078,16 +1175,16 @@ def phase_lv_timing(net, comp, feats, batch, args, WEs, trop_ops, card,
         f"audio): {w:.3f} ms, xRT {w / 1e3 / audio:.6f} (OutP + scan + "
         f"traceback; median of 6: " + " ".join(f"{x:.3f}" for x in walls)
         + ")")
-    wall, ops, n_ops = device_profile(one_batch, dev)
-    busy = sum(ms for _k, ms in ops)
-    mx = sum(ms for k, ms in ops if "maxplus" in k)
-    log(f"profile on {card} of one LV batch: wall {wall:.1f} ms (the "
+    p = device_profile(one_batch, dev, "maxplus_kernel")
+    busy, mx = p.ms(), p.ms("maxplus_kernel")
+    log(f"profile on {card} of one LV batch: wall {p.wall:.1f} ms (the "
         f"profiler slows the host; unprofiled {bk:.1f} ms), device busy "
-        f"{busy:.1f} ms ({100 * busy / wall:.1f}% of the profiled wall, "
-        f"{100 * busy / bk:.1f}% of the unprofiled), {n_ops} device "
-        f"operations ({n_ops / T:.1f} per frame), maxplus kernel "
-        f"{mx:.2f} ms ({100 * mx / max(busy, 1e-9):.1f}% of busy); top: "
-        + ", ".join(f"{k[:48]} {ms:.2f} ms" for k, ms in ops[:8]))
+        f"{busy:.1f} ms ({100 * busy / p.wall:.1f}% of the profiled wall, "
+        f"{100 * busy / bk:.1f}% of the unprofiled), {p.n} device "
+        f"operations ({p.n / T:.1f} per frame), maxplus kernel "
+        f"{mx:.2f} ms in {p.count('maxplus_kernel')} launches "
+        f"({100 * mx / max(busy, 1e-9):.1f}% of busy); top: "
+        f"{p.top(8, 48)}")
     return mk, mpl, tk, tpl
 
 
@@ -1389,14 +1486,12 @@ def phase_big_timing(sysm, net, batch, WE, paths, lops, fails, card, dev):
     for name, fn in fns.items():
         # the same calls under torch.profiler: the kernel's own device
         # time, apart from the wrapper's host work between launches
-        _w, ops, _n = device_profile(
-            lambda: [fn() for _ in range(LAUNCH_LOOP)], dev)
-        kern = sum(ms for k, ms in ops if "segmax_kernel" in k
-                   or "gather_add_kernel" in k)
+        ours = ("segmax_kernel", "gather_add_kernel")
+        p = device_profile(lambda: [fn() for _ in range(LAUNCH_LOOP)], dev,
+                           ours, LAUNCH_LOOP)
         log(f"  {name}: device time a call (torch.profiler, "
-            f"{LAUNCH_LOOP} calls): kernel {kern / LAUNCH_LOOP:.6f} ms, all "
-            f"device operations {sum(ms for _k, ms in ops) / LAUNCH_LOOP:.6f}"
-            f" ms")
+            f"{LAUNCH_LOOP} calls): kernel {p.per_launch(ours):.6f} ms, all "
+            f"device operations {p.ms() / p.count(ours):.6f} ms")
     segmax_variants(WE, x, C, card, dev)
     row, flat = lops[0][0], lops[1].reshape(-1)
 
@@ -1418,10 +1513,10 @@ def phase_big_timing(sysm, net, batch, WE, paths, lops, fails, card, dev):
     lis, lks = got["index_select"], got["lane_gather"]
     li, lk = statistics.median(lis), statistics.median(lks)
     times["lane_gather"] = [lk, statistics.median(got["plain"]), li]
-    _w, ops, _n = device_profile(
-        lambda: [index_select() for _ in range(LAUNCH_LOOP)], dev)
+    p = device_profile(lambda: [index_select() for _ in range(LAUNCH_LOOP)],
+                       dev, "", LAUNCH_LOOP)
     log(f"  torch.index_select (lane_gather's function): {li:.6f} ms a "
-        f"call, device time {sum(ms for _k, ms in ops) / LAUNCH_LOOP:.6f} "
+        f"call, device time {p.ms() / LAUNCH_LOOP:.6f} "
         f"ms; lane_gather alternating with it {lk:.6f} ms, no slower in "
         f"{sum(k <= i for k, i in zip(lks, lis))} of {LIBRARY_ROUNDS} "
         f"rounds; samples " + " ".join(f"{v:.6f}" for v in lis)
@@ -1463,18 +1558,19 @@ def phase_big_timing(sysm, net, batch, WE, paths, lops, fails, card, dev):
     # leg launches segmax every frame, gated on the device)
     for leg, ma in (("exact", None), ("adaptive", ADAPTIVE),
                     ("topA", TOPA)):
-        wall, ops, n_ops = device_profile(one_batch(ma), dev)
-        busy = sum(ms for _k, ms in ops)
-        sm = sum(ms for k, ms in ops if "segmax" in k)
+        # the top-A leg does not run segmax: any device record will do
+        p = device_profile(one_batch(ma), dev,
+                           "" if leg == "topA" else "segmax_kernel")
+        busy, sm = p.ms(), p.ms("segmax_kernel")
         bms = batch_ms[leg]
-        log(f"profile on {card} of one {leg} 20k LV batch: wall {wall:.1f} "
-            f"ms (unprofiled {bms:.1f} ms), device busy {busy:.1f} ms "
-            f"({100 * busy / wall:.1f}% of the profiled wall, "
-            f"{100 * busy / bms:.1f}% of the unprofiled), {n_ops} device "
-            f"operations ({n_ops / T:.1f} per frame), segmax kernel "
-            f"{sm:.2f} ms ({100 * sm / max(busy, 1e-9):.1f}% of busy); "
-            "top: " + ", ".join(f"{k[:48]} {ms:.2f} ms"
-                                for k, ms in ops[:8]))
+        log(f"profile on {card} of one {leg} 20k LV batch: wall "
+            f"{p.wall:.1f} ms (unprofiled {bms:.1f} ms), device busy "
+            f"{busy:.1f} ms ({100 * busy / p.wall:.1f}% of the profiled "
+            f"wall, {100 * busy / bms:.1f}% of the unprofiled), {p.n} "
+            f"device operations ({p.n / T:.1f} per frame), segmax kernel "
+            f"{sm:.2f} ms in {p.count('segmax_kernel')} launches "
+            f"({100 * sm / max(busy, 1e-9):.1f}% of busy); top: "
+            f"{p.top(8, 48)}")
     return times
 
 
@@ -1488,12 +1584,11 @@ def segmax_variants(WE, x, C, card, dev):
     args = (WE, x["preds"], x["scores"], x["seg_off"], x["out_row"], C)
     ref = xg.segmax_plain(*args)
 
-    def per_launch(fn, every_op=False):
-        """Device ms a call: segmax's kernel, or every device operation."""
-        _w, ops, _n = device_profile(
-            lambda: [fn() for _ in range(LAUNCH_LOOP)], dev)
-        return sum(ms for k, ms in ops
-                   if every_op or "segmax_kernel" in k) / LAUNCH_LOOP
+    def per_launch(fn):
+        """Device ms a launch of segmax's kernel."""
+        return device_profile(
+            lambda: [fn() for _ in range(LAUNCH_LOOP)], dev,
+            "segmax_kernel", LAUNCH_LOOP).per_launch("segmax_kernel")
 
     log(f"  segmax on {card} at each lane count and staging choice, the "
         f"real frame (device time a launch, torch.profiler, {LAUNCH_LOOP} "
@@ -1533,10 +1628,229 @@ def segmax_variants(WE, x, C, card, dev):
         return torch.segment_reduce(cand, "max", lengths=width, axis=0)
 
     sr = statistics.median(time_launches(seg_reduce, dev))
+    seg_ms = device_profile(
+        lambda: [seg_reduce() for _ in range(LAUNCH_LOOP)], dev,
+        "").ms() / LAUNCH_LOOP
     log(f"  torch.segment_reduce, max over the gathered candidates "
         f"{tuple(cand.shape)} (values only, == segmax's): {sr:.6f} ms a "
-        f"call, device time {per_launch(seg_reduce, True):.6f} ms (all "
-        f"its device operations)")
+        f"call, device time {seg_ms:.6f} ms (all its device operations)")
+
+
+def _feature_err(got, ref, scaled):
+    """max and mean |diff| of two feature matrices, over the largest
+    |ref| where the kind has a scale of its own (PLP's cepstra)."""
+    if got.shape != ref.shape:
+        raise AssertionError(f"feature shapes {got.shape} != {ref.shape}")
+    s = float(np.abs(ref).max()) if scaled else 1.0
+    d = np.abs(got.astype(np.float64) - ref) / s
+    return float(d.max()), float(d.mean())
+
+
+def phase_hcopy(root, card, dev):
+    """HCopy at the batched frontend's full chunk: HCOPY_SET's 64
+    utterances through the tool as each of HCOPY_KINDS, batched and per
+    file, held against the port's frontend on the CPU; then the golden
+    fixture on the card. Returns the summary line's numbers."""
+    t0 = time.perf_counter()
+    waves = utterance_set(**HCOPY_SET)
+    d = os.path.join(root, "hcopy")
+    os.makedirs(d)
+    for k, x in enumerate(waves):
+        write_wav(os.path.join(d, f"w{k}.wav"), x)
+    audio_s = sum(len(x) for x in waves) / 16000.0
+    log(f"HCopy set: {len(waves)} utterances, {audio_s:.1f} s of audio "
+        f"({min(len(x) for x in waves) / 16000.0:.2f}-"
+        f"{max(len(x) for x in waves) / 16000.0:.2f} s each), synthesised "
+        f"in {time.perf_counter() - t0:.1f} s")
+    worst = (0.0, 0.0)
+    for kind in HCOPY_KINDS:
+        fcfg = FrontendConfig(target_kind=pk.str2parmkind(kind))
+        t0 = time.perf_counter()
+        ref = compute_features_batch([(x, fcfg) for x in waves],
+                                     device="cpu")
+        cpu_s = time.perf_counter() - t0
+        outs, walls, k_err = {}, {"T": [], "F": []}, (0.0, 0.0)
+        for batched in ("T", "F", "F", "T"):  # in turns: the first warms up
+            out = os.path.join(d, f"{kind}_{batched}")
+            os.makedirs(out, exist_ok=True)
+            cfg = os.path.join(out, "cfg")
+            with open(cfg, "w") as f:
+                f.write(f"SOURCEFORMAT = WAV\nTARGETKIND = {kind}\n"
+                        f"HPARM: BATCHFRONTEND = {batched}\n")
+            scp = os.path.join(out, "copy.scp")
+            with open(scp, "w") as f:
+                f.writelines(f"{d}/w{k}.wav {out}/w{k}.mfc\n"
+                             for k in range(len(waves)))
+            t0 = time.perf_counter()
+            rc = hcopy.run(["-C", cfg, "-S", scp])
+            torch.cuda.synchronize(dev)
+            walls[batched].append(time.perf_counter() - t0)
+            if rc != 0:
+                raise RuntimeError(f"HCopy {kind} BATCHFRONTEND={batched} "
+                                   f"returned {rc}")
+            feats = [read_htk_file(f"{out}/w{k}.mfc").data
+                     for k in range(len(waves))]
+            scaled = kind.startswith("PLP")
+            errs = [_feature_err(g, r, scaled) for g, r in zip(feats, ref)]
+            e_max = max(e[0] for e in errs)
+            e_mean = max(e[1] for e in errs)
+            lim = (FE_REL_MAX, FE_REL_MEAN) if scaled else (FE_MAX, FE_MEAN)
+            if e_max > lim[0] or e_mean > lim[1]:
+                raise AssertionError(
+                    f"HCopy {kind} BATCHFRONTEND={batched}: card vs CPU max "
+                    f"{e_max:.3g} mean {e_mean:.3g} (limits {lim})")
+            k_err = (max(k_err[0], e_max), max(k_err[1], e_mean))
+            outs[batched] = feats
+        worst = (max(worst[0], k_err[0]), max(worst[1], k_err[1]))
+        for batched, ws in walls.items():
+            log(f"HCopy {kind} BATCHFRONTEND={batched} on {card}: rc 0 in "
+                + " and ".join(f"{w:.3f} s ({audio_s / w:.1f} s of audio "
+                               f"per s)" for w in ws)
+                + f", card vs CPU max |diff| {k_err[0]:.3g}, mean "
+                f"{k_err[1]:.3g}{' of scale' if kind.startswith('PLP') else ''}"
+                f" (CPU frontend {cpu_s:.2f} s)")
+        bp = max(float(np.abs(a - b).max())
+                 for a, b in zip(outs["T"], outs["F"]))
+        log(f"HCopy {kind}: batched vs per-file on the card max |diff| "
+            f"{bp:.3g}")
+    cfg = os.path.join(d, f"{HCOPY_KINDS[0]}_T", "cfg")
+    scp = os.path.join(d, f"{HCOPY_KINDS[0]}_T", "copy.scp")
+    # torch.fft.rfft runs as cuFFT's own kernels: any device record will do
+    p = device_profile(lambda: hcopy.run(["-C", cfg, "-S", scp]), dev, "")
+    busy = p.ms()
+    log(f"profile on {card} of one batched HCopy {HCOPY_KINDS[0]} run: wall "
+        f"{p.wall:.1f} ms ({audio_s / p.wall * 1e3:.1f} s of audio per s), "
+        f"device busy {busy:.1f} ms ({100 * busy / p.wall:.1f}%), {p.n} "
+        f"device operations; top: {p.top(4)}")
+    gold = np.load(GOLDEN)
+    for kind, nch, tmax, tmean in GOLDEN_TOL:
+        got = compute_features(
+            gold["waveform"].astype(np.float32),
+            FrontendConfig(target_kind=pk.str2parmkind(kind),
+                           num_chans=nch), device=dev)
+        dd = np.abs(got - gold["feat_" + kind])
+        if not (dd.max() < tmax and dd.mean() < tmean):
+            raise AssertionError(f"golden {kind} on the card: max "
+                                 f"{dd.max():.3g} mean {dd.mean():.3g}")
+        log(f"golden fixture {kind} on the card: max |diff| "
+            f"{dd.max():.3g} (< {tmax}), mean {dd.mean():.3g} (< {tmean})")
+    return worst
+
+
+def _slf_text(lat, stem):
+    lat.utterance = stem
+    with tempfile.NamedTemporaryFile("r", suffix=".lat") as f:
+        write_slf(lat, f.name)
+        return f.read()
+
+
+def phase_lattices(sysm, root, net, comp, feats, dev):
+    """HVite -z on the config-4 system: one decode launch per bucket, a
+    lattice for every utterance, rec.mlf byte-identical to the run
+    without -z; for the first bucket, the lattices from the kernel's
+    planes byte-identical to those from the plain version's on the same
+    outp, and to the tool's files. Returns the decode launches."""
+    latdir = os.path.join(root, "lats")
+    mlf = os.path.join(root, "rec_z.mlf")
+    argv = ["-C", os.path.join(root, "hvite.cfg"), "-w", sysm.wdnet, "-H",
+            sysm.hmmdefs, "-i", mlf, "-s", str(LM_SCALE), "-p", str(WORD_PEN),
+            "-z", "lat", "-l", latdir, "-S", sysm.scp, sysm.dict,
+            sysm.hmmlist]
+    os.makedirs(latdir)
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = hvite.run(argv)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = ds.KERNEL.launches
+    if rc != 0:
+        raise RuntimeError(f"HVite -z returned {rc}")
+    n_buckets = -(-N_UTTS // DECODEBATCH)
+    if launches != n_buckets:
+        raise AssertionError(f"HVite -z: decode kernel launched {launches} "
+                             f"times, expected {n_buckets}")
+    lats = sorted(os.listdir(latdir))
+    if len(lats) != N_UTTS:
+        raise AssertionError(f"HVite -z wrote {len(lats)} lattices, "
+                             f"expected {N_UTTS}")
+    with open(mlf, "rb") as f, open(os.path.join(root, "rec.mlf"),
+                                    "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("HVite -z: rec.mlf differs from the run "
+                                 "without -z")
+    order = sorted(range(len(feats)), key=lambda i: feats[i].shape[0])
+    dec_s = lat_s = 0.0
+    n_nodes = n_arcs = 0
+    for i0 in range(0, len(order), DECODEBATCH):
+        idx = order[i0:i0 + DECODEBATCH]
+        lens = [feats[i].shape[0] for i in idx]
+        T = -(-max(lens) // PAD_T) * PAD_T
+        fb = np.zeros((len(idx), T, feats[0].shape[1]), np.float32)
+        for b, i in enumerate(idx):
+            fb[b, :lens[b]] = feats[i]
+        t0 = time.perf_counter()
+        args = decode_args(net, comp, fb, dev)
+        k = ds.decode_scan_cuda(*args)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        lk = dec.lattices_from_planes(net, k[0], k[1], lens, LATTICE_BEAM,
+                                      FRAME_S, LM_SCALE, WORD_PEN)
+        t2 = time.perf_counter()
+        dec_s += t1 - t0
+        lat_s += t2 - t1
+        stems = [os.path.splitext(os.path.basename(sysm.feats[i]))[0]
+                 for i in idx]
+        texts = [_slf_text(lt, st) for lt, st in zip(lk, stems)]
+        n_nodes += sum(len(lt.nodes) for lt in lk)
+        n_arcs += sum(len(lt.arcs) for lt in lk)
+        for st, txt in zip(stems, texts):
+            with open(os.path.join(latdir, f"{st}.lat")) as f:
+                if f.read() != txt:
+                    raise AssertionError(f"{st}: the tool's lattice differs "
+                                         f"from the kernel planes' walk")
+        if i0 == 0:
+            p = ds.decode_scan_plain(*args)
+            lp = dec.lattices_from_planes(net, p[0], p[1], lens,
+                                          LATTICE_BEAM, FRAME_S, LM_SCALE,
+                                          WORD_PEN)
+            plain = [_slf_text(lt, st) for lt, st in zip(lp, stems)]
+            if plain != texts:
+                n = sum(a != b for a, b in zip(plain, texts))
+                raise AssertionError(f"{n} lattices differ between the "
+                                     f"kernel's planes and the plain "
+                                     f"version's")
+            log(f"HVite -z bucket (B={len(idx)}, T={T}): lattices from the "
+                f"kernel's planes == the plain version's, byte for byte")
+    log(f"HVite -z: rc 0 in {wall:.2f} s, decode kernel launches "
+        f"{launches} (buckets {n_buckets}), {len(lats)} lattices "
+        f"({n_nodes} nodes, {n_arcs} arcs), rec.mlf == without -z; the "
+        f"same work outside the tool: decode (OutP + kernel) "
+        f"{dec_s:.3f} s, lattice build (host) {lat_s:.3f} s")
+    return launches
+
+
+def phase_demo(card, dev):
+    """The demo twin through HResults in a temporary directory: 100% word
+    accuracy (run_chain raises otherwise), each tool's wall, and the
+    decode_scan and fb_scans launches of the whole chain."""
+    work = tempfile.mkdtemp(prefix="chip_demo_")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        walls = demo.run_chain(work, quiet=True)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    d_n, f_n = ds.KERNEL.launches, fbs.KERNEL.launches
+    if d_n != 2 or f_n < 7:
+        raise AssertionError(f"demo: decode_scan launched {d_n} times "
+                             f"(expected 2 buckets), fb_scans {f_n} "
+                             f"(expected at least one a HERest pass)")
+    log(f"demo twin on {card}: {demo.PASS_LINE} in {wall:.2f} s; "
+        f"decode_scan launches {d_n}, fb_scans launches {f_n}; "
+        + ", ".join(f"{lab} {s:.3f} s" for lab, s in walls))
+    return d_n, f_n
 
 
 def kernel_entry(name, source, replaces, launches, err, times, bnd,
@@ -1565,6 +1879,8 @@ def main() -> int:
     done("device, builds and random operands")
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        fe_err = phase_hcopy(root, card, dev)
+        done("HCopy")
         t0 = time.perf_counter()
         sysm = write_system(root, n_utts=N_UTTS, seed=0, **SYSTEM)
         log(f"config-4 system written in {time.perf_counter() - t0:.2f} s: "
@@ -1575,6 +1891,7 @@ def main() -> int:
         fb_err2, fb_ops, trainer, utts = phase_real_fb_batch(sysm, dev)
         phase_main_path(sysm, root, dev, mmf=mmf,
                         what="HVite with the re-estimated MMF")
+        z_launches = phase_lattices(sysm, root, net, comp, feats, dev)
         kms, pms = phase_timing(net, comp, feats, card, dev)
         phase_hvite_profile(sysm, root, card, dev)
         fkms, fpms = phase_fb_timing(fb_ops, trainer, utts, card, dev)
@@ -1604,12 +1921,17 @@ def main() -> int:
     xt = phase_big_timing(big, bnet, bbatch, bWE, paths, lops, fails, card,
                           dev)
     done("20k timing")
+    demo_launches = phase_demo(card, dev)
+    done("demo twin")
     dbound = decode_bound(TIMING_B, TIMING_T, net.n_states, net.n_nodes,
                           net.band.shape[0])
     fbound = fb_bound(fb_ops[0], fb_ops[1], fb_ops[4])
     mbound = maxplus_bound("maxplus", *WEs[:, 0].shape)
     tbound = maxplus_bound("tropical", *tr_ops[0].shape)
     xb = xw_bounds(bnet, bWE, rtabs, wtabs, bops, lops)
+    log(f"new paths: HCopy card vs CPU max |diff| {fe_err[0]:.3g}, mean "
+        f"{fe_err[1]:.3g}; HVite -z decode_scan launches {z_launches}; "
+        f"demo decode_scan/fb_scans launches {demo_launches}")
     log(f"chip_smoke: {time.perf_counter() - t_all:.1f} s in all")
     log(card)
     xs = "htk_tpu_torch/csrc/xw_gather.cu"

@@ -47,6 +47,13 @@ batched traceback walks the word-link records on the device and only the
 (B, 3, T) path plane comes back to the host. The reference's hybrid
 (`state_scores`) and adaptation (`model_params`) hooks and its opt-in
 routed leg (`HTKTPU_XW_ROUTE`) are not taken.
+
+Word lattices (HVite -z, and -n's N-best source) on general networks come
+from the same word-end planes: `generate_lattice` (one utterance) and
+`generate_lattice_batch` (a bucket through one decode launch, identical
+output), the walk itself host numpy copied from the reference. Lattices
+on uniform-row nets (the reference's `_lv_lattice_pipeline`) are not
+ported yet and raise HError 8527.
 """
 
 from __future__ import annotations
@@ -941,4 +948,383 @@ def decode_batch(
             pwt_fin = pwtb[b, tr].astype(np.int64)
         out.append(_finalize(net, WEb[b], pwnb[b], pwtb[b], WE_fin,
                              pwn_fin, pwt_fin, tr, lm_scale))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Word lattices (HVite -z, and the N-best source of -n)
+# ---------------------------------------------------------------------------
+#
+# The lattice records are the same word-end planes the 1-best walks: one
+# lattice node per (word node, end time) record with its best predecessor.
+# The planes come from `run_decode_batch` (the decode kernel on the card);
+# everything after that is host numpy copied from htk_tpu/algo/decode.py
+# (`_lattice_from_host_planes`, `_lattice_from_rec`, the dense leg of
+# `_host_lm_lookup`), so the same planes give byte-identical SLF. Lattices
+# on uniform-row (LV) nets, with their factored and trigram LM lookups and
+# the HDECODE: LATPREDS alternative arcs, wait for `_lv_lattice_pipeline`:
+# both generators raise HError 8527 on such nets.
+
+
+# (node, t) record keys pack into one int64 so record lookups become
+# sorted-array searches instead of dict walks: t is bounded by the
+# 15-bit traceback field (auto-chunked above 32767 frames) and node ids
+# by the 17+4-bit word-link row space, so node * 2^22 + (t + 2) cannot
+# collide or overflow
+_REC_PK = np.int64(1) << 22
+
+
+
+def _refuse_uniform(net, who):
+    if net.uniform_width:
+        HError(8527, f"{who}: lattices on uniform-row (LV) networks are "
+                     "not yet ported to htk_tpu_torch")
+
+
+def _host_lm_lookup(net):
+    """Host-side row-to-row LM scores of a general net's dense `trans`,
+    vectorised over int64 arrays (pn, i)."""
+    # cache the f64 view: the (R, R) conversion is ~50 ms at 5k vocab and
+    # this is called once per utterance in the batched lattice walk
+    trans_np = getattr(net, "_trans_np64", None)
+    if trans_np is None:
+        trans_np = net._trans_np64 = np.asarray(net.trans, np.float64)
+    return lambda pn, i: trans_np[pn, i]
+
+
+def generate_lattice(
+    net: DecodeNetwork,
+    comp: CompiledHMMSet,
+    feats: np.ndarray,
+    lm_scale: float = 1.0,
+    word_pen: float = 0.0,
+    lattice_beam: float = 200.0,
+    frame_period_s: float = 0.01,
+    precision: str = "highest",
+    want_result: bool = False,
+    beam: Optional[float] = None,
+    max_active: Optional[int] = None,
+    *,
+    device,
+):
+    """Decode one utterance on `device` and emit a word lattice (HVite -z).
+
+    Matches HVite's lattice semantics: one lattice node per (word node,
+    end time) word-link record, each with its single best predecessor
+    (HRec.c LatFromPaths). Records scoring worse than `lattice_beam`
+    below the best record at the same frame are dropped. General networks
+    only: a uniform-row (LV) net raises HError 8527, as in
+    `generate_lattice_batch`.
+
+    `want_result=True` additionally returns the 1-best DecodeResult from
+    the same recursion, so HVite -z needs one decode, not two. The
+    reference's `state_scores` and `model_params` hooks are not taken.
+    """
+    _refuse_uniform(net, "generate_lattice")
+    T = feats.shape[0]
+    outp_states = _net_outp(net, comp, feats[None], precision, device)
+    (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
+        outp_states, net, lm_scale, word_pen,
+        beam=beam, max_active=max_active,
+    )
+    return _lattice_from_host_planes(
+        net, WEb[0].cpu().numpy(), pwnb[0].cpu().numpy(),
+        pwtb[0].cpu().numpy(),
+        (vb[0].cpu().numpy(), wnb[0].cpu().numpy(), wtb[0].cpu().numpy()),
+        None, T, lattice_beam, frame_period_s, lm_scale, word_pen,
+        want_result)
+
+
+def _lattice_from_host_planes(net, WEs, pwns, pwts, carry, fin, T,
+                              lattice_beam, frame_period_s, lm_scale,
+                              word_pen, want_result):
+    """Lattice (+ optional 1-best) from host-fetched word-end planes.
+
+    `WEs/pwns/pwts` cover scan steps 0..T-1 (step t holds ends at time
+    t-1). Final-frame (T-1) records come from `fin` =
+    (WE_fin, pwn_fin, pwt_fin) when given — the padded-batch case, where
+    they are plane T of the full scan — else from `carry` = (v, wn, wt),
+    the final state vector of an unpadded scan. Shared by the sequential
+    and generic-batched generators (identical output, tested)."""
+    if fin is not None:
+        WE_fin = np.asarray(fin[0], np.float64)
+        pwn_fin = np.asarray(fin[1], np.int64)
+        pwt_fin = np.asarray(fin[2], np.int64)
+    else:
+        v, wn, wt = carry
+        # final-frame records
+        v = np.asarray(v)
+        wn = np.asarray(wn)
+        wt = np.asarray(wt)
+        nos = np.asarray(net.node_of_chain[net.chain_of])
+        e_state = np.asarray(v + np.asarray(net.aE), np.float64)
+        Nn = net.n_nodes
+        WE_fin = np.full(Nn, LZERO, np.float64)
+        pwn_fin = np.full(Nn, -1, np.int64)
+        pwt_fin = np.full(Nn, -1, np.int64)
+        # per-node max over states; stable sort keeps the FIRST state
+        # among equal scores, matching the former strict-greater scan
+        s_ord = np.argsort(-e_state, kind="stable")
+        i_ord = nos[s_ord]
+        _uniq, first = np.unique(i_ord, return_index=True)
+        sel = s_ord[first]
+        win = e_state[sel] > LZERO
+        WE_fin[i_ord[first][win]] = e_state[sel][win]
+        pwn_fin[i_ord[first][win]] = np.asarray(wn, np.int64)[sel][win]
+        pwt_fin[i_ord[first][win]] = np.asarray(wt, np.int64)[sel][win]
+
+    # records table: rec[(node, t)] = (score, pred_node, pred_t) — one
+    # vectorised pass over the (T-1, Nn) plane (the per-frame per-node
+    # Python loop dominated sequential lattice generation); np.nonzero's
+    # row-major order IS the former (t asc, node asc) insertion order
+    rec = {}
+    rows = np.asarray(WEs[1:T])  # native plane dtype: beam comparisons
+    # round exactly like the former per-element loop (and the batch path)
+    best = rows.max(axis=1, keepdims=True) if T > 1 else rows
+    mask = (best > LSMALL) & (rows > LSMALL) & (rows >= best - lattice_beam)
+    tt, ii = np.nonzero(mask)
+    rec.update(zip(
+        zip(ii.tolist(), tt.tolist()),
+        zip(rows[tt, ii].tolist(),
+            np.asarray(pwns)[tt + 1, ii].tolist(),
+            np.asarray(pwts)[tt + 1, ii].tolist())))
+    bestf = WE_fin.max()
+    fkeep = np.nonzero((WE_fin > LSMALL)
+                       & (WE_fin >= bestf - lattice_beam))[0]
+    for i_ in fkeep.tolist():
+        rec[(i_, T - 1)] = (float(WE_fin[i_]), int(pwn_fin[i_]),
+                            int(pwt_fin[i_]))
+    res = None
+    if want_result:
+        res = _finalize(net, WEs, pwns, pwts, WE_fin.astype(np.float64),
+                        pwn_fin.astype(np.int64), pwt_fin.astype(np.int64),
+                        T, lm_scale)
+    if not rec:
+        return (None, res) if want_result else None
+
+    def resolve(pn, pt):
+        score = float(WEs[pt + 1, pn]) if pt < T - 1 else float(WE_fin[pn])
+        if score <= LSMALL:
+            return None
+        ppn = int(pwns[pt + 1, pn]) if pt < T - 1 else int(pwn_fin[pn])
+        ppt = int(pwts[pt + 1, pn]) if pt < T - 1 else int(pwt_fin[pn])
+        return score, ppn, ppt
+
+    lat = _lattice_from_rec(net, rec, resolve, T, frame_period_s,
+                            lm_scale, word_pen)
+    return (lat, res) if want_result else lat
+
+
+
+def _lattice_from_rec(net, rec, resolve, T_real, frame_period_s,
+                      lm_scale, word_pen):
+    """Build a Lattice from beam-kept word-end records, each with its
+    single best predecessor (HRec.c LatFromPaths).
+
+    `rec`: {(node, t): (score, pred_node, pred_t)} in deterministic
+    insertion order; `resolve(pn, pt)` recovers a record that the beam
+    dropped (returns (score, ppn, ppt) or None when unavailable). Shared
+    by the sequential and batched lattice generators so both emit
+    byte-identical SLF for identical record sets.
+    """
+    from ..io.slf import Lattice, LArc, LNode, NULL_WORD
+
+    _PK = _REC_PK
+
+    def _rec_arrays():
+        # rec INSERTION order — it defines arc emission order
+        ka = np.asarray(list(rec), np.int64).reshape(len(rec), 2)
+        va = np.asarray(list(rec.values()), np.float64).reshape(
+            len(rec), 3)
+        return (ka[:, 0], ka[:, 1], va[:, 0],
+                va[:, 1].astype(np.int64), va[:, 2].astype(np.int64))
+
+    ii, tt_, sc, pn_a, pt_a = _rec_arrays()
+    n = ii.size
+    pk = ii * _PK + (tt_ + 2)
+    srt = np.argsort(pk, kind="stable")
+    pks = pk[srt]
+
+    def _pred_rows(m):
+        # rows (in rec insertion order) holding each m-row's (pn, pt)
+        pos = np.searchsorted(pks, pn_a[m] * _PK + (pt_a[m] + 2))
+        return pos, srt
+
+    # Transitively retain predecessor records referenced by survivors:
+    # a beam keeps the best ends per frame, but a kept record's traceback
+    # may point at a pruned (pn, pt) — HTK's LatFromPaths never emits arcs
+    # to pruned predecessors, so resurrect them from the word-end planes
+    # (their scores are still there) rather than rerouting to the start.
+    # Breadth-first waves: each wave's missing predecessors resolve,
+    # then their own predecessors form the next wave. The seed wave is
+    # found vectorised.
+    m_ref = pn_a >= 0
+    if m_ref.any():
+        pos, _ = _pred_rows(m_ref)
+        ok = (pos < n) & (pks[np.minimum(pos, n - 1)]
+                          == pn_a[m_ref] * _PK + (pt_a[m_ref] + 2))
+        miss = np.nonzero(m_ref)[0][~ok]
+    else:
+        miss = np.empty(0, np.int64)
+    if miss.size:
+        keys0 = list(rec)
+        frontier = [keys0[j] for j in miss.tolist()]
+        while frontier:
+            need = []
+            referrers: dict = {}
+            for key in frontier:
+                _, pn, pt = rec[key]
+                if pn < 0 or (pn, pt) in rec:
+                    continue
+                if (pn, pt) not in referrers:
+                    referrers[(pn, pt)] = []
+                    need.append((pn, pt))
+                referrers[(pn, pt)].append(key)
+            if not need:
+                break
+            frontier = []
+            for (pn, pt) in need:
+                got = resolve(pn, pt)
+                if got is None:
+                    # genuinely unavailable: sever so the arc is dropped,
+                    # not misattached to the utterance start
+                    for key in referrers[(pn, pt)]:
+                        rec[key] = (rec[key][0], -1, -2)
+                    continue
+                rec[(pn, pt)] = got
+                frontier.append((pn, pt))
+        # resurrection extended/rewrote rec — rebuild the arrays
+        ii, tt_, sc, pn_a, pt_a = _rec_arrays()
+        n = ii.size
+        pk = ii * _PK + (tt_ + 2)
+        srt = np.argsort(pk, kind="stable")
+        pks = pk[srt]
+
+    lat = Lattice(lmscale=lm_scale, wdpenalty=word_pen)
+    start_id = 0
+    lat.nodes.append(LNode(id=0, time=0.0, word=NULL_WORD))
+    end_id = 1
+    lat.nodes.append(
+        LNode(id=1, time=T_real * frame_period_s, word=NULL_WORD))
+    # nodes in (t, i) order, ids assigned by rank (same order the former
+    # sorted() loop produced); node_id lookups become array indexing
+    nsort = np.lexsort((ii, tt_))
+    nid_a = np.empty(n, np.int64)
+    nid_a[nsort] = 2 + np.arange(n, dtype=np.int64)
+    node_words = net.node_words
+    nodes = lat.nodes
+    for nid0, (i_, t_) in enumerate(zip(ii[nsort].tolist(),
+                                        tt_[nsort].tolist())):
+        nodes.append(LNode(id=nid0 + 2, time=(t_ + 1) * frame_period_s,
+                           word=node_words[i_]))
+    # arcs: all score/LM arithmetic vectorised over the record arrays,
+    # one lean loop only for LArc construction (same arc order and f64
+    # arithmetic as the former per-record loop)
+    end_exit = np.asarray(net.end_exit, np.float64)
+    m_start = pn_a < 0
+    m_sever = m_start & (pt_a == -2)
+    m_int = ~m_start
+
+    lm_a = np.zeros(n, np.float64)
+    ac_a = np.zeros(n, np.float64)
+    src_a = np.full(n, start_id, np.int64)
+    if m_start.any():
+        start_entry = np.asarray(net.start_entry, np.float64)
+        lm_a[m_start] = start_entry[ii[m_start]]
+        ac_a[m_start] = sc[m_start] - lm_a[m_start] * lm_scale
+    if m_int.any():
+        pos, _ = _pred_rows(m_int)
+        prow = srt[pos]  # every m_int predecessor is present by now
+        lm_a[m_int] = _host_lm_lookup(net)(pn_a[m_int], ii[m_int])
+        ac_a[m_int] = (sc[m_int] - sc[prow] - lm_a[m_int] * lm_scale
+                       - word_pen)
+        src_a[m_int] = nid_a[prow]
+    m_fin = (tt_ == T_real - 1) & (end_exit[ii] > LSMALL)
+    fin_lm = end_exit[ii]
+
+    aid = 0
+    arcs = lat.arcs
+    for sev_j, fin_j, src_j, nid_j, ac_j, lm_j, flm_j in zip(
+            m_sever.tolist(), m_fin.tolist(), src_a.tolist(),
+            nid_a.tolist(), ac_a.tolist(), lm_a.tolist(),
+            fin_lm.tolist()):
+        if not sev_j:
+            arcs.append(LArc(id=aid, start=src_j, end=nid_j,
+                             aclike=ac_j, lmlike=lm_j))
+            aid += 1
+        if fin_j:
+            arcs.append(LArc(id=aid, start=nid_j, end=end_id,
+                             aclike=0.0, lmlike=flm_j))
+            aid += 1
+
+    return lat
+
+
+def generate_lattice_batch(
+    net: DecodeNetwork,
+    comp: CompiledHMMSet,
+    feats_list: List[np.ndarray],
+    lm_scale: float = 1.0,
+    word_pen: float = 0.0,
+    lattice_beam: float = 200.0,
+    frame_period_s: float = 0.01,
+    precision: str = "highest",
+    beam: Optional[float] = None,
+    max_active: Optional[int] = None,
+    pad_to: int = 128,
+    want_results: bool = False,
+    *,
+    device,
+):
+    """Batched lattice generation on `device`: a bucket of utterances
+    through ONE decode launch (the HVite -z bucket path).
+
+    General networks only: on a uniform-row (LV) net it raises HError
+    8527, because the reference's compacted-record LV pipeline
+    (`_lv_lattice_pipeline`) is not ported yet. Identical lattices to the
+    sequential `generate_lattice` per utterance. `want_results=True`
+    returns (lattice, DecodeResult) pairs, the 1-best walked from the
+    same planes.
+    """
+    _refuse_uniform(net, "generate_lattice_batch")
+    B = len(feats_list)
+    lens = [int(f.shape[0]) for f in feats_list]
+    T = ((max(lens) + pad_to - 1) // pad_to) * pad_to
+    D = feats_list[0].shape[1]
+    fb = np.zeros((B, T, D), np.float32)
+    for b, f in enumerate(feats_list):
+        fb[b, : lens[b]] = f
+    outp = _net_outp(net, comp, fb, precision, device)
+    (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
+        outp, net, lm_scale, word_pen, beam=beam, max_active=max_active)
+    return lattices_from_planes(
+        net, (vb, wnb, wtb), (WEb, pwnb, pwtb), lens, lattice_beam,
+        frame_period_s, lm_scale, word_pen, want_results)
+
+
+def lattices_from_planes(net, carry, planes, lens, lattice_beam,
+                         frame_period_s, lm_scale, word_pen,
+                         want_results=False):
+    """Per-utterance lattices from one padded scan's output: `carry` =
+    (v, wn, wt) (B, Ns) and `planes` = (WE, pwn, pwt) (B, T, Nn), as
+    `run_decode_batch` returns them, and each utterance's real frame
+    count in `lens` (htk_tpu/algo/decode.py : the walk of
+    `_generate_lattice_batch_generic`). The plane slices at each
+    utterance's own t_real are exactly the unpadded planes."""
+    vb, wnb, wtb = (x.cpu().numpy() for x in carry)
+    WEb, pwnb, pwtb = (x.cpu().numpy() for x in planes)
+    T = WEb.shape[1]
+    out = []
+    for b, tr in enumerate(lens):
+        if tr == T:
+            carry_b, fin = (vb[b], wnb[b], wtb[b]), None
+        else:
+            # ends at time tr-1 were emitted by scan step tr
+            carry_b, fin = None, (WEb[b, tr], pwnb[b, tr], pwtb[b, tr])
+        r = _lattice_from_host_planes(
+            net, WEb[b, :tr], pwnb[b, :tr], pwtb[b, :tr], carry_b, fin,
+            tr, lattice_beam, frame_period_s, lm_scale, word_pen,
+            want_results)
+        out.append((r if isinstance(r, tuple) else (r, None))
+                   if want_results else r)
     return out

@@ -18,18 +18,22 @@ Usage: python -m htk_tpu_torch.tools.hvite [options] dictFile hmmList testFiles.
               on general word networks, not read by the decoder; the
               retry ladder (HREC: PRUNERETRYINC) runs as in htk_tpu
   -o flags    output format flags (as htk_tpu)
+  -z ext      write word lattices (one recursion shared with the 1-best)
+  -n i N      N-best output from the lattice
   -T n        trace (prints the decode device)
 
-Not yet ported, each refused with HError 3290: alignment (-a), lattices
-(-z), N-best (-n), input transforms (-J, and -k with a model-set input
-transform), hybrid ANN decoding (-N), discrete sets, and live audio.
+Not yet ported, each refused with HError 3290: alignment (-a), input
+transforms (-J, and -k with a model-set input transform), hybrid ANN
+decoding (-N), discrete sets, and live audio.
 
 Config: HNET: FORCECXTEXP/ALLOWXWRDEXP/CFPHONES/SHAREINTERIORS,
-HREC: DECODEBATCH (recognition batch size, default 8), PRUNERETRYINC,
-HTKTPU: PRECISION, HTKTPU: PROFILE. Several files decode in length-sorted
-buckets of DECODEBATCH utterances, one decode launch per bucket; a single
-file takes the per-utterance path. The device is the CUDA card, or the
-CPU when HTK_TPU_TORCH_DEVICE=cpu asks for it (tools/_common.py).
+HREC: DECODEBATCH (recognition batch size, default 8), LATTICEBEAM,
+PRUNERETRYINC, HTKTPU: PRECISION, HTKTPU: PROFILE. Several files decode
+in length-sorted buckets of DECODEBATCH utterances, one decode launch per
+bucket, and with -z each bucket's lattices and 1-best come from that one
+launch; a single file, and -n, take the per-utterance path. The device is
+the CUDA card, or the CPU when HTK_TPU_TORCH_DEVICE=cpu asks for it
+(tools/_common.py).
 """
 
 from __future__ import annotations
@@ -39,12 +43,14 @@ from typing import List, Optional
 
 import numpy as np
 
-from ..algo.decode import decode, decode_batch
+from ..algo.decode import (decode, decode_batch, generate_lattice,
+                           generate_lattice_batch)
+from ..algo.latops import nbest_paths
 from ..algo.net import compile_network, word_internal_phone_map
 from ..io.dictionary import read_dict
 from ..io.mlf import MLF, Label, Transcription, save_label_file
 from ..io.mmf import load_hmm_list, load_mmf
-from ..io.slf import read_slf
+from ..io.slf import read_slf, write_slf
 from ..models.hmmset import compile_hmmset
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
@@ -73,7 +79,7 @@ OPTS = {
     "b": Option("b", 1, "boundary word"),
     "o": Option("o", 1, "output format flags: N normalise scores, "
                 "S no scores, T no times, W no words (-m), M no models"),
-    "n": Option("n", 2, "n-best (accepted)", typ=int),
+    "n": Option("n", 2, "n-best", typ=int),
     "z": Option("z", 1, "output lattices with this extension"),
     "q": Option("q", 1, "lattice output format flags (accepted)"),
     "J": Option("J", 1, "input transform dir", repeatable=True),
@@ -84,8 +90,6 @@ OPTS = {
 
 _NOT_PORTED = {
     "a": "alignment",
-    "z": "lattice output",
-    "n": "N-best output",
     "J": "input transforms",
     "N": "hybrid ANN decoding",
 }
@@ -116,6 +120,30 @@ def _transcription(res, period) -> Transcription:
     for w, (t0, t1) in zip(res.words, res.times):
         tr.alternatives[0].append(Label(
             name=w, start=t0 * period, end=(t1 + 1) * period))
+    return tr
+
+
+def _nbest_transcription(lat, nbest, vocab, logical, trace):
+    """N-best sentences from the utterance's lattice (HVite -n), mapped
+    through the dictionary's output symbols ('' = suppressed)."""
+    alts = nbest_paths(lat, nbest, lmscale=1.0, wdpenalty=0.0) if lat else []
+
+    def outsym(w):
+        wd = vocab.get(w)
+        if wd is None or wd.prons[0].out_sym is None:
+            return w
+        return wd.prons[0].out_sym
+
+    tr = Transcription(alternatives=[])
+    for _s, path in alts:
+        tr.alternatives.append([Label(name=outsym(w), end=int(t * 1e7))
+                                for w, t in path if outsym(w)])
+    if not tr.alternatives:
+        tr.alternatives = [[]]
+    if trace:
+        for k, (s, path) in enumerate(alts):
+            print(f"{logical} [{k + 1}]: "
+                  f"{' '.join(w for w, _t in path)} [{s:.2f}]")
     return tr
 
 
@@ -178,7 +206,9 @@ def run(argv: List[str]) -> int:
     has_cd = any("-" in n or "+" in n for n in comp.names)
     if force_x or (allow_x and has_cd):
         cfp = (cfg.str_("CFPHONES", "sp", module="HNET") or "sp").split()
-        share = bool(cfg.bool_("SHAREINTERIORS", True, module="HNET"))
+        # lattices and n-best need whole-word nodes: no shared interiors
+        share = (bool(cfg.bool_("SHAREINTERIORS", True, module="HNET"))
+                 and not ta.get("z") and not ta.has("n"))
         net = compile_network(lat, vocab, comp, cross_word=True,
                               cf_phones=cfp, share_interiors=share)
         if ta.trace and share:
@@ -193,32 +223,73 @@ def run(argv: List[str]) -> int:
             f"{net.n_states} states"
         )
 
+    lat_ext = ta.get("z")
+    lat_beam = cfg.flt_("LATTICEBEAM", 200.0, module="HREC") or 200.0
+    nbest = 0
+    if ta.has("n"):
+        v = ta.get("n")
+        nbest = int(v[1] if isinstance(v, tuple) else v)
+    want_lat = bool(lat_ext) or nbest > 1
+
     entries, featl = [], []
     for fn in files:
         data, _p, _k, e = open_speech_file(fn, cfg)
         entries.append(e)
         featl.append(np.asarray(data))
     results: List = [None] * len(featl)
+    lats: List = [None] * len(featl)
+
+    def write_lat(j, lt):
+        stem = os.path.splitext(os.path.basename(entries[j].logical))[0]
+        lt.utterance = stem
+        write_slf(lt, os.path.join(out_dir or ".", f"{stem}.{lat_ext}"))
+
+    def decode_one(j, b, ma, first):
+        """One utterance's decode (with its lattice under -z/-n)."""
+        if not want_lat:
+            return decode(net, comp, featl[j], lm_scale, word_pen,
+                          precision=prec, beam=b, max_active=ma,
+                          device=device)
+        lt, r = generate_lattice(
+            net, comp, featl[j], lm_scale, word_pen, lattice_beam=lat_beam,
+            frame_period_s=period / 1e7, precision=prec, want_result=True,
+            beam=b, max_active=ma, device=device)
+        lats[j] = lt
+        # a retry writes its lattice only with a recovered 1-best
+        if lat_ext and lt is not None and (first or r is not None):
+            write_lat(j, lt)
+        return r
+
     with maybe_profile(cfg, "HVite"):
-        if len(featl) > 1:
+        if len(featl) > 1 and not ta.has("n"):
             # batched recognition: one decode launch per length-sorted
-            # bucket, identical results to the per-utterance path
+            # bucket, identical results to the per-utterance path; with
+            # -z the bucket's lattices come from the same launch
             order = sorted(range(len(featl)),
                            key=lambda i: featl[i].shape[0])
             bsz = int(cfg.int_("DECODEBATCH", 8, module="HREC") or 8)
             for i0 in range(0, len(order), bsz):
                 idx = order[i0 : i0 + bsz]
-                rs = decode_batch(net, comp, [featl[j] for j in idx],
-                                  lm_scale, word_pen, precision=prec,
-                                  beam=gen_beam, max_active=max_act,
-                                  device=device)
-                for j, r in zip(idx, rs):
-                    results[j] = r
+                fl = [featl[j] for j in idx]
+                if lat_ext:
+                    prs = generate_lattice_batch(
+                        net, comp, fl, lm_scale, word_pen,
+                        lattice_beam=lat_beam, frame_period_s=period / 1e7,
+                        precision=prec, beam=gen_beam, max_active=max_act,
+                        want_results=True, device=device)
+                    for j, (lt, r) in zip(idx, prs):
+                        results[j] = r
+                        if lt is not None:
+                            write_lat(j, lt)
+                else:
+                    rs = decode_batch(net, comp, fl, lm_scale, word_pen,
+                                      precision=prec, beam=gen_beam,
+                                      max_active=max_act, device=device)
+                    for j, r in zip(idx, rs):
+                        results[j] = r
         else:
-            results = [decode(net, comp, f, lm_scale, word_pen,
-                              precision=prec, beam=gen_beam,
-                              max_active=max_act, device=device)
-                       for f in featl]
+            results = [decode_one(j, gen_beam, max_act, True)
+                       for j in range(len(featl))]
     if gen_beam is not None or max_act is not None:
         for j, r in enumerate(results):
             if r is not None:
@@ -227,16 +298,17 @@ def run(argv: List[str]) -> int:
                 HRError(8525, "HVite: no tokens for %s under pruning; "
                               "retrying at %s", entries[j].logical,
                         "unpruned" if b is None else f"beam {b:.0f}")
-                r = decode(net, comp, featl[j], lm_scale, word_pen,
-                           precision=prec, beam=b, max_active=ma,
-                           device=device)
+                r = decode_one(j, b, ma, False)
                 if r is not None:
                     results[j] = r
                     break
-    for e, res in zip(entries, results):
+    for j, (e, res) in enumerate(zip(entries, results)):
         if res is None:
             HRError(8522, "HVite: no tokens survived for %s", e.logical)
             tr = Transcription(alternatives=[[]])
+        elif nbest > 1:
+            tr = _nbest_transcription(lats[j], nbest, vocab, e.logical,
+                                      ta.trace)
         else:
             tr = _transcription(res, period)
             if ta.trace:
