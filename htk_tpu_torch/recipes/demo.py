@@ -1,7 +1,8 @@
-"""The demo chain through HResults, on htk_tpu_torch.
+"""The demo chain through HResults and the trigram HDecode stage, on
+htk_tpu_torch.
 
-The twin of `recipes/demo/run_demo.sh:24-107` (which drives the console
-scripts bound to htk_tpu). It writes the corpus of
+The twin of `recipes/demo/run_demo.sh:24-107` and `:123-152` (which drive
+the console scripts bound to htk_tpu). It writes the corpus of
 `recipes/demo/make_corpus.py` (10 utterances, seed 21: the same words,
 dict, wlist, MLFs and proto) with the port's own synthesizer
 (recipes/speech.py), then runs every tool of the chain in-process through
@@ -11,14 +12,16 @@ its `main`, with run_demo.sh's arguments:
   HLEd WB/TC -> HHEd CL/TI -> HERest x2 -> HHEd TB tying -> HERest
   HHEd MU (mixtures) -> HERest
   HBuild -> HVite -z (lattices) -> HResults      [must be 100%]
+  words.txt -> LBuild -n 3 -> dict_hd -> HDecode (trigram) -> HResults
+                                                 [must reach Acc=100.00]
 
-The two inline Python steps of run_demo.sh are functions here:
-`clone_monophones` (:31-38) and `write_triphone_list` (:50-57). The
-device work (the frontend, HERest's forward-backward, HVite's decode)
+The inline Python and shell steps of run_demo.sh are functions here:
+`clone_monophones` (:31-38), `write_triphone_list` (:50-57),
+`write_word_text` (:124-135) and `_hd_dict` (:140-149). The device work
+(the frontend, HERest's forward-backward, HVite's and HDecode's decodes)
 runs on `tools/_common.default_device()`: the CUDA card, or the CPU when
-HTK_TPU_TORCH_DEVICE=cpu asks for it. The stages after HResults (MMI,
-the DNN hybrid, trigram HDecode) wait for their modules; the run says so
-and stops.
+HTK_TPU_TORCH_DEVICE=cpu asks for it. The stages between (MMI, the DNN
+hybrid, run_demo.sh:108-121) wait for their modules; the run says so.
 
 Usage: python -m htk_tpu_torch.recipes.demo [workdir]
 """
@@ -37,17 +40,17 @@ import numpy as np
 
 from ..io.mmf import load_mmf, save_mmf
 from ..models.proto import clone_proto, make_proto
-from ..tools import (hbuild, hcompv, hcopy, herest, hhed, hled, hresults,
-                     hvite)
+from ..tools import (hbuild, hcompv, hcopy, hdecode, herest, hhed, hled,
+                     hresults, hvite, lbuild)
 from ..tools._common import default_device
 from .speech import synth_words, write_wav
 
 WORDS = {"ONE": ["aa", "iy"], "TWO": ["iy", "uw"],
          "THREE": ["uw", "aa", "iy"]}
 PASS_LINE = "WORD: %Corr=100.00, Acc=100.00"
+HDECODE_PASS = "Acc=100.00"  # run_demo.sh:151's check of the HDecode stage
 WAITING = ("demo: stages that wait for their port: MMI (HMMIRest, ROADMAP "
-           "Queue 1 #3), the DNN hybrid (HNTrainSGD/HVite -N, #5), "
-           "trigram HDecode (#2)")
+           "Queue 1 #3), the DNN hybrid (HNTrainSGD/HVite -N, #5)")
 
 
 def _vowels(words) -> List[str]:
@@ -144,6 +147,31 @@ def write_triphone_list() -> None:
         f.write("\n".join(sorted(names)) + "\n")
 
 
+def write_word_text() -> None:
+    """run_demo.sh:124-135: each utterance of words.mlf as one line of
+    words.txt (LBuild's training text)."""
+    with open("words.mlf") as f:
+        lines = f.read().splitlines()
+    sents, cur = [], []
+    for ln in lines[1:]:
+        if ln.startswith('"'):
+            cur = []
+        elif ln == ".":
+            sents.append(" ".join(cur))
+        else:
+            cur.append(ln)
+    with open("words.txt", "w") as f:
+        f.write("\n".join(sents) + "\n")
+
+
+def _hd_dict(words) -> str:
+    """dict_hd (run_demo.sh:140-149): each word's pronunciation, and with
+    a trailing silence, plus the <s>/</s> silence entries (STARTWORD /
+    ENDWORD) that model the utterance-edge silence."""
+    return "".join(f"{w}  {' '.join(p)}\n{w}  {' '.join(p)} sil\n"
+                   for w, p in words.items()) + "<s> []  sil\n</s> []  sil\n"
+
+
 def _write(path: str, text: str) -> Callable[[], None]:
     def step():
         with open(path, "w") as f:
@@ -151,9 +179,12 @@ def _write(path: str, text: str) -> Callable[[], None]:
     return step
 
 
-def stages(vowels=("aa", "iy", "uw")) -> List[Tuple[str, object, object]]:
+def stages(vowels=("aa", "iy", "uw"), words=None
+           ) -> List[Tuple[str, object, object]]:
     """The chain as (label, tool module or None, argv or function), with
-    the tying scripts written for `vowels`."""
+    the tying scripts written for `vowels` and HDecode's dictionary for
+    `words` (word -> vowels; the demo's WORDS by default)."""
+    words = WORDS if words is None else words
     herest_mono = [
         (f"HERest mono {it}", herest,
          ["-C", "cfg", "-T", "1", "-I", "phones.mlf", "-H",
@@ -196,7 +227,19 @@ def stages(vowels=("aa", "iy", "uw")) -> List[Tuple[str, object, object]]:
                              "tied2/hmmdefs", "-S", "train.scp", "dict",
                              "triphones"]),
         ("HResults", hresults, ["-I", "words.mlf", "triphones", "rec.mlf"]),
+        ("words.txt", None, write_word_text),
+        ("LBuild", lbuild, ["-n", "3", "wmap", "lm3.arpa", "words.txt"]),
+        ("dict_hd", None, _write("dict_hd", _hd_dict(words))),
+        ("HDecode", hdecode, ["-w", "lm3.arpa", "-p", "-10", "-i",
+                              "rechd.mlf", "-H", "tied2/hmmdefs", "-S",
+                              "train.scp", "dict_hd", "triphones"]),
+        ("HResults HDecode", hresults, ["-I", "words.mlf", "triphones",
+                                        "rechd.mlf"]),
     ]
+
+
+# what each scoring stage's report must hold (run_demo.sh:105, :151)
+PASS = {"HResults": PASS_LINE, "HResults HDecode": HDECODE_PASS}
 
 
 _DIRS = ("tri0", "tri1", "tri2", "tri3", "tied1", "mix1", "tied2", "lats")
@@ -205,8 +248,9 @@ _DIRS = ("tri0", "tri1", "tri2", "tri3", "tied1", "mix1", "tied2", "lats")
 def run_chain(workdir: str, quiet: bool = False) -> List[Tuple[str, float]]:
     """Write the corpus into `workdir` and run the chain there; returns
     each stage's (label, wall seconds). Raises RuntimeError when a tool
-    exits non-zero or HResults does not report 100% word accuracy.
-    `quiet` keeps the tools' own output off stdout (HResults' report is
+    exits non-zero, HResults does not report 100% word accuracy for
+    HVite, or the HDecode stage's word accuracy is not 100%. `quiet`
+    keeps the tools' own output off stdout (HResults' reports are
     printed either way)."""
     old = os.getcwd()
     os.makedirs(workdir, exist_ok=True)
@@ -218,7 +262,6 @@ def run_chain(workdir: str, quiet: bool = False) -> List[Tuple[str, float]]:
         walls.append(("corpus", time.perf_counter() - t0))
         for d in _DIRS + ("hmm1", "hmm2", "hmm3"):
             os.makedirs(d, exist_ok=True)
-        report = ""
         for label, tool, what in stages():
             out = io.StringIO()
             t0 = time.perf_counter()
@@ -234,11 +277,13 @@ def run_chain(workdir: str, quiet: bool = False) -> List[Tuple[str, float]]:
                 raise RuntimeError(f"demo: {label} exited with {rc}")
             if tool is hresults:
                 report = out.getvalue()
-        with open("results.txt", "w") as f:
-            f.write(report)
-        print(report, end="")
-        if PASS_LINE not in report:
-            raise RuntimeError("DEMO FAILED: tied-triphone decode not 100%")
+                print(report, end="")
+                if label == "HResults":
+                    with open("results.txt", "w") as f:
+                        f.write(report)
+                if PASS[label] not in report:
+                    raise RuntimeError(f"DEMO FAILED: {label}: not "
+                                       f"{PASS[label]}")
     finally:
         os.chdir(old)
     return walls
@@ -251,7 +296,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     walls = run_chain(work)
     for label, s in walls:
         print(f"demo: {label:<16s} {s:9.3f} s")
-    print("== DEMO PASSED through HResults (100% word accuracy)")
+    print("== DEMO PASSED through HResults and HDecode (100% word "
+          "accuracy)")
     print(WAITING)
     return 0
 

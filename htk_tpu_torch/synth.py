@@ -279,6 +279,18 @@ def write_system(root: str, n_words: int = 1000, n_phones: int = 40,
     return sysm
 
 
+def write_word_mlf(sysm: System, path: str) -> str:
+    """The utterances' word transcriptions as a word-level MLF (HVite -a's
+    input); returns `path`."""
+    with open(path, "w") as f:
+        f.write("#!MLF!#\n")
+        for p, seq in zip(sysm.feats, sysm.transcripts):
+            stem = os.path.splitext(os.path.basename(p))[0]
+            f.write(f'"*/{stem}.lab"\n' + "".join(f"{w}\n" for w in seq)
+                    + ".\n")
+    return path
+
+
 class LVSystem(NamedTuple):
     """An in-memory LV system and what its utterances say."""
 

@@ -16,8 +16,7 @@ Usage: HCompV [options] hmmfile trainfiles...
 
 Copied from `htk_tpu/tools/hcompv.py` into the PyTorch port: host code, numpy
 only, behaviour unchanged. The port cannot import htk_tpu, whose
-utils package pulls in JAX. `collect_segments` is copied beside it from
-`htk_tpu/tools/hinit.py`, where the HInit tool keeps it.
+utils package pulls in JAX.
 """
 
 from __future__ import annotations
@@ -27,11 +26,11 @@ from typing import List
 
 import numpy as np
 
-from ..io.mlf import find_labels
 from ..io.mmf import load_mmf, save_mmf
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError
 from ._common import open_speech_file
+from .hinit import collect_segments
 
 USAGE = "Usage: HCompV [options] hmmfile trainfiles..."
 
@@ -46,30 +45,6 @@ OPTS = {
     "X": Option("X", 1, "label extension"),
     "v": Option("v", 1, "minimum variance", typ=float),
 }
-
-
-def collect_segments(files, cfg, label, mlfs, label_dir, label_ext, period_hint):
-    """Per-file feature segments for the target label (HInit main loop).
-
-    Copied from `htk_tpu/tools/hinit.py`."""
-    segs = []
-    for fn in files:
-        data, period, kind, e = open_speech_file(fn, cfg)
-        if label is None:
-            segs.append(data)
-            continue
-        tr = find_labels(e.logical, mlfs, label_dir, label_ext)
-        for lab in tr.labels:
-            if lab.name != label:
-                continue
-            if lab.start is None or lab.end is None:
-                segs.append(data)
-                continue
-            t0 = int(lab.start // period)
-            t1 = int(lab.end // period)
-            if t1 > t0:
-                segs.append(data[t0 : min(t1, data.shape[0])])
-    return segs
 
 
 def run(argv: List[str]) -> int:

@@ -1,30 +1,37 @@
-"""HVite — Viterbi word recognition over a word network, in torch.
+"""HVite — Viterbi word recognition and forced alignment, in torch.
 
-The PyTorch counterpart of `htk_tpu/tools/hvite.py`'s recognition path
-(`HTKTools/HVite.c`): the word network (-w SLF) expands with the
-dictionary and HMM set (algo/net.compile_network) and every utterance
-decodes with the token-passing recursion (algo/decode), whose frame loop
-is the hand-written CUDA kernel on the card.
+The PyTorch counterpart of `htk_tpu/tools/hvite.py` (`HTKTools/HVite.c`):
+recognition mode expands a word network (-w SLF) with the dictionary and
+HMM set (algo/net.compile_network) and every utterance decodes with the
+token-passing recursion (algo/decode), whose frame loop is the
+hand-written CUDA kernel on the card; alignment mode (-a) builds a
+composite HMM from each utterance's word transcription (expanded through
+the dictionary) and runs the max-plus alignment scan (algo/viterbi),
+emitting phone- or word-level label files.
 
 Usage: python -m htk_tpu_torch.tools.hvite [options] dictFile hmmList testFiles...
 
   -w netfile  recognition from word network (SLF)
+  -a          align from word transcriptions (-I mlf / -L dir / -X ext)
+  -m          output model (phone) alignment with times
+  -b word     boundary word inserted around alignment (e.g. silence)
   -s f        grammar/LM scale factor          -p f  word insertion penalty
   -r f        pronunciation scale (accepted)
-  -i mlf      output recognised labels to MLF
+  -i mlf      output recognised/aligned labels to MLF
   -l dir / -y ext   output label dir / extension
   -H mmf      load HMM macro file (repeatable)
   -t f / -u i genBeam / max active models: accepted and, as in htk_tpu
               on general word networks, not read by the decoder; the
               retry ladder (HREC: PRUNERETRYINC) runs as in htk_tpu
   -o flags    output format flags (as htk_tpu)
-  -z ext      write word lattices (one recursion shared with the 1-best)
+  -z ext      write word lattices (one recursion shared with the 1-best);
+              with -a, the aligned 1-best as a linear numerator lattice
   -n i N      N-best output from the lattice
   -T n        trace (prints the decode device)
 
-Not yet ported, each refused with HError 3290: alignment (-a), input
-transforms (-J, and -k with a model-set input transform), hybrid ANN
-decoding (-N), discrete sets, and live audio.
+Not yet ported, each refused with HError 3290: input transforms (-J, and
+-k with a model-set input transform), hybrid ANN decoding (-N), discrete
+sets, and live audio.
 
 Config: HNET: FORCECXTEXP/ALLOWXWRDEXP/CFPHONES/SHAREINTERIORS,
 HREC: DECODEBATCH (recognition batch size, default 8), LATTICEBEAM,
@@ -43,14 +50,16 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..algo.composite import build_composite
 from ..algo.decode import (decode, decode_batch, generate_lattice,
                            generate_lattice_batch)
 from ..algo.latops import nbest_paths
 from ..algo.net import compile_network, word_internal_phone_map
+from ..algo.viterbi import align
 from ..io.dictionary import read_dict
-from ..io.mlf import MLF, Label, Transcription, save_label_file
+from ..io.mlf import MLF, Label, Transcription, find_labels, save_label_file
 from ..io.mmf import load_hmm_list, load_mmf
-from ..io.slf import read_slf, write_slf
+from ..io.slf import NULL_WORD, LArc, Lattice, LNode, read_slf, write_slf
 from ..models.hmmset import compile_hmmset
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
@@ -89,7 +98,6 @@ OPTS = {
 }
 
 _NOT_PORTED = {
-    "a": "alignment",
     "J": "input transforms",
     "N": "hybrid ANN decoding",
 }
@@ -191,12 +199,21 @@ def run(argv: List[str]) -> int:
     period = int(cfg.flt_("TARGETRATE", 100000.0, module="HPARM"))
 
     out_mlf = MLF() if out_mlf_path else None
+    # -o output-format flags (HVite.c -o): N normalise acoustic scores
+    # by duration, S suppress scores, T suppress times, W suppress the
+    # word tags in model alignment, M suppress model (phone) labels
     ofmt = (ta.get("o") or "").upper()
     sup_scores = "S" in ofmt
     sup_times = "T" in ofmt
 
     if not ta.has("w"):
-        HError(1030, "HVite: either -w netfile or -a required\n%s", USAGE)
+        if not ta.has("a"):
+            HError(1030, "HVite: either -w netfile or -a required\n%s",
+                   USAGE)
+        _align_files(ta, cfg, comp, vocab, files, prec, device, out_mlf,
+                     out_dir, out_ext, period, ofmt)
+        _save_mlf(ta, out_mlf, out_mlf_path, sup_times, sup_scores)
+        return 0
     lat = read_slf(ta.get("w"), ta.config)
     # HNet.c config: FORCECXTEXP forces full cross-word context
     # expansion; ALLOWXWRDEXP permits it when the set is context-
@@ -315,14 +332,122 @@ def run(argv: List[str]) -> int:
                 print(f"{e.logical}: {' '.join(res.words)}  "
                       f"[{res.score:.2f}]")
         _emit(tr, e.logical, out_mlf, out_dir, out_ext)
+    _save_mlf(ta, out_mlf, out_mlf_path, sup_times, sup_scores)
+    return 0
 
+
+def _save_mlf(ta, out_mlf, out_mlf_path, sup_times, sup_scores):
     if out_mlf is not None:
         out_mlf.save(out_mlf_path, with_times=not sup_times,
                      with_scores=(ta.has("m") and not sup_scores),
                      cfg=ta.config)
         if ta.trace:
             print(f"HVite: wrote {out_mlf_path}")
-    return 0
+
+
+def _align_files(ta, cfg, comp, vocab, files, prec, device, out_mlf,
+                 out_dir, out_ext, period, ofmt):
+    """HVite -a: each file's word transcription (-I/-L/-X), with the -b
+    boundary word around it, becomes a composite HMM of the words' first
+    pronunciations (word-internally context-expanded, as the recognition
+    network compiler applies: on a triphone set a raw monophone pron
+    would align against stale monophone models); the Viterbi alignment
+    gives model-level labels with word tags (-m) or merged word segments,
+    and with -z the aligned 1-best as a linear word lattice."""
+    mlfs = [MLF.load(p, ta.config) for p in ta.get_all("I")]
+    label_dir = ta.get("L")
+    label_ext = ta.get("X", "lab")
+    bound = ta.get("b")
+    lat_ext = ta.get("z")
+    sup_words = "W" in ofmt
+    sup_models = "M" in ofmt
+    norm_scores = "N" in ofmt
+    pron_map = word_internal_phone_map(comp.names)
+    for fn in files:
+        data, _p, _k, e = open_speech_file(fn, cfg)
+        wtr = find_labels(e.logical, mlfs, label_dir, label_ext)
+        words = [lab.name for lab in wtr.labels]
+        if bound:
+            words = [bound] + words + [bound]
+        phones: List[str] = []
+        occ_of_phone: List[int] = []  # word-occurrence index per phone
+        for oi, w in enumerate(words):
+            wd = vocab.get(w)
+            if wd is None:
+                HError(8621, "HVite: word %s not in dictionary", w)
+            phs = pron_map(wd.prons[0].phones)
+            phones.extend(phs)
+            occ_of_phone.extend([oi] * len(phs))
+        hmm = build_composite(comp, [comp.model_id(p) for p in phones])
+        res = align(comp, hmm, np.asarray(data), precision=prec,
+                    device=device)
+        tr = Transcription(alternatives=[[]])
+        if ta.has("m") and not sup_models:
+            cur_occ = None
+            for inst, t0, t1, seg_score in res.model_seq:
+                sc = seg_score
+                if norm_scores and t1 > t0:
+                    sc = seg_score / (t1 - t0)
+                lab = Label(name=phones[inst], start=t0 * period,
+                            end=t1 * period, score=sc)
+                # the first phone of each word carries the word label
+                # (the model-alignment MLF convention)
+                occ = occ_of_phone[inst]
+                if occ != cur_occ:
+                    if not sup_words:
+                        lab.aux = [words[occ]]
+                    cur_occ = occ
+                tr.alternatives[0].append(lab)
+        else:
+            # merge aligned phone segments into word segments
+            cur_occ, w0, w1 = None, 0, 0
+            for inst, t0, t1, _sc in res.model_seq:
+                occ = occ_of_phone[inst]
+                if occ != cur_occ:
+                    if cur_occ is not None:
+                        tr.alternatives[0].append(Label(
+                            name=words[cur_occ], start=w0 * period,
+                            end=w1 * period))
+                    cur_occ, w0 = occ, t0
+                w1 = t1
+            if cur_occ is not None:
+                tr.alternatives[0].append(Label(
+                    name=words[cur_occ], start=w0 * period,
+                    end=w1 * period))
+        if lat_ext:
+            _write_numerator_lattice(res, occ_of_phone, words, period,
+                                     e.logical, out_dir, lat_ext)
+        if ta.trace:
+            print(f"{e.logical}: aligned {len(phones)} phones, "
+                  f"score {res.score:.2f}")
+        _emit(tr, e.logical, out_mlf, out_dir, out_ext)
+
+
+def _write_numerator_lattice(res, occ_of_phone, words, period, logical,
+                             out_dir, lat_ext):
+    """-a -z: the aligned 1-best as a linear word lattice, the numerator
+    lattice HTK MMI recipes feed HMMIRest -q (the same arc-FB machinery
+    as the denominator, so fixed arc spans cancel between the sides)."""
+    segs = []  # (word occ, first frame, end frame, score)
+    for inst, t0, t1, sc in res.model_seq:
+        occ = occ_of_phone[inst]
+        if segs and segs[-1][0] == occ:
+            segs[-1][2] = t1
+            segs[-1][3] += sc
+        else:
+            segs.append([occ, t0, t1, sc])
+    lt = Lattice(lmscale=1.0, wdpenalty=0.0)
+    lt.nodes.append(LNode(id=0, time=0.0, word=NULL_WORD))
+    prev = 0
+    for k, (occ, _w0, w1, sc) in enumerate(segs):
+        lt.nodes.append(LNode(id=k + 1, time=w1 * period / 1e7,
+                              word=words[occ]))
+        lt.arcs.append(LArc(id=k, start=prev, end=k + 1, aclike=float(sc),
+                            lmlike=0.0))
+        prev = k + 1
+    stem = os.path.splitext(os.path.basename(logical))[0]
+    lt.utterance = stem
+    write_slf(lt, os.path.join(out_dir or ".", f"{stem}.{lat_ext}"))
 
 
 def _emit(tr, logical, out_mlf, out_dir, out_ext):

@@ -1,8 +1,8 @@
 """The port's demo twin (htk_tpu_torch/recipes/demo.py) on the CPU.
 
 1. `python -m htk_tpu_torch.recipes.demo` runs the chain of
-   recipes/demo/run_demo.sh through HResults on make_corpus.py's corpus
-   and reports 100% word accuracy.
+   recipes/demo/run_demo.sh through HResults, and its trigram HDecode
+   stage, on make_corpus.py's corpus and reports 100% word accuracy.
 2. Stage by stage at tests/test_e2e.py's corpus size (6 utterances of 2
    words over aa/iy): each tool of the chain runs in the port's work
    directory, and htk_tpu's twin of it runs on a copy of that directory
@@ -15,7 +15,9 @@
    rtol 5e-4 (on these speech features the two packages' float32
    occupancy sums part by up to 1.9e-4 of a transition probability, where
    test_torch_herest.py's synthetic system stays within 1e-4); HVite -z writes a byte-identical rec.mlf and lattices of
-   the same structure with a= within 0.05. The chains themselves drift
+   the same structure with a= within 0.05; LBuild's lm3.arpa and
+   HDecode's rechd.mlf are byte-identical, and both HResults reports
+   read 100%. The chains themselves drift
    apart after HCopy (the features differ in the last bits), so they are
    compared stage by stage, not end to end.
 """
@@ -32,11 +34,13 @@ import pytest
 from htk_tpu.tools import hbuild as j_hbuild
 from htk_tpu.tools import hcompv as j_hcompv
 from htk_tpu.tools import hcopy as j_hcopy
+from htk_tpu.tools import hdecode as j_hdecode
 from htk_tpu.tools import herest as j_herest
 from htk_tpu.tools import hhed as j_hhed
 from htk_tpu.tools import hled as j_hled
 from htk_tpu.tools import hresults as j_hresults
 from htk_tpu.tools import hvite as j_hvite
+from htk_tpu.tools import lbuild as j_lbuild
 from htk_tpu_torch.io.htkfeat import read_htk_file
 from htk_tpu_torch.recipes import demo
 
@@ -47,7 +51,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E2E_WORDS = {"A": ["aa"], "I": ["iy"]}
 JAX_TOOL = {"HCopy": j_hcopy, "HCompV": j_hcompv, "HERest": j_herest,
             "HLEd": j_hled, "HHEd": j_hhed, "HBuild": j_hbuild,
-            "HVite": j_hvite, "HResults": j_hresults}
+            "HVite": j_hvite, "HResults": j_hresults, "LBuild": j_lbuild,
+            "HDecode": j_hdecode}
 
 
 @pytest.fixture(autouse=True)
@@ -64,6 +69,8 @@ def test_demo_module_reaches_100_percent(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     assert demo.PASS_LINE in out.stdout
+    assert out.stdout.count(demo.PASS_LINE) == 2  # HVite's and HDecode's
+    assert "Rec : rechd.mlf" in out.stdout
     assert "DEMO PASSED" in out.stdout and "HMMIRest" in out.stdout
     assert "device cpu" in out.stdout
     with open(tmp_path / "w" / "results.txt") as f:
@@ -121,7 +128,7 @@ def test_demo_stagewise_parity(tmp_path, monkeypatch, capsys):
         os.makedirs(d, exist_ok=True)
     checked = []
     for k, (label, tool, what) in enumerate(
-            demo.stages(vowels=demo._vowels(E2E_WORDS))):
+            demo.stages(vowels=demo._vowels(E2E_WORDS), words=E2E_WORDS)):
         if tool is None:
             what()
             continue
@@ -137,7 +144,7 @@ def test_demo_stagewise_parity(tmp_path, monkeypatch, capsys):
         monkeypatch.chdir(port)
         after, ref_files = _snapshot(port), _snapshot(ref_dir)
         changed = sorted(r for r in after if before.get(r) != after[r])
-        assert changed or label == "HResults", label
+        assert changed or label.startswith("HResults"), label
         assert sorted(r for r in ref_files if before.get(r) != ref_files[r]) \
             == changed, label
         for rel in changed:
@@ -149,7 +156,7 @@ def test_demo_stagewise_parity(tmp_path, monkeypatch, capsys):
                                       for p in (port, ref_dir))
                 assert gn == rn
                 np.testing.assert_allclose(go, ro, rtol=1e-3, atol=0.011)
-        if label == "HResults":
+        if label.startswith("HResults"):
             assert port_out == ref_out
             assert "WORD: %Corr=100.00, Acc=100.00" in port_out
         checked.append(label)
@@ -158,4 +165,5 @@ def test_demo_stagewise_parity(tmp_path, monkeypatch, capsys):
         "HCopy", "HCompV", "HERest mono 1", "HERest mono 2",
         "HERest mono 3", "HLEd", "HHEd CL/TI", "HERest tri 1",
         "HERest tri 2", "HHEd TB", "HERest tied", "HHEd MU", "HERest mix",
-        "HBuild", "HVite -z", "HResults"]
+        "HBuild", "HVite -z", "HResults", "LBuild", "HDecode",
+        "HResults HDecode"]

@@ -140,7 +140,8 @@ def test_convert_carries_jax_objects(system):
     assert scorer.Wt.shape == (2 * pc.dim, pc.n_mix)
 
 
-@pytest.mark.parametrize("opt", [["-a"], ["-J", "xf"], ["-N", "ann"]])
+@pytest.mark.parametrize("opt", [["-k", "-J", "xf"], ["-J", "xf"],
+                                 ["-N", "ann"]])
 def test_unported_options_raise_numbered_error(system, tmp_path, opt,
                                                capsys):
     s, _cfg = system
@@ -196,6 +197,9 @@ def test_port_imports_no_jax_and_no_htk_tpu():
             "'htk_tpu_torch.tools.hcompv', 'htk_tpu_torch.tools.hled', "
             "'htk_tpu_torch.tools.hhed', 'htk_tpu_torch.tools.hbuild', "
             "'htk_tpu_torch.tools.hresults', "
+            "'htk_tpu_torch.algo.viterbi', 'htk_tpu_torch.tools.hinit', "
+            "'htk_tpu_torch.tools.hrest', 'htk_tpu_torch.tools.hdecode', "
+            "'htk_tpu_torch.tools.lbuild', 'htk_tpu_torch.tools.hlrescore', "
             "'htk_tpu_torch.recipes.demo', 'htk_tpu_torch.recipes.speech'}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -14,7 +14,6 @@ equals the sequential one byte for byte.
 import os
 import tempfile
 
-import numpy as np
 import pytest
 
 from htk_tpu.algo import decode as jdec
@@ -37,7 +36,6 @@ from htk_tpu_torch.io.slf import read_slf, write_slf
 from htk_tpu_torch.models.hmmset import compile_hmmset
 from htk_tpu_torch.synth import write_system
 from htk_tpu_torch.tools import hvite as torch_hvite
-from htk_tpu_torch.utils.errors import HTKError
 
 from _torch_compare import assert_slf_close, one_torch_thread  # noqa: F401
 
@@ -118,24 +116,29 @@ def test_batch_equals_sequential_and_reference(system):
 
 @pytest.mark.parametrize("batched", [True, False])
 def test_lattice_batch_on_uniform_net_raises_8527(batched):
-    """Lattices on uniform-row (LV) nets wait for the LV lattice
-    pipeline: both generators refuse them before any decode."""
-    from htk_tpu_torch.algo.net import DecodeNetwork
+    """HError 8527 is retired: lattices on uniform-row (LV) nets are
+    ported, and both generators give htk_tpu's lattice and 1-best on the
+    3-word loop of tests/test_lvdecode.py (tests/test_torch_lvlattice.py
+    holds the LV lattices against htk_tpu in full)."""
+    from test_decode import emit_frames
+    from test_torch_lvdecode import SMALL, nets
 
-    z = np.zeros(1, np.float32)
-    i = np.zeros(1, np.int32)
-    net = DecodeNetwork(comp_state=i, band=z[None], a0=z, aE=z, chain_of=i,
-                        node_of_chain=i, chain_pron_prob=z, node_words=["a"],
-                        node_out=[None], trans=np.zeros((1, 1), np.float32),
-                        start_entry=z, end_exit=z, uniform_width=1)
-    with pytest.raises(HTKError) as e:
-        if batched:
-            tdec.generate_lattice_batch(net, None, [np.zeros((3, 39))],
-                                        device="cpu")
-        else:
-            tdec.generate_lattice(net, None, np.zeros((3, 39)),
-                                  device="cpu")
-    assert e.value.code == 8527
+    jc, jn, pc, pn = nets(SMALL)
+    assert pn.uniform_width
+    f = emit_frames(["sil", "aa", "iy", "aa", "sil"], seed=1)
+    if batched:
+        (lt, r), = tdec.generate_lattice_batch(pn, pc, [f], LM, PEN,
+                                               pad_to=16, want_results=True,
+                                               device="cpu")
+        (jl, jr), = jdec.generate_lattice_batch(jn, jc, [f], LM, PEN,
+                                                pad_to=16, want_results=True)
+    else:
+        lt, r = tdec.generate_lattice(pn, pc, f, LM, PEN, want_result=True,
+                                      device="cpu")
+        jl, jr = jdec.generate_lattice(jn, jc, f, LM, PEN, want_result=True)
+    assert len(lt.nodes) > 10
+    assert_slf_close(_slf(lt), _slf(jl))
+    _same_result(r, jr)
 
 
 @pytest.mark.parametrize("n", [1, 3, 8])
