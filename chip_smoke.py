@@ -1,13 +1,15 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: HCopy's frontend,
 HVite -w recognition and -z lattices, HVite -a forced alignment, HERest,
-HInit and HRest training, HDecode with LV lattices, the demo chain
-through HResults and its HDecode stage, and the uniform-row LV decoder,
-dense and factored, with its lattices.
+HInit and HRest training, HMMIRest (MMI), the DNN hybrid (HNTrainSGD,
+HNForward, HVite -N), HDecode with LV lattices, the demo chain of
+run_demo.sh, every stage, and the uniform-row LV decoder, dense and
+factored, with its lattices.
 
 Drives htk_tpu_torch's main paths, `htk_tpu_torch.tools.hcopy.run`,
 `htk_tpu_torch.tools.hvite.run` (-w, -z, -a), `tools.herest.run`,
 `tools.hinit.run`, `tools.hrest.run`, `tools.hdecode.run`,
-`recipes.demo.run_chain` and `algo.decode.decode_batch` and
+`tools.hmmirest.run`, `tools.hntrainsgd.run`, `tools.hnforward.run`,
+`hvite.run` -N, `recipes.demo.run_chain` and `algo.decode.decode_batch` and
 `generate_lattice_batch` on `compile_lv_loop` networks, on a synthetic
 system at htk_tpu's BASELINE config #4 widths (1,000-word back-off
 bigram, as a word network and as ARPA tables; 40 phones, word-internal
@@ -130,9 +132,14 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      from the kernel's planes on the same outp equal the tool's files
      byte for byte, and for the first bucket equal those from the plain
      version's planes; the wall split into decode and lattice build
- 19. (run after phase 15) the demo twin (recipes/demo.py, run_demo.sh's
-     chain through HResults) in a temporary directory: 100% word
-     accuracy, each tool's wall, the decode_scan and fb_scans launches
+ 19. (run after phase 15) the demo twin (recipes/demo.py, every stage of
+     run_demo.sh) in a temporary directory: 100% word accuracy at HVite
+     -z, after MMI (HMMIRest, then HVite) and at HDecode, the DNN
+     hybrid's WORD line (HNTrainSGD -e 15, HVite -N), each tool's wall,
+     the decode_scan and fb_scans launches (read around each HVite,
+     HMMIRest and HDecode call too: HVite -N one an utterance); on the
+     chain's files, fb_scans kernel == plain on HMMIRest's widest arc
+     launch and decode_scan kernel == plain on HVite -N's ANN scores
  21. (run after phase 19, as 22-24 are: after every earlier profile)
      HVite -a -m on the config-4 system, a word MLF
      of its 16 synthesised transcriptions: on the card and, the same
@@ -160,6 +167,32 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      phase 12's exact decode_batch (words and times; scores within 1e-5
      relative), records in beam and overflow, device pipeline beside
      host walk, peak device memory
+ 25. (after 24) HMMIRest on the config-4 system at full width, the first
+     8 utterances in one ACCBLOCK, denominator lattices from HVite -z at
+     HREC: LATTICEBEAM = 150 (htk_tpu's bench_mmi), numerators the phone
+     MLF: on the card and on the port's CPU path, the MMFs within the
+     herest tolerances and the MMI criteria within 1e-4 relative; lattice
+     arcs, arc mini-utterances, score and accumulate launches, the
+     criterion, EBW seconds, pass walls, peak device memory; HVite -w
+     with each MMI model (rec.mlf equal, word accuracy); on the same
+     arcs fb_scans kernel == plain on the widest launch and on a
+     4,096-wide launch of one real arc (4,095 rows at t_real = 0, the
+     arc's logP == its narrow launch's), times in turns at the arc shape
+     beside the bound, and each pass's device busy share
+ 26. the DNN hybrid on the config-4 system: HNTrainSGD (HIDDENSIZE = 1024
+     1024 1024, CONTEXT = 4: input 351, output 1,992; -e 3) on the card
+     and on the CPU path, ANN files within 1e-5 (tests/test_torch_nnet.py's
+     TRAIN_ATOL, TF32 off), CE and frame accuracy per epoch, each
+     epoch's wall, one more epoch's device busy share; HNForward of the
+     16 files, .pos within 1e-4 of the CPU path's; HVite -N over the 16
+     utterances, one decode_scan launch each, rec.mlf equal to the CPU
+     run's on the same ANN file, -T 1 scores within 1e-4 relative;
+     decode_scan kernel == plain on one utterance's ANN scores; the
+     sequence criterion (CRITERION = MMI) on one utterance: the phone
+     loop's Q (every emitting state of the set), fb_scans kernel ==
+     plain at that Q, fb_scans launches and the objective before and
+     after one iteration (two iterations run: the second's E step
+     scores the first's update)
  20. one JSON line of kernels, then the device line last
 
 Phase 19 also runs the demo's trigram HDecode stage (LBuild, HDecode
@@ -204,9 +237,11 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -222,13 +257,13 @@ import torch
 from htk_tpu_torch.algo import decode as dec
 from htk_tpu_torch.algo.decode import (_final_records, _finalize,
                                        _net_outp, decode_operands)
-from htk_tpu_torch.algo import viterbi
+from htk_tpu_torch.algo import nnet, viterbi
 from htk_tpu_torch.algo.composite import build_composite
 from htk_tpu_torch.algo.fb import _fb_outp
 from htk_tpu_torch.algo.lvnet import compile_lv_loop
 from htk_tpu_torch.algo.net import compile_network, word_internal_phone_map
-from htk_tpu_torch.algo.trainer import (DeviceCompositeTrainer, _bucket,
-                                        prepare_utterance_ids)
+from htk_tpu_torch.algo.trainer import (DeviceCompositeTrainer, Trainer,
+                                        _bucket, prepare_utterance_ids)
 from htk_tpu_torch.io.dictionary import read_dict
 from htk_tpu_torch.io import parmkind as pk
 from htk_tpu_torch.io.htkfeat import read_htk_file
@@ -236,6 +271,7 @@ from htk_tpu_torch.io.lm import read_arpa
 from htk_tpu_torch.io.mlf import MLF
 from htk_tpu_torch.io.mmf import load_mmf, save_mmf
 from htk_tpu_torch.io.slf import read_slf, write_slf
+from htk_tpu_torch.models.ann import load_ann
 from htk_tpu_torch.models.hmmset import compile_hmmset
 from htk_tpu_torch.models.proto import make_proto
 from htk_tpu_torch.ops import decode_scan as ds
@@ -252,7 +288,8 @@ from htk_tpu_torch.synth import (PARM_KIND, lv_system, random_decode_net,
                                  random_fb_operands, random_maxplus_operands,
                                  random_xw_operands, word_accuracy,
                                  write_system, write_word_mlf)
-from htk_tpu_torch.tools import hcopy, hdecode, herest, hinit, hrest, hvite
+from htk_tpu_torch.tools import (hcopy, hdecode, herest, hinit, hmmirest,
+                                 hnforward, hntrainsgd, hrest, hvite)
 from htk_tpu_torch.tools._common import DEVICE_ENV
 from htk_tpu_torch.utils.logmath import LZERO
 
@@ -319,6 +356,14 @@ GOLDEN_TOL = (("MFCC_E_D_A_Z", 20, 2.0e-3, 3.0e-4),
 LATTICE_BEAM = 200.0  # HREC: LATTICEBEAM's default
 ALIGN_RTOL = 1e-4  # HVite -a -m scores, card against the port's CPU run
 DEMO_UTTS = 10  # the demo corpus (make_corpus.py): HDecode's decodes
+MMI_UTTS = 8  # phase 25: HMMIRest's utterances, one ACCBLOCK
+MMI_LATTICE_BEAM = 150.0  # htk_tpu's bench_mmi (bench.py)
+DNN_HIDDEN = "1024 1024 1024"  # phase 26's HNTrainSGD hidden layers
+DNN_EPOCHS = 3
+TRAIN_ATOL = 1e-5  # tests/test_torch_nnet.py's bound on trained ANNs
+POS_ATOL = 1e-4  # HNForward's .pos, card against the CPU path
+HYBRID_RTOL = 1e-4  # HVite -N scores, card against the CPU path
+SEQ_UTTS = 1  # the sequence criterion's utterance
 
 
 def log(msg: str) -> None:
@@ -1924,44 +1969,143 @@ def phase_lattices(sysm, root, net, comp, feats, dev):
     return launches
 
 
+def decode_hold(net, scores, lm, what) -> float:
+    """decode_scan's kernel against its plain version on one utterance's
+    hybrid scores (T, S) gathered on the net's states, at LM scale and
+    word penalty `lm`: live scores within ATOL, records equal."""
+    outp = scores[:, dec._net_dev(net, scores.device)["comp_state"]]
+    args = decode_operands(outp[None].contiguous(), net, *lm)
+    k = ds.decode_scan_cuda(*args)
+    p = ds.decode_scan_plain(*args)
+    torch.cuda.synchronize()
+    err = compare(k, p, what)
+    lo, hi = float(scores.min()), float(scores.max())
+    log(f"{what}: decode kernel == plain on ANN scores in [{lo:.2f}, "
+        f"{hi:.2f}] (T={scores.shape[0]}, Ns={net.n_states}; max |dv| "
+        f"{err:.3g}, records equal)")
+    return err
+
+
+def arc_operands(arcfb, fbank, launch):
+    """fb_scans' operands of one ArcFB launch (tb, qb, bw, arcs), as
+    ArcFB.score builds them: frames gathered from the bank, OutP of the
+    touched Gaussians, padding rows at t_real = 0 on composite 0."""
+    tb, qb, bw, batch = launch
+    feats, t_real, c = arcfb._operands(fbank, arcfb._bank(qb), batch, bw, tb)
+    outp = _fb_outp(feats, c["comp_state"], c["q_mask"], **arcfb._params,
+                    slot_blocks=tuple(arcfb.comp.slot_blocks) or None,
+                    gather_outp=True)[0]
+    return outp, c["logA"], c["a0"], c["aE"], t_real
+
+
+def arc_holds(comp, vocab, feats, lats, dev, what, batch=256):
+    """Every lattice's arcs as HMMIRest expands them, on one feature
+    bank; fb_scans' kernel against its plain version on the launch with
+    the most arcs. Returns (max |d|, that launch's operands, the ArcFB,
+    its bank, the arc mini-utterances)."""
+    arcfb = hmmirest.ArcFB(Trainer(comp, device=dev), comp, batch=batch)
+    fbank = arcfb.load_block(feats)
+    utts = []
+    for i, (f, lat) in enumerate(zip(feats, lats)):
+        utts.extend(hmmirest.lattice_arc_utts(
+            lat, vocab, comp, f, int(FRAME_S * 1e7), f"u{i}", arcfb,
+            utt=i)[0])
+    launches = arcfb._buckets(utts)
+    widest = max(launches, key=lambda la: len(la[3]))
+    ops = arc_operands(arcfb, fbank, widest)
+    B, T, Q = ops[0].shape
+    err = compare_scans(fbs.fb_scans_cuda(*ops), fbs.fb_scans_plain(*ops),
+                        ops[4], f"{what} arc launch")
+    log(f"{what}: {len(utts)} arc mini-utterances in {len(launches)} "
+        f"launches; fb_scans kernel == plain on the widest (B={B} with "
+        f"{len(widest[3])} arcs, Tb={T}, Qb={Q}; max |d| {err:.3g})")
+    return err, ops, arcfb, fbank, utts
+
+
 def phase_demo(card, dev):
-    """The demo twin through HResults and its trigram HDecode stage in a
-    temporary directory: 100% word accuracy at both (run_chain raises
-    otherwise), each tool's wall, and the decode_scan and fb_scans
-    launches of the whole chain, HDecode's decode_scan launches (one an
-    utterance: 3 words, below the LV threshold) read around its stage."""
+    """The demo twin, every stage of run_demo.sh, in a temporary
+    directory: 100% word accuracy at HVite -z, after MMI and at HDecode
+    (run_chain raises otherwise), the DNN hybrid's WORD line, each tool's
+    wall; the decode_scan and fb_scans launches of the whole chain, and
+    read around each HVite, HMMIRest and HDecode call: 2 buckets for
+    HVite -z and for the MMI decode, one an utterance for HVite -N and
+    HDecode. Then, on the chain's files, fb_scans' kernel against its
+    plain version on HMMIRest's widest arc launch and decode_scan's on
+    HVite -N's ANN scores."""
     work = tempfile.mkdtemp(prefix="chip_demo_")
-    hd = []
-    real = hdecode.main
+    mods = {"hvite": hvite, "hmmirest": hmmirest, "hdecode": hdecode}
+    reals = {n: m.main for n, m in mods.items()}
+    calls = {n: [] for n in mods}
 
-    def counted(argv):
-        n0 = ds.KERNEL.launches
-        rc = real(argv)
-        hd.append(ds.KERNEL.launches - n0)
-        return rc
+    def counted(name):
+        def main(argv):
+            n0 = ds.KERNEL.launches, fbs.KERNEL.launches
+            rc = reals[name](argv)
+            calls[name].append((ds.KERNEL.launches - n0[0],
+                                fbs.KERNEL.launches - n0[1]))
+            return rc
+        return main
 
-    hdecode.main = counted
+    for n, m in mods.items():
+        m.main = counted(n)
     try:
         reset_counts()
         t0 = time.perf_counter()
         walls = demo.run_chain(work, quiet=True)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
+        d_n, f_n = ds.KERNEL.launches, fbs.KERNEL.launches
+        for n, m in mods.items():
+            m.main = reals[n]
+        reports = {}
+        for lab in ("HResults_MMI", "HResults_DNN"):
+            with open(os.path.join(work, f"{lab}.txt")) as f:
+                reports[lab] = demo.word_line(f.read())
+        d_err, f_err = demo_holds(work, dev)
     finally:
-        hdecode.main = real
+        for n, m in mods.items():
+            m.main = reals[n]
         shutil.rmtree(work, ignore_errors=True)
-    d_n, f_n = ds.KERNEL.launches, fbs.KERNEL.launches
-    if hd != [DEMO_UTTS] or d_n != 2 + DEMO_UTTS or f_n < 7:
+    hv = [d for d, _f in calls["hvite"]]
+    hd = [d for d, _f in calls["hdecode"]]
+    mmi_f = [f for _d, f in calls["hmmirest"]]
+    if (hv != [2, 2, DEMO_UTTS] or hd != [DEMO_UTTS]
+            or d_n != 4 + 2 * DEMO_UTTS or len(mmi_f) != 1 or mmi_f[0] < 2
+            or f_n < 7 + mmi_f[0]):
         raise AssertionError(f"demo: decode_scan launched {d_n} times, "
-                             f"{hd} of them in HDecode (expected 2 HVite "
-                             f"buckets and {DEMO_UTTS} HDecode utterances), "
-                             f"fb_scans {f_n} (expected at least one a "
-                             f"HERest pass)")
-    log(f"demo twin on {card}: {demo.PASS_LINE} at HVite -z and HDecode, in "
-        f"{wall:.2f} s; decode_scan launches {d_n} ({hd[0]} of them in the "
-        f"HDecode stage), fb_scans launches {f_n}; "
+                             f"{hv} in the HVite calls (expected 2, 2 and "
+                             f"{DEMO_UTTS}), {hd} in HDecode (expected "
+                             f"{DEMO_UTTS}); fb_scans {f_n}, {mmi_f} in "
+                             f"HMMIRest (expected a score and an "
+                             f"accumulate launch at least, and one a HERest "
+                             f"pass besides)")
+    log(f"demo twin on {card}: every stage of run_demo.sh in {wall:.2f} s; "
+        f"{demo.PASS_LINE} at HVite -z and HDecode, the MMI decode "
+        f"{reports['HResults_MMI']}; the DNN hybrid {reports['HResults_DNN']}"
+        f"; decode_scan launches {d_n} (HVite -z {hv[0]}, MMI decode "
+        f"{hv[1]}, HVite -N {hv[2]}, HDecode {hd[0]}), fb_scans launches "
+        f"{f_n} ({mmi_f[0]} of them under HMMIRest); "
         + ", ".join(f"{lab} {s:.3f} s" for lab, s in walls))
-    return d_n, f_n, hd[0]
+    return d_n, f_n, hd[0], mmi_f[0], hv[2], d_err, f_err
+
+
+def demo_holds(work, dev):
+    """The demo chain's files: fb_scans on HMMIRest's widest arc launch
+    (the tied2 set over the HVite -z lattices), decode_scan on HVite -N's
+    scores of the first utterance (LM scale 1, penalty -10, as run)."""
+    comp = compile_hmmset(load_mmf([os.path.join(work, "tied2/hmmdefs")]))
+    vocab = read_dict(os.path.join(work, "dict"))
+    feats = [read_htk_file(os.path.join(work, f"u{i}.mfc")).data
+             for i in range(DEMO_UTTS)]
+    lats = [read_slf(os.path.join(work, f"lats/u{i}.lat"))
+            for i in range(DEMO_UTTS)]
+    f_err = arc_holds(comp, vocab, feats, lats, dev, "demo HMMIRest")[0]
+    net = compile_network(read_slf(os.path.join(work, "wdnet.slf")), vocab,
+                          comp, phone_map=word_internal_phone_map(comp.names))
+    ann = load_ann(os.path.join(work, "dnn/ann"))
+    scores = nnet.hybrid_outp(ann, feats[0], device=dev)
+    d_err = decode_hold(net, scores, (1.0, -10.0), "demo HVite -N u0")
+    return d_err, f_err
 
 
 @contextlib.contextmanager
@@ -2132,13 +2276,14 @@ def _mmf_params(path):
                 transp=np.exp(np.maximum(c.log_transp, -700.0)))
 
 
-def mmf_close(got, ref, what):
+def mmf_close(got, ref, what,
+              keys=("weights", "transp", "means", "variances")):
     """tests/test_torch_herest.py's tolerances: weights and transitions
     rtol 1e-4, atol 1e-7; means and variances rtol 1e-4, atol 1e-3 of
     the array's largest magnitude. Returns the largest |diff| / scale."""
     g, r = _mmf_params(got), _mmf_params(ref)
     worst = 0.0
-    for k in ("weights", "transp", "means", "variances"):
+    for k in keys:
         scale = float(np.abs(r[k]).max())
         atol = 1e-7 if k in ("weights", "transp") else 1e-3 * scale
         if not np.allclose(g[k], r[k], rtol=1e-4, atol=atol):
@@ -2318,6 +2463,518 @@ def phase_big_lattice(big, net, exact, dev):
     return out["exact"]
 
 
+def _feats_names(sysm, n):
+    """The first n utterances' features and phone transcriptions."""
+    mlf = MLF.load(sysm.train_mlf)
+    feats, names = [], []
+    for path in sysm.feats[:n]:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        feats.append(read_htk_file(path).data)
+        names.append(mlf.lookup(f"*/{stem}.lab").names())
+    return feats, names
+
+
+def _rec_rows(path):
+    """rec.mlf's bytes, to compare two runs' whole files."""
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _scores_of(trace):
+    """{utterance: score} from HVite -T 1's per-utterance lines."""
+    out = {}
+    for ln in trace.splitlines():
+        if ln.endswith("]") and "  [" in ln:
+            head, sc = ln.rsplit("  [", 1)
+            out[head.split(":")[0]] = float(sc[:-1])
+    return out
+
+
+def ebw_bounds(comp, accs_a, accs_b, e=2.0):
+    """How far the EBW update (algo/ebw.py) can move between two runs
+    whose (numerator, denominator) accumulators part by their gap. Per
+    Gaussian, with n = the numerator's statistics minus the denominator's
+    and D the update's smoothing constant (E d_occ, doubled until every
+    variance is positive, replayed here on run b's values),
+
+      mu'  = (n_x + D mu0) / (n_occ + D)
+      var' = (n_xx + D (var0 + mu0^2)) / (n_occ + D) - mu'^2
+
+    and per state, w'_m = N_m / S with N_m = wt_n - wt_d + C w_m, C = 2
+    max_m(wt_d / w_m) + 1, S = sum_m N_m. Each quotient a / b moves by at
+    most (|da| + |a / b| |db|) / (b - |db|), and mu'^2 by |dmu| (2 |mu|
+    + |dmu|). Returns {means, variances, weights: bound arrays};
+    Gaussians under the update's occupancy floor keep their values
+    (bound 0)."""
+    f64 = lambda x: np.asarray(x, np.float64)  # noqa: E731
+    (na, da), (nb, db) = accs_a, accs_b
+
+    def diff(acc_n, acc_d, f):
+        return f64(getattr(acc_n, f)) - f64(getattr(acc_d, f))
+
+    gap = {f: np.abs(diff(na, da, f) - diff(nb, db, f))
+           for f in ("occ", "sum_x", "sum_xx")}
+    mu0, var0 = f64(comp.means), f64(comp.variances)
+    occ, x, xx = (diff(nb, db, f) for f in ("occ", "sum_x", "sum_xx"))
+    d_occ = f64(db.occ)
+    D = np.maximum(e * d_occ, 1.0)
+    for _ in range(40):  # algo/ebw.py's search for D, vectorised
+        den = occ + D
+        var = ((xx + D[:, None] * (var0 + mu0 ** 2)) / np.where(
+            den > 0, den, 1.0)[:, None]
+               - ((x + D[:, None] * mu0) / np.where(den > 0, den, 1.0)
+                  [:, None]) ** 2)
+        bad = (den <= 0) | ~(var > 0).all(axis=1)
+        if not bad.any():
+            break
+        D = np.where(bad, 2 * D, D)
+    # D scales with d_occ where E d_occ set it
+    dD = np.where(e * d_occ > 1.0, D / np.maximum(d_occ, 1e-30)
+                  * np.abs(f64(da.occ) - d_occ), 0.0)[:, None]
+    D = D[:, None]
+    denom = occ[:, None] + D
+    d_den = gap["occ"][:, None] + dD
+    low = np.maximum(denom - d_den, 1e-30)
+    mu = (x + D * mu0) / denom
+    t1 = (xx + D * (var0 + mu0 ** 2)) / denom
+    d_mu = (gap["sum_x"] + np.abs(mu0) * dD + np.abs(mu) * d_den) / low
+    d_t1 = (gap["sum_xx"] + (var0 + mu0 ** 2) * dD
+            + np.abs(t1) * d_den) / low
+    d_var = d_t1 + d_mu * (2 * np.abs(mu) + d_mu)
+    live = ((f64(nb.occ) + d_occ) >= 1e-3)[:, None]
+    old_w = np.where(comp.state_mix >= 0, np.exp(comp.state_logw), 0.0)
+
+    def parts(num, den):
+        wn, wd = f64(num.wt_occ), f64(den.wt_occ)
+        ratio = np.where(old_w > 0, wd / np.maximum(old_w, 1e-10), 0.0)
+        C = ratio.max(axis=1, keepdims=True) * 2.0 + 1.0
+        return np.maximum(wn - wd + C * old_w, 0.0)
+
+    Na, Nb = parts(na, da), parts(nb, db)
+    S = Nb.sum(axis=1, keepdims=True)
+    dS = np.abs(Na.sum(axis=1, keepdims=True) - S)
+    return {"means": np.where(live, d_mu, 0.0),
+            "variances": np.where(live, d_var, 0.0),
+            "weights": (np.abs(Na - Nb) + Nb / np.maximum(S, 1e-30) * dS)
+            / np.maximum(S - dS, 1e-30)}
+
+
+def phase_hmmirest(sysm, root, card, dev):
+    """HMMIRest on the config-4 system at full width, the first MMI_UTTS
+    utterances in one ACCBLOCK: denominator lattices from HVite -z at
+    HREC: LATTICEBEAM = 150 (htk_tpu's bench_mmi), numerators the phone
+    MLF. On the card and on the port's CPU path: the MMFs within the
+    herest tolerances, the MMI criteria within 1e-4 relative; lattice
+    arcs, arc mini-utterances, score and accumulate launches, EBW
+    seconds, each pass's wall, peak device memory. HVite -w with each
+    MMI model: rec.mlf equal, word accuracy. On the same arcs: fb_scans'
+    kernel against its plain version on the widest real launch and on a
+    4,096-wide launch of one real arc (padding rows at t_real = 0),
+    times in turns at the arc shape beside the bound, and each pass's
+    device busy share. Returns the card run's fb_scans launches."""
+    n = MMI_UTTS
+    scp = os.path.join(root, "mmi.scp")
+    with open(scp, "w") as f:
+        f.write("".join(f"{p}\n" for p in sysm.feats[:n]))
+    cfg = os.path.join(root, "mmi.cfg")
+    with open(cfg, "w") as f:
+        f.write(f"HREC: LATTICEBEAM = {MMI_LATTICE_BEAM}\n"
+                f"HREC: DECODEBATCH = {n}\nHMMIREST: ACCBLOCK = {n}\n")
+    latdir = os.path.join(root, "mmi_lats")
+    os.makedirs(latdir)
+    lm = ["-s", str(LM_SCALE), "-p", str(WORD_PEN)]
+    t0 = time.perf_counter()
+    if hvite.run(["-C", cfg, "-w", sysm.wdnet, "-H", sysm.hmmdefs, "-i",
+                  os.path.join(root, "mmi_den.mlf"), *lm, "-z", "lat", "-l",
+                  latdir, "-S", scp, sysm.dict, sysm.hmmlist]) != 0:
+        raise RuntimeError("HVite -z for the MMI lattices failed")
+    lat_s = time.perf_counter() - t0
+    runs = {}
+    for where in ("cuda", "cpu"):
+        out_dir = os.path.join(root, f"mmi_{where}")
+        argv = ["-C", cfg, "-T", "1", "-I", sysm.train_mlf, "-r", latdir,
+                "-d", sysm.dict, "-s", str(LM_SCALE), "-H", sysm.hmmdefs,
+                "-M", out_dir, "-S", scp, sysm.hmmlist]
+        ebw, score, accum, accs = [], [], [], []
+        out = io.StringIO()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        real_ebw = hmmirest.ebw_update
+
+        def grab_ebw(comp, num, den, *a, **kw):
+            accs.append((num, den))
+            return real_ebw(comp, num, den, *a, **kw)
+
+        hmmirest.ebw_update = grab_ebw
+        with tool_device(where), timed_calls(hmmirest, "ebw_update", ebw), \
+                timed_calls(hmmirest.ArcFB, "score", score), \
+                timed_calls(hmmirest.ArcFB, "accumulate", accum), \
+                contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            rc = hmmirest.run(argv)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        hmmirest.ebw_update = real_ebw
+        if rc != 0:
+            raise RuntimeError(f"HMMIRest on {where} returned {rc}")
+        text = out.getvalue()
+        m = re.search(r"(\d+) lattice arcs, (\d+) arc mini-utterances, "
+                      r"(\d+) score and (\d+) accumulate launches", text)
+        c = re.search(r"MMI criterion (-?[0-9.]+)", text)
+        if not (m and c):
+            raise AssertionError(f"HMMIRest -T 1 on {where}: no arc or "
+                                 f"criterion line in {text[-500:]!r}")
+        runs[where] = dict(wall=wall, ebw=sum(ebw), score=sum(score),
+                           accum=sum(accum), counts=[int(x) for x in
+                                                     m.groups()],
+                           crit=float(c.group(1)), argv=argv,
+                           launches=fbs.KERNEL.launches, accs=accs[0],
+                           peak=torch.cuda.max_memory_allocated(dev),
+                           mmf=os.path.join(out_dir, "hmmdefs"))
+    k, cp = runs["cuda"], runs["cpu"]
+    arcs, utts_n, n_score, n_acc = k["counts"]
+    if k["counts"] != cp["counts"]:
+        raise AssertionError(f"HMMIRest: card {k['counts']} arcs, "
+                             f"mini-utterances and launches, CPU "
+                             f"{cp['counts']}")
+    if k["launches"] < n_score + n_acc or not n_score or not n_acc:
+        raise AssertionError(f"HMMIRest: {k['launches']} fb_scans launches "
+                             f"for {n_score} score and {n_acc} accumulate "
+                             f"launches")
+    if abs(k["crit"] - cp["crit"]) > 1e-4 * abs(cp["crit"]):
+        raise AssertionError(f"HMMIRest: MMI criterion {k['crit']} on the "
+                             f"card, {cp['crit']} on the CPU")
+    # the accumulators at phase 7's tolerance, transitions (EBW keeps
+    # them) at the herest tolerances; means, variances and weights within
+    # what the accumulators' own gap moves them by through EBW, which
+    # takes the numerator's statistics minus the denominator's (not their
+    # ratio, as HERest does), so independent float32 errors in the two
+    # do not cancel
+    agap = {}
+    for side, (a, b) in zip(("num", "den"), zip(k["accs"], cp["accs"])):
+        for f in ("occ", "sum_x", "sum_xx", "wt_occ"):
+            ga, gb = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+            agap[f"{side} {f}"] = float(np.abs(ga - gb).max()
+                                        / max(np.abs(gb).max(), 1e-30))
+    if max(agap.values()) > ACC_TOL:
+        raise AssertionError(f"HMMIRest accumulators card vs CPU: {agap}")
+    err = mmf_close(k["mmf"], cp["mmf"], "HMMIRest card vs CPU",
+                    keys=("transp",))
+    comp = compile_hmmset(load_mmf([sysm.hmmdefs]))
+    bounds = ebw_bounds(comp, k["accs"], cp["accs"])
+    got, ref = _mmf_params(k["mmf"]), _mmf_params(cp["mmf"])
+    reach = {}
+    for f, b in bounds.items():
+        if f == "weights":
+            g = got[f][comp.state_mix >= 0]
+            r = ref[f][comp.state_mix >= 0]
+            b = b[comp.state_mix >= 0]
+        else:
+            g, r = got[f], ref[f]
+        # the MMF text keeps 7 significant digits of each value
+        lim = b * (1 + 1e-3) + 2e-6 * float(np.abs(r).max())
+        d = np.abs(g - r)
+        if (d > lim).any():
+            i = np.unravel_index(np.argmax(d - lim), d.shape)
+            raise AssertionError(f"HMMIRest card vs CPU: {f}{list(i)} "
+                                 f"differs by {d[i]:.3g}, beyond the "
+                                 f"accumulators' reach {b[i]:.3g}")
+        reach[f] = (float(d.max()), float(b.max()), float((d / lim).max()))
+    log(f"HMMIRest card vs CPU: accumulators' largest |diff| / scale "
+        + ", ".join(f"{f} {v:.2e}" for f, v in agap.items())
+        + "; the MMFs part as far as that gap moves EBW's output: "
+        + ", ".join(f"{f} largest |diff| {d:.3g} (largest bound {b:.3g}; "
+                    f"at most {u:.2f} of its own bound)"
+                    for f, (d, b, u) in reach.items())
+        + f"; transitions within the herest tolerances")
+    log(f"HMMIRest on {card} (config #4, {comp_width(sysm)}; {n} "
+        f"utterances, one ACCBLOCK; HVite -z lattices at beam "
+        f"{MMI_LATTICE_BEAM:g} in {lat_s:.2f} s): rc 0 in {k['wall']:.3f} s "
+        f"(CPU path {cp['wall']:.3f} s); {arcs} lattice arcs, {utts_n} arc "
+        f"mini-utterances, {n_score} score and {n_acc} accumulate launches, "
+        f"fb_scans launches {k['launches']} (with the transcript "
+        f"numerators); MMI criterion {k['crit']:.2f} (CPU {cp['crit']:.2f});"
+        f" score pass {k['score']:.3f} s, accumulate pass {k['accum']:.3f} s,"
+        f" EBW {k['ebw']:.3f} s (CPU path {cp['score']:.3f} / "
+        f"{cp['accum']:.3f} / {cp['ebw']:.3f} s); peak device memory "
+        f"{k['peak'] / 2**30:.2f} GiB")
+    recs = {}
+    for where in ("cuda", "cpu"):
+        mlf = os.path.join(root, f"recmmi_{where}.mlf")
+        with tool_device(where):
+            t0 = time.perf_counter()
+            rc = hvite.run(["-C", cfg, "-w", sysm.wdnet, "-H",
+                            runs[where]["mmf"], "-i", mlf, *lm, "-S", scp,
+                            sysm.dict, sysm.hmmlist])
+            torch.cuda.synchronize(dev)
+        if rc != 0:
+            raise RuntimeError(f"HVite with the MMI model on {where}: {rc}")
+        recs[where] = (mlf, time.perf_counter() - t0)
+    if _rec_rows(recs["cuda"][0]) != _rec_rows(recs["cpu"][0]):
+        raise AssertionError("HVite with the MMI model: the card's rec.mlf "
+                             "differs from the CPU run's")
+    m = MLF.load(recs["cuda"][0])
+    hyps = [m.lookup(f"*/{os.path.splitext(os.path.basename(p))[0]}.rec")
+            .names() for p in sysm.feats[:n]]
+    log(f"HVite -w with the MMI model on {card}: {recs['cuda'][1]:.3f} s, "
+        f"rec.mlf == the CPU run's, word accuracy "
+        f"{word_accuracy(sysm.transcripts[:n], hyps):.2f}% (informational)")
+
+    comp = compile_hmmset(load_mmf([sysm.hmmdefs]))
+    vocab = read_dict(sysm.dict)
+    feats, _names = _feats_names(sysm, n)
+    lats = [read_slf(os.path.join(latdir, f"{os.path.splitext(os.path.basename(p))[0]}.lat"))
+            for p in sysm.feats[:n]]
+    e1, ops, arcfb, fbank, utts = arc_holds(comp, vocab, feats, lats, dev,
+                                           "config-4 HMMIRest")
+    # one real arc in a launch 4,096 wide: the rest are t_real = 0 rows
+    wide = hmmirest.ArcFB(arcfb.trainer, comp, batch=4096)
+    short = min(utts, key=lambda u: u.t1 - u.t0)
+    wide.composite(short.ids)
+    (launch,) = wide._buckets([short])
+    wops = arc_operands(wide, fbank, launch)
+    e2 = compare_scans(fbs.fb_scans_cuda(*wops), fbs.fb_scans_plain(*wops),
+                       wops[4], "4,096-wide arc launch")
+    if wops[0].shape[0] != 4096 or int((wops[4] > 0).sum()) != 1:
+        raise AssertionError(f"the wide launch is {tuple(wops[0].shape)} "
+                             f"with {int((wops[4] > 0).sum())} real rows")
+    lp1 = wide.score(fbank, [short])[short.name]
+    lp2 = arcfb.score(fbank, [short])[short.name]
+    if lp1 != lp2:
+        raise AssertionError(f"the arc scores {lp1} in the 4,096-wide "
+                             f"launch and {lp2} in a narrow one")
+    log(f"4,096-wide arc launch, one real row (Tb={wops[0].shape[1]}, "
+        f"Qb={wops[0].shape[2]}): kernel == plain (max |d| {e2:.3g}), the "
+        f"arc's logP {lp1:.3f} == its narrow launch's")
+    B, T, Q = ops[0].shape
+    p = time_call(lambda: fbs.fb_scans_plain(*ops), dev)
+    kt = time_call(lambda: fbs.fb_scans_cuda(*ops), dev)
+    kt += time_call(lambda: fbs.fb_scans_cuda(*ops), dev)
+    p += time_call(lambda: fbs.fb_scans_plain(*ops), dev)
+    kms, pms = statistics.median(kt), statistics.median(p)
+    abound = fb_bound(*ops[:2], ops[4])
+    log(f"fb_scans at the arc shape on {card} (B={B}, Tb={T}, Qb={Q}): "
+        f"kernel {kms:.6f} ms, plain {pms:.6f} ms a launch (median of 6 "
+        f"synchronised calls in turns), bound {abound[0]:.6f} ms "
+        f"({abound[1]})")
+    wts = {u.name: 1.0 for u in utts}
+    zero = arcfb.trainer._zero
+    ps = device_profile(lambda: arcfb.score(fbank, utts), dev,
+                        "fb_scan_kernel")
+    pa = device_profile(lambda: arcfb.accumulate(fbank, utts, wts, zero()),
+                        dev, "fb_scan_kernel")
+    log(f"  the {n} lattices' passes alone: score {ps.wall:.1f} ms wall, "
+        f"{ps.busy()}; accumulate {pa.wall:.1f} ms wall, {pa.busy()}")
+    return k["launches"], max(e1, e2), (kms, pms), abound
+
+
+def comp_width(sysm) -> str:
+    c = compile_hmmset(load_mmf([sysm.hmmdefs]))
+    return (f"{c.n_mix:,} Gaussians of {c.dim} dims in {c.n_states:,} tied "
+            f"states, {c.n_models:,} models")
+
+
+def phase_dnn(sysm, root, card, dev):
+    """The DNN hybrid on the config-4 system: HNTrainSGD (HIDDENSIZE =
+    1024 1024 1024, CONTEXT = 4, -e 3) on the card and on the CPU path,
+    the ANN files within TRAIN_ATOL, CE and frame accuracy per epoch,
+    one epoch's wall and device busy share; HNForward of the 16 files
+    with the card's ANN, .pos within POS_ATOL of the CPU's; HVite -N over
+    the 16 utterances, one decode_scan launch each, rec.mlf equal to the
+    CPU run's and scores within HYBRID_RTOL; decode_scan's kernel against
+    its plain version on one utterance's ANN scores; then the sequence
+    criterion on SEQ_UTTS utterances: the phone loop's Q, fb_scans'
+    kernel against its plain version at that Q, fb_scans launches and
+    the MMI objective before and after one iteration. Returns HVite -N's
+    decode_scan launches and the largest kernel error."""
+    cfg = os.path.join(root, "dnn.cfg")
+    with open(cfg, "w") as f:
+        f.write(f'HNTRAINSGD: HIDDENSIZE = "{DNN_HIDDEN}"\n'
+                "HNTRAINSGD: CONTEXT = 4\n")
+    runs, grab = {}, {}
+    real_train = hntrainsgd.train_ann
+    for where in ("cuda", "cpu"):
+        out_dir = os.path.join(root, f"dnn_{where}")
+        epochs = []
+
+        def train(ann, x, y, scfg, **kw):
+            grab["x"], grab["y"], grab["cfg"] = x, y, scfg
+            t = [time.perf_counter()]
+
+            def on_epoch(*a):
+                torch.cuda.synchronize(dev)
+                epochs.append(a + (time.perf_counter() - t[0],))
+                t[0] = time.perf_counter()
+            return real_train(ann, x, y, scfg, on_epoch=on_epoch, **kw)
+
+        hntrainsgd.train_ann = train
+        try:
+            with tool_device(where), \
+                    contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                rc = hntrainsgd.run(["-C", cfg, "-T", "1", "-e",
+                                     str(DNN_EPOCHS), "-I", sysm.train_mlf,
+                                     "-H", sysm.hmmdefs, "-M", out_dir, "-S",
+                                     sysm.train_scp, sysm.hmmlist])
+                torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+        finally:
+            hntrainsgd.train_ann = real_train
+        if rc != 0:
+            raise RuntimeError(f"HNTrainSGD on {where} returned {rc}")
+        runs[where] = dict(wall=wall, epochs=epochs,
+                           ann=os.path.join(out_dir, "ann"))
+    k, cp = runs["cuda"], runs["cpu"]
+    ga, ra = load_ann(k["ann"]), load_ann(cp["ann"])
+    worst = max(float(np.abs(a - b).max()) for lg, lr in zip(ga.layers,
+                                                              ra.layers)
+                for a, b in ((lg.weight, lr.weight), (lg.bias, lr.bias)))
+    if worst > TRAIN_ATOL or not np.array_equal(ga.target_priors,
+                                                ra.target_priors):
+        raise AssertionError(f"HNTrainSGD: the card's ANN differs from the "
+                             f"CPU run's by {worst:.3g}")
+    dims = [ga.in_dim] + [l.weight.shape[0] for l in ga.layers]
+    log(f"HNTrainSGD on {card} (layers {dims}, {grab['x'].shape[0]} frames, "
+        f"-e {DNN_EPOCHS}): rc 0 in {k['wall']:.3f} s (CPU path "
+        f"{cp['wall']:.3f} s); the ANN == the CPU run's within "
+        f"{TRAIN_ATOL:g} (largest |diff| {worst:.3g}), priors equal")
+    for (e, lr, tce, tacc, cce, cacc, s), cpu_e in zip(k["epochs"],
+                                                       cp["epochs"]):
+        log(f"  epoch {e + 1}: lr {lr:.5f}, train CE {tce:.4f} frame "
+            f"accuracy {tacc:.3f}, cv CE {cce:.4f} accuracy {cacc:.3f}; "
+            f"{s:.3f} s on the card, {cpu_e[-1]:.3f} s on the CPU path")
+    one = copy.deepcopy(grab["cfg"])
+    one.n_epochs = 1
+    pe = device_profile(lambda: nnet.train_ann(
+        load_ann(k["ann"]), grab["x"], grab["y"], one, device=dev), dev, "")
+    log(f"  one more epoch under the profiler: {pe.wall:.1f} ms wall, "
+        f"{pe.busy()}; top: {pe.top(4)}")
+
+    pos = {}
+    for where in ("cuda", "cpu"):
+        with tool_device(where):
+            t0 = time.perf_counter()
+            rc = hnforward.run(["-N", k["ann"], "-M",
+                                os.path.join(root, f"pos_{where}"), "-S",
+                                sysm.scp, sysm.hmmlist])
+            torch.cuda.synchronize(dev)
+        if rc != 0:
+            raise RuntimeError(f"HNForward on {where} returned {rc}")
+        pos[where] = time.perf_counter() - t0
+    pworst = 0.0
+    for path in sysm.feats:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        g, r = (read_htk_file(os.path.join(root, f"pos_{w}/{stem}.pos"))
+                for w in ("cuda", "cpu"))
+        pworst = max(pworst, float(np.abs(g.data - r.data).max()))
+    if pworst > POS_ATOL:
+        raise AssertionError(f"HNForward: the card's .pos differ from the "
+                             f"CPU run's by {pworst:.3g}")
+    log(f"HNForward of {len(sysm.feats)} files on {card}: {pos['cuda']:.3f}"
+        f" s (CPU path {pos['cpu']:.3f} s), .pos == the CPU run's within "
+        f"{POS_ATOL:g} (largest |diff| {pworst:.3g})")
+
+    hv = {}
+    for where in ("cuda", "cpu"):
+        mlf = os.path.join(root, f"recdnn_{where}.mlf")
+        out = io.StringIO()
+        reset_counts()
+        with tool_device(where), contextlib.redirect_stdout(out):
+            t0 = time.perf_counter()
+            rc = hvite.run(["-T", "1", "-w", sysm.wdnet, "-N", k["ann"],
+                            "-H", sysm.hmmdefs, "-i", mlf, "-s",
+                            str(LM_SCALE), "-p", str(WORD_PEN), "-S",
+                            sysm.scp, sysm.dict, sysm.hmmlist])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"HVite -N on {where} returned {rc}")
+        hv[where] = dict(wall=wall, mlf=mlf, launches=ds.KERNEL.launches,
+                         scores=_scores_of(out.getvalue()))
+    hk, hc = hv["cuda"], hv["cpu"]
+    if hk["launches"] != N_UTTS:
+        raise AssertionError(f"HVite -N: {hk['launches']} decode_scan "
+                             f"launches, expected one an utterance")
+    if _rec_rows(hk["mlf"]) != _rec_rows(hc["mlf"]):
+        raise AssertionError("HVite -N: the card's rec.mlf differs from the "
+                             "CPU run's")
+    if hk["scores"].keys() != hc["scores"].keys() or len(hk["scores"]) != \
+            N_UTTS:
+        raise AssertionError("HVite -N: -T 1 scores missing")
+    srel = max(abs(hk["scores"][u] - hc["scores"][u]) /
+               max(abs(hc["scores"][u]), 1.0) for u in hk["scores"])
+    if srel > HYBRID_RTOL:
+        raise AssertionError(f"HVite -N: scores differ by {srel:.3g} "
+                             f"relative")
+    m = MLF.load(hk["mlf"])
+    hyps = [m.lookup(f"*/{os.path.splitext(os.path.basename(p))[0]}.rec")
+            .names() for p in sysm.feats]
+    log(f"HVite -N on {card}: {hk['wall']:.3f} s (CPU path "
+        f"{hc['wall']:.3f} s), decode_scan launches {hk['launches']} (one "
+        f"an utterance), rec.mlf == the CPU run's, scores within "
+        f"{srel:.3g} relative, word accuracy "
+        f"{word_accuracy(sysm.transcripts, hyps):.2f}% (informational)")
+
+    comp = compile_hmmset(load_mmf([sysm.hmmdefs]))
+    vocab = read_dict(sysm.dict)
+    net = compile_network(read_slf(sysm.wdnet), vocab, comp,
+                          phone_map=word_internal_phone_map(comp.names))
+    ann = load_ann(k["ann"])
+    feats, names = _feats_names(sysm, SEQ_UTTS)
+    scores = nnet.hybrid_outp(ann, feats[0], device=dev)
+    d_err = decode_hold(net, scores, (LM_SCALE, WORD_PEN),
+                        "config-4 HVite -N utterance 0")
+
+    t0 = time.perf_counter()
+    loop = nnet.make_phone_loop(comp)
+    loop_s = time.perf_counter() - t0
+    Q = len(loop[0])
+    cs = torch.as_tensor(loop[0], device=dev).long()
+    lops = (scores[:, cs][None].contiguous(),
+            *(torch.as_tensor(a, device=dev)[None].contiguous()
+              for a in loop[1:]),
+            torch.full((1,), scores.shape[0], dtype=torch.int32, device=dev))
+    t0 = time.perf_counter()
+    lk = fbs.fb_scans_cuda(*lops)
+    torch.cuda.synchronize(dev)
+    k_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lp = fbs.fb_scans_plain(*lops)
+    torch.cuda.synchronize(dev)
+    p_s = time.perf_counter() - t0
+    f_err = compare_scans(lk, lp, lops[4], "phone-loop FB")
+    del lk, lp
+    nnz = int((lops[1] > LZERO / 2).sum())
+    log(f"phone loop of {comp.n_models:,} models: Q = {Q:,} states, "
+        f"{nnz:,} live cells, built in {loop_s:.2f} s on the host; logA "
+        f"{4 * Q * Q / 2**20:.0f} MiB, the kernel's live-cell lists "
+        f"{16 * Q * Q / 2**20:.0f} MiB and xi {4 * Q * Q / 2**20:.0f} MiB "
+        f"a launch, scan shared memory {fbs.scan_smem(Q, False)} bytes "
+        f"(state vectors and offsets {fbs.smem_bytes(Q, 1, 0)}; lists from "
+        f"global memory); "
+        f"fb_scans kernel == plain on utterance 0 (T={scores.shape[0]}; "
+        f"max |d| {f_err:.3g}; kernel {k_s * 1e3:.1f} ms, plain "
+        f"{p_s * 1e3:.1f} ms, one call each, synchronised)")
+    reset_counts()
+    t0 = time.perf_counter()
+    _a, objs = nnet.train_ann_sequence(
+        ann, comp, feats, names, nnet.SGDConfig(
+            lr=grab["cfg"].lr * 0.1, momentum=grab["cfg"].momentum,
+            batch_size=grab["cfg"].batch_size), n_iters=2, device=dev)
+    torch.cuda.synchronize(dev)
+    seq_s = time.perf_counter() - t0
+    seq_n = fbs.KERNEL.launches
+    if seq_n != 2 * 2 * SEQ_UTTS or not all(np.isfinite(objs)):
+        raise AssertionError(f"sequence training: {seq_n} fb_scans "
+                             f"launches, objectives {objs}")
+    log(f"CRITERION = MMI on {SEQ_UTTS} utterance(s) ({card}): _gamma_phys Q "
+        f"= {Q:,}, fb_scans launches {seq_n} (numerator and denominator "
+        f"per utterance, two passes), MMI objective {objs[0]:.2f} before, "
+        f"{objs[1]:.2f} after one iteration ({'risen' if objs[1] > objs[0] else 'not risen'}); "
+        f"{seq_s:.2f} s")
+    return hk["launches"], d_err, f_err, seq_n
+
+
 def kernel_entry(name, source, replaces, launches, err, times, bnd,
                  library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
@@ -2398,6 +3055,12 @@ def main() -> int:
         done("HDecode")
         lat_launches = phase_big_lattice(big, bnet, big_exact, dev)
         done("20k lattices")
+        mmi_launches, mmi_err, arc_times, arc_bound = phase_hmmirest(
+            sysm, root, card, dev)
+        done("HMMIRest")
+        dnn_launches, dnn_derr, dnn_ferr, seq_launches = phase_dnn(
+            sysm, root, card, dev)
+        done("DNN hybrid")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     dbound = decode_bound(TIMING_B, TIMING_T, net.n_states, net.n_nodes,
@@ -2408,22 +3071,33 @@ def main() -> int:
     xb = xw_bounds(bnet, bWE, rtabs, wtabs, bops, lops)
     log(f"earlier paths: HCopy card vs CPU max |diff| {fe_err[0]:.3g}, mean "
         f"{fe_err[1]:.3g}; HVite -z decode_scan launches {z_launches}")
-    log(f"new paths on {card}: fb_scans launches under HRest "
-        f"{hr_launches}; maxplus launches under HDecode {hd_launches}; "
-        f"segmax launches under the 20k lattice batch (exact) "
-        f"{lat_launches}; decode_scan launches under the demo's HDecode "
-        f"stage {demo_launches[2]} (the whole demo: decode_scan "
-        f"{demo_launches[0]}, fb_scans {demo_launches[1]})")
+    log(f"earlier paths: fb_scans launches under HRest {hr_launches}; "
+        f"maxplus launches under HDecode {hd_launches}; segmax launches "
+        f"under the 20k lattice batch (exact) {lat_launches}; decode_scan "
+        f"launches under the demo's HDecode stage {demo_launches[2]}")
+    log(f"new paths on {card}: fb_scans launches under the config-4 "
+        f"HMMIRest {mmi_launches}, under the demo's HMMIRest "
+        f"{demo_launches[3]}, under the sequence criterion {seq_launches}; "
+        f"decode_scan launches under the config-4 HVite -N {dnn_launches}, "
+        f"under the demo's HVite -N {demo_launches[4]} (the whole demo: "
+        f"decode_scan {demo_launches[0]}, fb_scans {demo_launches[1]}); "
+        f"fb_scans at the arc shape {arc_times[0]:.6f} ms a launch (plain "
+        f"{arc_times[1]:.6f}, bound {arc_bound[0]:.6f} by "
+        f"{arc_bound[1]}); kernel against plain at the new shapes: max "
+        f"|d| decode_scan {max(dnn_derr, demo_launches[5]):.3g}, fb_scans "
+        f"{max(mmi_err, dnn_ferr, demo_launches[6]):.3g}")
     log(f"chip_smoke: {time.perf_counter() - t_all:.1f} s in all")
     log(card)
     xs = "htk_tpu_torch/csrc/xw_gather.cu"
     print(json.dumps({"kernels": [
         kernel_entry("decode_scan", "htk_tpu_torch/csrc/decode_scan.cu",
                      "htk_tpu/ops/decode_pallas.py:137", launches,
-                     max(err, e2), (kms, pms), dbound),
+                     max(err, e2, dnn_derr, demo_launches[5]), (kms, pms),
+                     dbound),
         kernel_entry("fb_scans", "htk_tpu_torch/csrc/fb_scans.cu",
                      "htk_tpu/ops/fb_pallas.py:127", fb_launches,
-                     max(fb_err, fb_err2), (fkms, fpms), fbound),
+                     max(fb_err, fb_err2, mmi_err, dnn_ferr,
+                         demo_launches[6]), (fkms, fpms), fbound),
         kernel_entry("maxplus", "htk_tpu_torch/csrc/maxplus.cu",
                      "htk_tpu/ops/maxplus_pallas.py:67", mp_launches,
                      max(mp_err, mp_err2), (mkms, mpms), mbound),

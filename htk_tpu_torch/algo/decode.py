@@ -44,9 +44,14 @@ row max, word entry a row broadcast, and the cross-word step one of
 
 The frame loop runs in Python with OutP computed chunk-wise, then a
 batched traceback walks the word-link records on the device and only the
-(B, 3, T) path plane comes back to the host. The reference's hybrid
-(`state_scores`) and adaptation (`model_params`) hooks and its opt-in
-routed leg (`HTKTPU_XW_ROUTE`) are not taken.
+(B, 3, T) path plane comes back to the host.
+
+`decode` and `generate_lattice` take the reference's hybrid hook:
+`state_scores` (T, S_phys), ANN log-posteriors minus log-priors (HVite
+-N), replace the GMM OutP; network states gather their columns, which
+feed the decode kernel on general nets and the uniform scan (its
+`state_mode`) on uniform-row nets. The adaptation hook (`model_params`)
+and the opt-in routed leg (`HTKTPU_XW_ROUTE`) are not taken.
 
 Word lattices (HVite -z, HDecode, and -n's N-best source) come from the
 same word-end planes: `generate_lattice` (one utterance, the whole planes
@@ -689,6 +694,21 @@ def _net_outp(net, comp, feats, precision, device) -> torch.Tensor:
     return logb[..., _net_dev(net, device)["comp_state"]].contiguous()
 
 
+def _as_scores(state_scores, device) -> torch.Tensor:
+    """External state scores (numpy or a tensor) as float32 on `device`."""
+    return torch.as_tensor(state_scores, dtype=torch.float32, device=device)
+
+
+def _outp_states(net, comp, feats, state_scores, precision, device):
+    """(1, T, Ns) network-state scores of one utterance: the hybrid
+    hook's (T, S_phys) `state_scores` gathered on the network's states,
+    or the GMM OutP of `feats`."""
+    if state_scores is None:
+        return _net_outp(net, comp, feats[None], precision, device)
+    logb = _as_scores(state_scores, device)
+    return logb[:, _net_dev(net, device)["comp_state"]][None].contiguous()
+
+
 def _lv_chunk(T: int, B: int, Ns: int) -> int:
     """Frames of OutP computed at a time: 64, 32, 16 or 8 dividing T
     (else all of T), halved while the (B, CH, Ns) chunk exceeds 1 GiB."""
@@ -704,11 +724,12 @@ def _lv_chunk(T: int, B: int, Ns: int) -> int:
 
 
 def _lv_scan_body(net, comp, d, precision, max_active, x, lm_scale,
-                  word_pen, beam):
+                  word_pen, beam, state_mode=False):
     """The uniform-row scan with OutP computed chunk-wise inside the frame
-    loop (the full (B, T, Ns) plane is never formed). Returns the final
-    carry (v, rec) and the word-end record planes WEs/pwns/pwts in
-    (B, T, C) layout (plane t = word ends at time t-1)."""
+    loop (the full (B, T, Ns) plane is never formed). `state_mode`: x
+    holds external state scores (B, T, S_phys), gathered a chunk at a
+    time. Returns the final carry (v, rec) and the word-end record planes
+    WEs/pwns/pwts in (B, T, C) layout (plane t = word ends at time t-1)."""
     S = net.uniform_width
     B, T = x.shape[0], x.shape[1]
     Ns = len(net.comp_state)
@@ -717,7 +738,11 @@ def _lv_scan_body(net, comp, d, precision, max_active, x, lm_scale,
         d["trans"] * lm_scale, d["start"] * lm_scale, word_pen, beam,
         max_active, _scale_xw(d.get("xw"), lm_scale),
         _scale_xw3(d.get("xw3"), lm_scale))
-    scorer = scorer_for(comp, x.device, precision)
+    if state_mode:
+        def scorer(chunk):
+            return chunk
+    else:
+        scorer = scorer_for(comp, x.device, precision)
     CH = _lv_chunk(T, B, Ns)
     carry = _uniform_init(B, Ns, x.device)
     recs = []
@@ -731,20 +756,22 @@ def _lv_scan_body(net, comp, d, precision, max_active, x, lm_scale,
 
 
 def _lv_pipeline(net, comp, x, t_reals, lm_scale, word_pen, beam,
-                 max_active, precision):
+                 max_active, precision, state_mode=False):
     """OutP -> scan -> device traceback for frames x (B, T, D) on their
-    device; returns the (B, 3, T) path plane and the (B,) scores, both on
-    the device. The network's tensors come from the per-net cache."""
+    device (state scores (B, T, S_phys) under `state_mode`); returns the
+    (B, 3, T) path plane and the (B,) scores, both on the device. The
+    network's tensors come from the per-net cache."""
     d = _net_dev(net, x.device)
     (v, rec), WEs, pwns, pwts = _lv_scan_body(
-        net, comp, d, precision, max_active, x, lm_scale, word_pen, beam)
+        net, comp, d, precision, max_active, x, lm_scale, word_pen, beam,
+        state_mode)
     return _traceback_device(v, *_unpack(rec), WEs, pwns, pwts, d["aE"],
                              d["end_exit"] * lm_scale, t_reals,
                              net.uniform_width)
 
 
 def _decode_uniform(net, comp, x, t_reals, lm_scale, word_pen, beam,
-                    max_active, precision, device):
+                    max_active, precision, device, state_mode=False):
     # the packed word-link record carries a 15-bit frame field; past it
     # the frame index would overflow into the row bits (callers chunk
     # long utterances before reaching this point)
@@ -752,10 +779,11 @@ def _decode_uniform(net, comp, x, t_reals, lm_scale, word_pen, beam,
         HError(8520, "decode: %d frames exceed the packed record's "
                      "15-bit frame field (max %d) — chunk the utterance",
                x.shape[1], REC_TMASK)
-    x = torch.as_tensor(np.asarray(x, np.float32), device=device)
+    x = _as_scores(x, device)
     packed, scores = _lv_pipeline(
         net, comp, x, t_reals, float(lm_scale), float(word_pen),
-        _BEAM_OFF if beam is None else float(beam), max_active, precision)
+        _BEAM_OFF if beam is None else float(beam), max_active, precision,
+        state_mode)
     p = packed.cpu().numpy()  # (B, 3, T): one transfer for all planes
     return _format_uniform_results(net, p[:, 0], p[:, 1], p[:, 2],
                                    scores.cpu().numpy())
@@ -790,9 +818,10 @@ CHUNK_WINDOW = 2_000
 
 
 def _decode_chunked(net, comp, feats, lm_scale, word_pen, precision, beam,
-                    max_active, device):
+                    max_active, device, state_scores=None):
     """Decode an over-long utterance on a uniform-row net as concatenated
-    chunks (htk_tpu/algo/decode.py : _decode_chunked).
+    chunks (htk_tpu/algo/decode.py : _decode_chunked), from its frames or
+    from its hybrid `state_scores`.
 
     Cut points land on the LOWEST-ENERGY frame (smallest feature L2
     norm) inside the window [CHUNK_T - CHUNK_WINDOW, CHUNK_T) of each
@@ -801,13 +830,16 @@ def _decode_chunked(net, comp, feats, lm_scale, word_pen, precision, beam,
     the sum (the cross-chunk LM transition is dropped — the approximation
     inherent to chunking).
     """
+    src = feats if state_scores is None else state_scores
+    if torch.is_tensor(src):
+        src = src.cpu().numpy()
     cuts = [0]
     pos = 0
-    T = feats.shape[0]
+    T = src.shape[0]
     while T - pos > CHUNK_T:
         w0 = pos + CHUNK_T - CHUNK_WINDOW
         w1 = pos + CHUNK_T
-        norms = np.linalg.norm(np.asarray(feats[w0:w1]), axis=1)
+        norms = np.linalg.norm(np.asarray(src[w0:w1]), axis=1)
         pos = w0 + int(np.argmin(norms))
         cuts.append(pos)
     cuts.append(T)
@@ -822,11 +854,12 @@ def _decode_chunked(net, comp, feats, lm_scale, word_pen, precision, beam,
         # chunks pad to a 128 multiple, as the reference's do
         tc = c1 - c0
         tp = ((tc + 127) // 128) * 128
-        chunk = np.asarray(feats[c0:c1], np.float32)
+        chunk = np.asarray(src[c0:c1], np.float32)
         xb = np.zeros((1, tp, chunk.shape[1]), np.float32)
         xb[0, :tc] = chunk
         r = _decode_uniform(net, comp, xb, [tc], lm_scale, word_pen, beam,
-                            max_active, precision, device)[0]
+                            max_active, precision, device,
+                            state_mode=state_scores is not None)[0]
         if r is None:
             continue
         any_ok = True
@@ -850,21 +883,30 @@ def decode(
     precision: str = "highest",
     beam: Optional[float] = None,
     max_active: Optional[int] = None,
+    state_scores=None,
     *,
     device,
 ) -> Optional[DecodeResult]:
     """Decode one utterance on `device`; returns None if no complete path
     survives. On uniform-row nets an utterance longer than the packed
-    record's frame range (REC_TMASK) is decoded in chunks."""
+    record's frame range (REC_TMASK) is decoded in chunks.
+
+    `state_scores` (T, S_phys), numpy or a tensor, replaces the GMM
+    observation model: the hybrid-decoding hook (ANN log-posterior minus
+    log-prior scores, HVite -N)."""
     T = feats.shape[0]
     if net.uniform_width:
         if T > REC_TMASK:
             return _decode_chunked(net, comp, feats, lm_scale, word_pen,
-                                   precision, beam, max_active, device)
-        return _decode_uniform(net, comp, feats[None], [T], lm_scale,
-                               word_pen, beam, max_active, precision,
-                               device)[0]
-    outp_states = _net_outp(net, comp, feats[None], precision, device)
+                                   precision, beam, max_active, device,
+                                   state_scores)
+        state_mode = state_scores is not None
+        x = (_as_scores(state_scores, device) if state_mode else feats)[None]
+        return _decode_uniform(net, comp, x, [T], lm_scale, word_pen, beam,
+                               max_active, precision, device,
+                               state_mode)[0]
+    outp_states = _outp_states(net, comp, feats, state_scores, precision,
+                               device)
     (vb, wnb, wtb), (WEs, pwns, pwts) = run_decode_batch(
         outp_states, net, lm_scale, word_pen,
         beam=beam, max_active=max_active,
@@ -1102,6 +1144,7 @@ def generate_lattice(
     beam: Optional[float] = None,
     max_active: Optional[int] = None,
     max_preds: int = 1,
+    state_scores=None,
     *,
     device,
 ):
@@ -1117,11 +1160,13 @@ def generate_lattice(
     come to the host.
 
     `want_result=True` additionally returns the 1-best DecodeResult from
-    the same recursion, so HVite -z needs one decode, not two. The
-    reference's `state_scores` and `model_params` hooks are not taken.
+    the same recursion, so HVite -z needs one decode, not two.
+    `state_scores` is the hybrid observation hook, as in `decode`; the
+    reference's `model_params` hook is not taken.
     """
     T = feats.shape[0]
-    outp_states = _net_outp(net, comp, feats[None], precision, device)
+    outp_states = _outp_states(net, comp, feats, state_scores, precision,
+                               device)
     (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
         outp_states, net, lm_scale, word_pen,
         beam=beam, max_active=max_active,

@@ -15,10 +15,12 @@ T frames,
 
 The JAX package vmaps a per-utterance core; here every step carries the
 batch dimension itself. `forward_scan`, `backward_scan` and `xi_scan` are
-the plain version of the scans kernel. Not ported yet: the FULLC scorer,
-the gathered-OutP option and per-utterance weights (MMI), the second
-channel of single-pass retraining (-r), and `fb_utterance`,
-`mix_posteriors_utterance` and `loglik_*` (MMI and adaptation).
+the plain version of the scans kernel. For MMI's arc batches
+(tools/hmmirest.py) `fb_batch` takes per-utterance `weights` and
+`gather_outp`, which scores only the Gaussians each composite touches,
+and `loglik_batch` is the forward scan's logP alone. Not ported yet: the
+FULLC scorer, the second channel of single-pass retraining (-r), and
+`fb_utterance` and `mix_posteriors_utterance` (adaptation).
 """
 
 from __future__ import annotations
@@ -112,26 +114,53 @@ def xi_scan(alphas, betas, outp, logA, logp, t_real):
     return xi
 
 
+def _gathered_mix_scores(feats, st_mix, means, variances, gconsts,
+                         precision: str = "highest"):
+    """Per-Gaussian log-likelihoods of only the Gaussians each composite
+    touches: frames (B, T, D) x physical mixture ids (B, Q, slots) ->
+    (B, T, Q, slots) scores.
+
+    Scoring all M Gaussians makes a (B, T, M) plane, 0.52 GB at an arc
+    launch of 256 x 32 frames over config #4's 15,936 Gaussians; an arc
+    touches about Q * slots = 128 of them. So each utterance gathers
+    its rows of the packed (M, 2D) block and takes one (T, 2D) @ (2D,
+    Q * slots) product, all of them one `torch.bmm`."""
+    B, T = feats.shape[:2]
+    Q, slots = st_mix.shape[1:]
+    Wt, c = pack_gaussians(means, variances, gconsts)  # (2D, M), (M,)
+    idx = st_mix.clamp(min=0).reshape(B, Q * slots)
+    Wg = Wt.T[idx]  # (B, Q*slots, 2D): a row gather
+    featx = torch.cat([feats * feats, feats], dim=-1)  # (B, T, 2D)
+    with matmul_precision(precision):
+        quad = torch.bmm(featx, Wg.transpose(1, 2))  # (B, T, Q*slots)
+    return (-0.5 * (quad + c[idx][:, None, :])).reshape(B, T, Q, slots)
+
+
 def _fb_outp(feats, comp_state, q_mask, *, means, variances, gconsts,
              state_mix, state_logw, state_sw=None, slot_blocks=None,
-             precision: str = "highest"):
+             precision: str = "highest", gather_outp: bool = False):
     """Observation log-likelihoods of the states each utterance touches.
 
     Returns (outp (B, T, Q), the per-slot scores gathered (B, T, Q,
     n_slots) and the per-stream b_js list, each (B, T, Q)); padded states
-    have LZERO outp."""
+    have LZERO outp. `gather_outp` scores only the Gaussians each
+    composite touches (`_gathered_mix_scores`), else all M are scored."""
     B, T = feats.shape[:2]
     Q = comp_state.shape[1]
     maxmix = state_mix.shape[1]
     blocks = list(slot_blocks) if slot_blocks else [(0, maxmix)]
     cs = comp_state.long()
     st_mix = state_mix[cs]  # (B, Q, n_slots)
-    Wt, c = pack_gaussians(means, variances, gconsts)
-    mix_lp = mix_scores(feats, Wt, c, precision=precision)  # (B, T, M)
-    idx = st_mix.clamp(min=0).reshape(B, 1, Q * maxmix).expand(
-        B, T, Q * maxmix)
-    gathered = torch.gather(mix_lp, 2, idx).reshape(B, T, Q, maxmix)
-    del mix_lp
+    if gather_outp:
+        gathered = _gathered_mix_scores(feats, st_mix, means, variances,
+                                        gconsts, precision=precision)
+    else:
+        Wt, c = pack_gaussians(means, variances, gconsts)
+        mix_lp = mix_scores(feats, Wt, c, precision=precision)  # (B, T, M)
+        idx = st_mix.clamp(min=0).reshape(B, 1, Q * maxmix).expand(
+            B, T, Q * maxmix)
+        gathered = torch.gather(mix_lp, 2, idx).reshape(B, T, Q, maxmix)
+        del mix_lp
     weighted = torch.where((st_mix >= 0)[:, None],
                            gathered + state_logw[cs][:, None], LZERO)
     # per-stream log b_js (unweighted) and the stream-weighted state outp
@@ -154,7 +183,7 @@ def _fb_outp(feats, comp_state, q_mask, *, means, variances, gconsts,
 def _fb_core(feats, t_real, comp_state, q_mask, logA, a0, aE, *, means,
              variances, gconsts, state_mix, state_logw, state_sw=None,
              slot_blocks=None, precision: str = "highest",
-             beam: Optional[float] = None):
+             beam: Optional[float] = None, gather_outp: bool = False):
     """FB scans + occupancy moments for a batch, *pre-scatter*.
 
     feats (B, T, D), t_real (B,) int32, comp_state (B, Q) physical state
@@ -176,7 +205,8 @@ def _fb_core(feats, t_real, comp_state, q_mask, logA, a0, aE, *, means,
     outp, gathered, b_stream = _fb_outp(
         feats, comp_state, q_mask, means=means, variances=variances,
         gconsts=gconsts, state_mix=state_mix, state_logw=state_logw,
-        state_sw=state_sw, slot_blocks=slot_blocks, precision=precision)
+        state_sw=state_sw, slot_blocks=slot_blocks, precision=precision,
+        gather_outp=gather_outp)
 
     # 2. scans: the CUDA kernel on the card, the plain scans on the CPU
     alphas, betas, logp, xi = _scans.fb_scans(
@@ -220,13 +250,16 @@ def _segment_sum(values, seg, n):
 
 
 def fb_batch(feats, t_real, comp_state, q_mask, logA, a0, aE, tr_seg,
-             entry_seg, exit_seg, *, means, variances, gconsts, state_mix,
-             state_logw, n_states: int, tr_flat: int, state_sw=None,
-             slot_blocks=None, precision: str = "highest",
-             beam: Optional[float] = None):
+             entry_seg, exit_seg, weights=None, *, means, variances, gconsts,
+             state_mix, state_logw, n_states: int, tr_flat: int,
+             state_sw=None, slot_blocks=None, precision: str = "highest",
+             beam: Optional[float] = None, gather_outp: bool = False):
     """Forward-backward over a padded utterance batch.
 
-    `beam` enables HFB beta-beam pruning, shared by the whole batch.
+    `weights` (B,) scales each utterance's accumulators (MMI's lattice
+    arc posteriors); `gather_outp` scores only the Gaussians each
+    composite touches. `beam` enables HFB beta-beam pruning, shared by
+    the whole batch.
     Returns (per-utterance logP (B,), summed Accumulators). The scatter
     onto the physical accumulators runs once over the flattened
     (B*Q*maxmix) batch; its sums come in another order than the JAX
@@ -236,7 +269,7 @@ def fb_batch(feats, t_real, comp_state, q_mask, logA, a0, aE, tr_seg,
         feats, t_real, comp_state, q_mask, logA, a0, aE, means=means,
         variances=variances, gconsts=gconsts, state_mix=state_mix,
         state_logw=state_logw, state_sw=state_sw, slot_blocks=slot_blocks,
-        precision=precision, beam=beam)
+        precision=precision, beam=beam, gather_outp=gather_outp)
     S = n_states
     maxmix = state_mix.shape[1]
     M = means.shape[0]
@@ -245,7 +278,8 @@ def fb_batch(feats, t_real, comp_state, q_mask, logA, a0, aE, tr_seg,
 
     # drop failed utterances AND all-padding rows (t_real == 0)
     ok = ((logps > LZERO / 2) & (t_real > 0)).to(feats.dtype)
-    w3 = ok[:, None, None]
+    w = ok if weights is None else ok * weights  # (B,)
+    w3 = w[:, None, None]
 
     st_mix = state_mix[cs]  # (B, Q, maxmix)
     flat_mix = torch.where(st_mix >= 0, st_mix, M)
@@ -263,8 +297,8 @@ def fb_batch(feats, t_real, comp_state, q_mask, logA, a0, aE, tr_seg,
                              torch.where(tr_seg >= 0, tr_seg, tr_flat),
                              tr_flat)
     cross = xi_w * (1.0 - within)
-    cross_in = cross.sum(dim=1) + entry_occ * ok[:, None]  # (B, Q)
-    cross_out = cross.sum(dim=2) + exit_occ * ok[:, None]
+    cross_in = cross.sum(dim=1) + entry_occ * w[:, None]  # (B, Q)
+    cross_out = cross.sum(dim=2) + exit_occ * w[:, None]
     tr_entry = _segment_sum(cross_in.reshape(-1),
                             torch.where(entry_seg >= 0, entry_seg, tr_flat),
                             tr_flat)
@@ -278,3 +312,31 @@ def fb_batch(feats, t_real, comp_state, q_mask, logA, a0, aE, tr_seg,
         total_frames=torch.sum(t_real.to(torch.float32) * ok),
         n_utts=torch.sum(ok))
     return logps, summed
+
+
+def loglik_batch(feats, t_real, comp_state, q_mask, logA, a0, aE, *, means,
+                 variances, gconsts, state_mix, state_logw, state_sw=None,
+                 slot_blocks=None, precision: str = "highest",
+                 gather_outp: bool = False):
+    """Forward-pass log-likelihoods (B,) only, no accumulation: the cheap
+    first pass of MMI arc scoring, as batched torch ops. HMMIRest's
+    ArcFB takes the same logP from one fb_scans launch a bucket."""
+    outp, _g, _bs = _fb_outp(
+        feats, comp_state, q_mask, means=means, variances=variances,
+        gconsts=gconsts, state_mix=state_mix, state_logw=state_logw,
+        state_sw=state_sw, slot_blocks=slot_blocks, precision=precision,
+        gather_outp=gather_outp)
+    alphas = forward_scan(outp, logA, a0, t_real)
+    last = (t_real.long() - 1).clamp(min=0)
+    alpha_last = alphas[torch.arange(feats.shape[0], device=feats.device),
+                        last]
+    return ladd_reduce(alpha_last + aE, dim=-1)
+
+
+def loglik_utterance(feats, t_real, comp_state, q_mask, logA, a0, aE,
+                     **kw):
+    """`loglik_batch` of one utterance: feats (T, D), t_real (), the
+    composite's (Q,) and (Q, Q) tensors; returns logP ()."""
+    return loglik_batch(feats[None], t_real.reshape(1), comp_state[None],
+                        q_mask[None], logA[None], a0[None], aE[None],
+                        **kw)[0]

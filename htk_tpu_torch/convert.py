@@ -1,4 +1,4 @@
-"""Carry a compiled HMM set, a decode network, an n-gram LM and
+"""Carry a compiled HMM set, a decode network, an n-gram LM, an ANN and
 accumulators across from htk_tpu.
 
 The JAX package's `CompiledHMMSet` (models/hmmset.py) and `DecodeNetwork`
@@ -6,7 +6,8 @@ The JAX package's `CompiledHMMSet` (models/hmmset.py) and `DecodeNetwork`
 define the same dataclasses. These functions rebuild the port's objects
 from any object with the same attributes (the JAX package's, read as
 numpy arrays), and put them on a device, so that both packages compute
-on identical operands; `accumulators_from` turns the JAX package's
+on identical operands; `ann_from` copies an ANNDef (models/ann.py:
+numpy layers); `accumulators_from` turns the JAX package's
 Baum-Welch accumulators into the port's, so that the two can be compared
 field by field. Nothing here imports htk_tpu.
 """
@@ -25,6 +26,7 @@ from .algo.decode import _net_dev, scorer_for
 from .algo.fb import Accumulators
 from .algo.net import DecodeNetwork
 from .io.lm import NGramLM
+from .models.ann import ANNDef, Layer
 from .models.hmmset import CompiledHMMSet
 from .ops.outp import GaussianScorer
 
@@ -63,6 +65,14 @@ def ngram_lm_from(lm) -> NGramLM:
     return NGramLM(order=lm.order, unigrams=dict(lm.unigrams),
                    bigrams=dict(lm.bigrams), trigrams=dict(lm.trigrams),
                    tri_bo=dict(lm.tri_bo), fourgrams=dict(lm.fourgrams))
+
+
+def ann_from(ann) -> ANNDef:
+    """The port's ANNDef from the JAX package's (name, context, priors,
+    target names, and each layer's weight, bias and activation)."""
+    out = _carry(ANNDef, ann)
+    out.layers = [_carry(Layer, l) for l in ann.layers]
+    return out
 
 
 def accumulators_from(accs) -> Accumulators:

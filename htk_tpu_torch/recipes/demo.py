@@ -1,8 +1,8 @@
-"""The demo chain through HResults and the trigram HDecode stage, on
+"""The demo chain of recipes/demo/run_demo.sh, every stage, on
 htk_tpu_torch.
 
-The twin of `recipes/demo/run_demo.sh:24-107` and `:123-152` (which drive
-the console scripts bound to htk_tpu). It writes the corpus of
+The twin of `recipes/demo/run_demo.sh:24-152` (which drives the console
+scripts bound to htk_tpu). It writes the corpus of
 `recipes/demo/make_corpus.py` (10 utterances, seed 21: the same words,
 dict, wlist, MLFs and proto) with the port's own synthesizer
 (recipes/speech.py), then runs every tool of the chain in-process through
@@ -12,16 +12,20 @@ its `main`, with run_demo.sh's arguments:
   HLEd WB/TC -> HHEd CL/TI -> HERest x2 -> HHEd TB tying -> HERest
   HHEd MU (mixtures) -> HERest
   HBuild -> HVite -z (lattices) -> HResults      [must be 100%]
+  HMMIRest (MMI over the lattices) -> HVite -> HResults
+                                                 [must reach Acc=100.00]
+  cfg_dnn -> HNTrainSGD -e 15 -> HVite -N (hybrid) -> HResults
+                                                 [WORD line, no gate]
   words.txt -> LBuild -n 3 -> dict_hd -> HDecode (trigram) -> HResults
                                                  [must reach Acc=100.00]
 
 The inline Python and shell steps of run_demo.sh are functions here:
 `clone_monophones` (:31-38), `write_triphone_list` (:50-57),
-`write_word_text` (:124-135) and `_hd_dict` (:140-149). The device work
-(the frontend, HERest's forward-backward, HVite's and HDecode's decodes)
-runs on `tools/_common.default_device()`: the CUDA card, or the CPU when
-HTK_TPU_TORCH_DEVICE=cpu asks for it. The stages between (MMI, the DNN
-hybrid, run_demo.sh:108-121) wait for their modules; the run says so.
+`write_word_text` (:124-135), `_hd_dict` (:140-149) and the cfg_dnn
+file (:117). The device work (the frontend, HERest's and HMMIRest's
+forward-backward, HNTrainSGD's alignment and training, HVite's and
+HDecode's decodes) runs on `tools/_common.default_device()`: the CUDA
+card, or the CPU when HTK_TPU_TORCH_DEVICE=cpu asks for it.
 
 Usage: python -m htk_tpu_torch.recipes.demo [workdir]
 """
@@ -41,16 +45,18 @@ import numpy as np
 from ..io.mmf import load_mmf, save_mmf
 from ..models.proto import clone_proto, make_proto
 from ..tools import (hbuild, hcompv, hcopy, hdecode, herest, hhed, hled,
-                     hresults, hvite, lbuild)
+                     hmmirest, hntrainsgd, hresults, hvite, lbuild)
 from ..tools._common import default_device
 from .speech import synth_words, write_wav
 
 WORDS = {"ONE": ["aa", "iy"], "TWO": ["iy", "uw"],
          "THREE": ["uw", "aa", "iy"]}
 PASS_LINE = "WORD: %Corr=100.00, Acc=100.00"
-HDECODE_PASS = "Acc=100.00"  # run_demo.sh:151's check of the HDecode stage
-WAITING = ("demo: stages that wait for their port: MMI (HMMIRest, ROADMAP "
-           "Queue 1 #3), the DNN hybrid (HNTrainSGD/HVite -N, #5)")
+ACC_PASS = "Acc=100.00"  # run_demo.sh:113's and :151's check
+# run_demo.sh:117's DNN configuration
+CFG_DNN = ("HNTRAINSGD: HIDDENSIZE = 128\nHNTRAINSGD: CONTEXT = 2\n"
+           "HNTRAINSGD: LEARNRATE = 0.05\nHNTRAINSGD: ACTIVATION = RELU\n"
+           "TARGETKIND = MFCC_E_D_A\n")
 
 
 def _vowels(words) -> List[str]:
@@ -227,6 +233,23 @@ def stages(vowels=("aa", "iy", "uw"), words=None
                              "tied2/hmmdefs", "-S", "train.scp", "dict",
                              "triphones"]),
         ("HResults", hresults, ["-I", "words.mlf", "triphones", "rec.mlf"]),
+        ("HMMIRest", hmmirest, ["-I", "tri.mlf", "-r", "lats", "-d", "dict",
+                                "-H", "tied2/hmmdefs", "-M", "mmi1", "-S",
+                                "train.scp", "triphones"]),
+        ("HVite MMI", hvite, ["-w", "wdnet.slf", "-p", "-10", "-i",
+                              "recmmi.mlf", "-H", "mmi1/hmmdefs", "-S",
+                              "train.scp", "dict", "triphones"]),
+        ("HResults MMI", hresults, ["-I", "words.mlf", "triphones",
+                                    "recmmi.mlf"]),
+        ("cfg_dnn", None, _write("cfg_dnn", CFG_DNN)),
+        ("HNTrainSGD", hntrainsgd, ["-C", "cfg_dnn", "-e", "15", "-I",
+                                    "tri.mlf", "-H", "tied2/hmmdefs", "-M",
+                                    "dnn", "-S", "train.scp", "triphones"]),
+        ("HVite -N", hvite, ["-w", "wdnet.slf", "-p", "-10", "-N", "dnn/ann",
+                             "-i", "recdnn.mlf", "-H", "tied2/hmmdefs", "-S",
+                             "train.scp", "dict", "triphones"]),
+        ("HResults DNN", hresults, ["-I", "words.mlf", "triphones",
+                                    "recdnn.mlf"]),
         ("words.txt", None, write_word_text),
         ("LBuild", lbuild, ["-n", "3", "wmap", "lm3.arpa", "words.txt"]),
         ("dict_hd", None, _write("dict_hd", _hd_dict(words))),
@@ -238,20 +261,29 @@ def stages(vowels=("aa", "iy", "uw"), words=None
     ]
 
 
-# what each scoring stage's report must hold (run_demo.sh:105, :151)
-PASS = {"HResults": PASS_LINE, "HResults HDecode": HDECODE_PASS}
+# what each scoring stage's report must hold (run_demo.sh:105, :113,
+# :151); the DNN stage's report (:121) has no gate
+PASS = {"HResults": PASS_LINE, "HResults MMI": ACC_PASS,
+        "HResults HDecode": ACC_PASS}
 
 
-_DIRS = ("tri0", "tri1", "tri2", "tri3", "tied1", "mix1", "tied2", "lats")
+_DIRS = ("tri0", "tri1", "tri2", "tri3", "tied1", "mix1", "tied2", "lats",
+         "mmi1", "dnn")
+
+
+def word_line(report: str) -> str:
+    """The WORD line of an HResults report (run_demo.sh:121's grep)."""
+    return next((ln for ln in report.splitlines() if "WORD" in ln), "")
 
 
 def run_chain(workdir: str, quiet: bool = False) -> List[Tuple[str, float]]:
     """Write the corpus into `workdir` and run the chain there; returns
     each stage's (label, wall seconds). Raises RuntimeError when a tool
     exits non-zero, HResults does not report 100% word accuracy for
-    HVite, or the HDecode stage's word accuracy is not 100%. `quiet`
-    keeps the tools' own output off stdout (HResults' reports are
-    printed either way)."""
+    HVite, or the MMI and HDecode stages' word accuracy is not 100%.
+    `quiet` keeps the tools' own output off stdout (HResults' reports
+    are printed either way, and each is kept as `<label>.txt`: HResults'
+    as results.txt, as run_demo.sh keeps it)."""
     old = os.getcwd()
     os.makedirs(workdir, exist_ok=True)
     os.chdir(workdir)
@@ -278,10 +310,11 @@ def run_chain(workdir: str, quiet: bool = False) -> List[Tuple[str, float]]:
             if tool is hresults:
                 report = out.getvalue()
                 print(report, end="")
-                if label == "HResults":
-                    with open("results.txt", "w") as f:
-                        f.write(report)
-                if PASS[label] not in report:
+                name = ("results" if label == "HResults"
+                        else label.replace(" ", "_"))
+                with open(f"{name}.txt", "w") as f:
+                    f.write(report)
+                if label in PASS and PASS[label] not in report:
                     raise RuntimeError(f"DEMO FAILED: {label}: not "
                                        f"{PASS[label]}")
     finally:
@@ -296,9 +329,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     walls = run_chain(work)
     for label, s in walls:
         print(f"demo: {label:<16s} {s:9.3f} s")
-    print("== DEMO PASSED through HResults and HDecode (100% word "
-          "accuracy)")
-    print(WAITING)
+    with open(os.path.join(work, "HResults_DNN.txt")) as f:
+        print(f"demo: DNN hybrid {word_line(f.read())}")
+    print("== DEMO PASSED: every stage of run_demo.sh (100% word accuracy "
+          "at HVite, MMI and HDecode)")
     return 0
 
 

@@ -27,18 +27,19 @@ Usage: python -m htk_tpu_torch.tools.hvite [options] dictFile hmmList testFiles.
   -z ext      write word lattices (one recursion shared with the 1-best);
               with -a, the aligned 1-best as a linear numerator lattice
   -n i N      N-best output from the lattice
+  -N annfile  hybrid decoding: the ANN's log-posteriors minus log-priors
+              (algo/nnet.hybrid_outp) replace the GMM OutP
   -T n        trace (prints the decode device)
 
 Not yet ported, each refused with HError 3290: input transforms (-J, and
--k with a model-set input transform), hybrid ANN decoding (-N), discrete
-sets, and live audio.
+-k with a model-set input transform), discrete sets, and live audio.
 
 Config: HNET: FORCECXTEXP/ALLOWXWRDEXP/CFPHONES/SHAREINTERIORS,
 HREC: DECODEBATCH (recognition batch size, default 8), LATTICEBEAM,
 PRUNERETRYINC, HTKTPU: PRECISION, HTKTPU: PROFILE. Several files decode
 in length-sorted buckets of DECODEBATCH utterances, one decode launch per
 bucket, and with -z each bucket's lattices and 1-best come from that one
-launch; a single file, and -n, take the per-utterance path. The device is
+launch; a single file, -n and -N take the per-utterance path. The device is
 the CUDA card, or the CPU when HTK_TPU_TORCH_DEVICE=cpu asks for it
 (tools/_common.py).
 """
@@ -54,12 +55,14 @@ from ..algo.composite import build_composite
 from ..algo.decode import (decode, decode_batch, generate_lattice,
                            generate_lattice_batch)
 from ..algo.latops import nbest_paths
+from ..algo.nnet import hybrid_outp
 from ..algo.net import compile_network, word_internal_phone_map
 from ..algo.viterbi import align
 from ..io.dictionary import read_dict
 from ..io.mlf import MLF, Label, Transcription, find_labels, save_label_file
 from ..io.mmf import load_hmm_list, load_mmf
 from ..io.slf import NULL_WORD, LArc, Lattice, LNode, read_slf, write_slf
+from ..models.ann import ANNModule, load_ann
 from ..models.hmmset import compile_hmmset
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
@@ -99,7 +102,6 @@ OPTS = {
 
 _NOT_PORTED = {
     "J": "input transforms",
-    "N": "hybrid ANN decoding",
 }
 
 
@@ -255,6 +257,22 @@ def run(argv: List[str]) -> int:
         featl.append(np.asarray(data))
     results: List = [None] * len(featl)
     lats: List = [None] * len(featl)
+    # hybrid decoding (-N): the ANN's scores replace OutP, computed once
+    # an utterance on the device and kept for the retry ladder
+    ann = load_ann(ta.get("N")) if ta.has("N") else None
+    if ann is not None:
+        model = ANNModule(ann, device)
+        if ta.trace:
+            print(f"HVite: hybrid decoding with ANN {ta.get('N')}")
+    scores: dict = {}
+
+    def state_scores(j):
+        if ann is None:
+            return None
+        if j not in scores:
+            scores[j] = hybrid_outp(ann, featl[j], device=device,
+                                    model=model)
+        return scores[j]
 
     def write_lat(j, lt):
         stem = os.path.splitext(os.path.basename(entries[j].logical))[0]
@@ -266,11 +284,12 @@ def run(argv: List[str]) -> int:
         if not want_lat:
             return decode(net, comp, featl[j], lm_scale, word_pen,
                           precision=prec, beam=b, max_active=ma,
-                          device=device)
+                          state_scores=state_scores(j), device=device)
         lt, r = generate_lattice(
             net, comp, featl[j], lm_scale, word_pen, lattice_beam=lat_beam,
             frame_period_s=period / 1e7, precision=prec, want_result=True,
-            beam=b, max_active=ma, device=device)
+            beam=b, max_active=ma, state_scores=state_scores(j),
+            device=device)
         lats[j] = lt
         # a retry writes its lattice only with a recovered 1-best
         if lat_ext and lt is not None and (first or r is not None):
@@ -278,7 +297,7 @@ def run(argv: List[str]) -> int:
         return r
 
     with maybe_profile(cfg, "HVite"):
-        if len(featl) > 1 and not ta.has("n"):
+        if len(featl) > 1 and not ta.has("n") and ann is None:
             # batched recognition: one decode launch per length-sorted
             # bucket, identical results to the per-utterance path; with
             # -z the bucket's lattices come from the same launch

@@ -1,8 +1,9 @@
 """The port's demo twin (htk_tpu_torch/recipes/demo.py) on the CPU.
 
-1. `python -m htk_tpu_torch.recipes.demo` runs the chain of
-   recipes/demo/run_demo.sh through HResults, and its trigram HDecode
-   stage, on make_corpus.py's corpus and reports 100% word accuracy.
+1. `python -m htk_tpu_torch.recipes.demo` runs every stage of
+   recipes/demo/run_demo.sh on make_corpus.py's corpus: 100% word
+   accuracy at HVite, after MMI (HMMIRest) and at HDecode, and the DNN
+   hybrid's WORD line.
 2. Stage by stage at tests/test_e2e.py's corpus size (6 utterances of 2
    words over aa/iy): each tool of the chain runs in the port's work
    directory, and htk_tpu's twin of it runs on a copy of that directory
@@ -16,8 +17,11 @@
    occupancy sums part by up to 1.9e-4 of a transition probability, where
    test_torch_herest.py's synthetic system stays within 1e-4); HVite -z writes a byte-identical rec.mlf and lattices of
    the same structure with a= within 0.05; LBuild's lm3.arpa and
-   HDecode's rechd.mlf are byte-identical, and both HResults reports
-   read 100%. The chains themselves drift
+   HDecode's rechd.mlf are byte-identical; HMMIRest's MMF is held as
+   HERest's, HNTrainSGD's ANN within tests/test_torch_nnet.py's
+   TRAIN_ATOL with identical priors, HVite's (MMI) and HVite -N's rec.mlf
+   byte-identical; the gated HResults reports read 100%. The chains
+   themselves drift
    apart after HCopy (the features differ in the last bits), so they are
    compared stage by stage, not end to end.
 """
@@ -38,10 +42,13 @@ from htk_tpu.tools import hdecode as j_hdecode
 from htk_tpu.tools import herest as j_herest
 from htk_tpu.tools import hhed as j_hhed
 from htk_tpu.tools import hled as j_hled
+from htk_tpu.tools import hmmirest as j_hmmirest
+from htk_tpu.tools import hntrainsgd as j_hntrainsgd
 from htk_tpu.tools import hresults as j_hresults
 from htk_tpu.tools import hvite as j_hvite
 from htk_tpu.tools import lbuild as j_lbuild
 from htk_tpu_torch.io.htkfeat import read_htk_file
+from htk_tpu_torch.models.ann import load_ann
 from htk_tpu_torch.recipes import demo
 
 from _torch_compare import assert_features_close, assert_slf_close, one_torch_thread  # noqa: F401
@@ -52,7 +59,9 @@ E2E_WORDS = {"A": ["aa"], "I": ["iy"]}
 JAX_TOOL = {"HCopy": j_hcopy, "HCompV": j_hcompv, "HERest": j_herest,
             "HLEd": j_hled, "HHEd": j_hhed, "HBuild": j_hbuild,
             "HVite": j_hvite, "HResults": j_hresults, "LBuild": j_lbuild,
-            "HDecode": j_hdecode}
+            "HDecode": j_hdecode, "HMMIRest": j_hmmirest,
+            "HNTrainSGD": j_hntrainsgd}
+TRAIN_ATOL = 1e-5  # tests/test_torch_nnet.py's bound on trained ANNs
 
 
 @pytest.fixture(autouse=True)
@@ -69,9 +78,15 @@ def test_demo_module_reaches_100_percent(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     assert demo.PASS_LINE in out.stdout
-    assert out.stdout.count(demo.PASS_LINE) == 2  # HVite's and HDecode's
+    # HVite's, MMI's and HDecode's (the DNN's is not gated)
+    assert out.stdout.count(demo.PASS_LINE) >= 3
     assert "Rec : rechd.mlf" in out.stdout
-    assert "DEMO PASSED" in out.stdout and "HMMIRest" in out.stdout
+    mmi = out.stdout.split("Rec : recmmi.mlf")[1]
+    assert demo.ACC_PASS in mmi.split("Rec : ")[0]
+    assert "demo: DNN hybrid WORD: %Corr=" in out.stdout
+    assert "DEMO PASSED" in out.stdout
+    for stage in ("HMMIRest", "HNTrainSGD", "HVite -N"):
+        assert f"demo: {stage} " in out.stdout
     assert "device cpu" in out.stdout
     with open(tmp_path / "w" / "results.txt") as f:
         assert demo.PASS_LINE in f.read()
@@ -93,8 +108,10 @@ def _compare(label, rel, got, ref):
     if rel.endswith(".mfc"):
         assert got[:12] == ref[:12], rel
         assert_features_close(_feat(got), _feat(ref))
-    elif label.startswith("HERest") and rel.endswith("hmmdefs"):
+    elif label.startswith(("HERest", "HMMIRest")) and rel.endswith("hmmdefs"):
         return "mmf"
+    elif label == "HNTrainSGD" and rel.endswith("ann"):
+        return "ann"
     elif label.startswith("HERest") and rel.endswith("stats"):
         return "stats"
     elif rel.endswith(".lat"):
@@ -151,6 +168,15 @@ def test_demo_stagewise_parity(tmp_path, monkeypatch, capsys):
             kind = _compare(label, rel, after[rel], ref_files[rel])
             if kind == "mmf":
                 _assert_models_close(str(port / rel), str(ref_dir / rel))
+            elif kind == "ann":
+                g, r = (load_ann(str(p / rel)) for p in (port, ref_dir))
+                for lg, lr in zip(g.layers, r.layers):
+                    np.testing.assert_allclose(lg.weight, lr.weight, rtol=0,
+                                               atol=TRAIN_ATOL)
+                    np.testing.assert_allclose(lg.bias, lr.bias, rtol=0,
+                                               atol=TRAIN_ATOL)
+                np.testing.assert_array_equal(g.target_priors,
+                                              r.target_priors)
             elif kind == "stats":
                 (gn, go), (rn, ro) = (read_stats(str(p / rel))
                                       for p in (port, ref_dir))
@@ -158,12 +184,14 @@ def test_demo_stagewise_parity(tmp_path, monkeypatch, capsys):
                 np.testing.assert_allclose(go, ro, rtol=1e-3, atol=0.011)
         if label.startswith("HResults"):
             assert port_out == ref_out
-            assert "WORD: %Corr=100.00, Acc=100.00" in port_out
+            if label in demo.PASS:
+                assert demo.PASS[label] in port_out
         checked.append(label)
         shutil.rmtree(ref_dir)
     assert checked == [
         "HCopy", "HCompV", "HERest mono 1", "HERest mono 2",
         "HERest mono 3", "HLEd", "HHEd CL/TI", "HERest tri 1",
         "HERest tri 2", "HHEd TB", "HERest tied", "HHEd MU", "HERest mix",
-        "HBuild", "HVite -z", "HResults", "LBuild", "HDecode",
-        "HResults HDecode"]
+        "HBuild", "HVite -z", "HResults", "HMMIRest", "HVite MMI",
+        "HResults MMI", "HNTrainSGD", "HVite -N", "HResults DNN", "LBuild",
+        "HDecode", "HResults HDecode"]

@@ -15,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from htk_tpu.io.mmf import save_mmf as j_save_mmf
 from htk_tpu.tools import hvite as jax_hvite
 from htk_tpu_torch.synth import word_accuracy, write_system
 from htk_tpu_torch.tools import hvite as torch_hvite
+
+from test_discrete import discrete_set
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -141,11 +144,22 @@ def test_convert_carries_jax_objects(system):
 
 
 @pytest.mark.parametrize("opt", [["-k", "-J", "xf"], ["-J", "xf"],
-                                 ["-N", "ann"]])
+                                 ["DISCRETE"]])
 def test_unported_options_raise_numbered_error(system, tmp_path, opt,
                                                capsys):
+    """Input transforms and (since -N, hybrid decoding, is ported)
+    recognition with a discrete set are refused."""
     s, _cfg = system
-    rc = torch_hvite.main(opt + _argv(s, str(tmp_path / "x.mlf"), "scp"))
+    argv = _argv(s, str(tmp_path / "x.mlf"), "scp")
+    if opt == ["DISCRETE"]:
+        mmf, hmmlist = str(tmp_path / "discrete"), str(tmp_path / "list")
+        j_save_mmf(discrete_set(), mmf)
+        with open(hmmlist, "w") as f:
+            f.write("a\nb\n")
+        argv[argv.index(s.hmmdefs)] = mmf
+        argv[-1] = hmmlist
+        opt = []
+    rc = torch_hvite.main(opt + argv)
     assert rc != 0
     assert "[+3290]" in capsys.readouterr().err
 

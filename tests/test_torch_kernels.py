@@ -18,7 +18,8 @@ t < t_real with the same live sets and within 1e-5 |ref| + 1e-4; xi of
 live utterances within rtol 1e-4, atol 1e-6; xi exactly 0 on dead
 cells), with and without a beam, on banded and dense composites at
 Q = 50, 192, 250 and 1,100, with the live-cell lists in shared and in
-global memory, and HERest on the card trains the same model as on the
+global memory, and in a 4,096-wide launch of one real row (HMMIRest's
+padding at t_real = 0), and HERest on the card trains the same model as on the
 CPU; the maxplus kernel equals its plain version exactly (values and
 first-max arguments, both floor contracts, ties and dead rows), at
 forced chunk counts of the source range too, through ops/maxplus and the
@@ -713,6 +714,25 @@ def test_fb_kernel_matches_plain_on_card(Q, beam, layout):
         assert_scans_agree(got, ref, args[4])
         dead = args[1] <= LZERO / 2
         assert bool((got[3][dead] == 0).all())
+
+
+@pytest.mark.cuda
+def test_fb_kernel_wide_padded_launch_on_card():
+    """HMMIRest's arc launches pad with composite 0 at t_real = 0: one
+    real row in a launch 4,096 wide, the rest copies of its operands that
+    must stay inert (no read at t_real - 1 = -1; logP from alpha_0, as
+    the plain version's)."""
+    need_card()
+    outp, logA, a0, aE, _tr = random_fb_operands(3, B=1, T=32, Q=16)
+    args = [torch.as_tensor(np.repeat(a, 4096, axis=0), device="cuda")
+            .contiguous() for a in (outp, logA, a0, aE)]
+    t_real = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    t_real[0] = 18
+    got = fbs.fb_scans(*args, t_real)
+    ref = fbs.fb_scans_plain(*args, t_real)
+    torch.cuda.synchronize()
+    assert_scans_agree(got, ref, t_real)
+    assert torch.equal(got[2][1:], got[2][1:2].expand(4095))
 
 
 @pytest.mark.cuda
