@@ -1,15 +1,18 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: HCopy's frontend,
 HVite -w recognition and -z lattices, HVite -a forced alignment, HERest,
 HInit and HRest training, HMMIRest (MMI), the DNN hybrid (HNTrainSGD,
-HNForward, HVite -N), HDecode with LV lattices, the demo chain of
-run_demo.sh, every stage, and the uniform-row LV decoder, dense and
-factored, with its lattices.
+HNForward, HVite -N), HDecode with LV lattices, speaker adaptation
+(HERest -K, HHEd RC, HVite and HDecode -J), the demo chain of
+run_demo.sh and the full recipe of run_full.sh, every stage, and the
+uniform-row LV decoder, dense and factored, with its lattices.
 
 Drives htk_tpu_torch's main paths, `htk_tpu_torch.tools.hcopy.run`,
 `htk_tpu_torch.tools.hvite.run` (-w, -z, -a), `tools.herest.run`,
 `tools.hinit.run`, `tools.hrest.run`, `tools.hdecode.run`,
 `tools.hmmirest.run`, `tools.hntrainsgd.run`, `tools.hnforward.run`,
-`hvite.run` -N, `recipes.demo.run_chain` and `algo.decode.decode_batch` and
+`hvite.run` -N, `hhed.run` RC, `herest.run` -K, `hvite.run` and
+`hdecode.run` -J, `recipes.demo.run_chain`, `recipes.full.run_chain`
+and `algo.decode.decode_batch` and
 `generate_lattice_batch` on `compile_lv_loop` networks, on a synthetic
 system at htk_tpu's BASELINE config #4 widths (1,000-word back-off
 bigram, as a word network and as ARPA tables; 40 phones, word-internal
@@ -193,6 +196,28 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      plain at that Q, fb_scans launches and the objective before and
      after one iteration (two iterations run: the second's E step
      scores the first's update)
+ 27. speaker adaptation on the config-4 system at full width, the 16
+     utterances as two speakers (-h 'utt0%*': 10 and 6): HERest -K CMLLR
+     (HADAPT: BLOCKS = 3) on the card and on the CPU path, the TMFs'
+     A and b within 1e-2 of scale (the posteriors come from alphas of
+     magnitude ~3e4 in float32, as phase 6's accumulators), one
+     accumulation pass and one fb_scans launch in each of the 16
+     mix_posteriors_utterance calls, the host seconds of the float64
+     CMLLR statistics and estimates beside the wall, peak device memory;
+     HHEd RC 8, then HERest -K MLLRMEAN through its base classes on the
+     card (the pass and one more a speaker); HVite -J -h with each TMF
+     kind on the card and the CPU path, rec.mlf equal, decode_scan
+     launches one a bucket (CMLLR) and one an utterance (MLLR), walls;
+     HDecode -J -h with the CMLLR TMFs on the card and the CPU path,
+     rec.mlf equal, one maxplus launch a padded frame of each speaker's
+     batch; on utt000, CMLLR-transformed, fb_scans kernel == plain and
+     decode_scan kernel == plain under its speaker's MLLR classes
+     (`model_params`)
+ 28. the full recipe twin (recipes/full.py, every stage of
+     recipes/full/run_full.sh) at the default corpus size: each stage's
+     wall, %Corr and %Acc, the launches of the whole chain; the phase
+     fails when check_results.py's rule fails (a stage more than 3.0
+     below results_expected.md)
  20. one JSON line of kernels, then the device line last
 
 Phase 19 also runs the demo's trigram HDecode stage (LBuild, HDecode
@@ -257,13 +282,15 @@ import torch
 from htk_tpu_torch.algo import decode as dec
 from htk_tpu_torch.algo.decode import (_final_records, _finalize,
                                        _net_outp, decode_operands)
-from htk_tpu_torch.algo import nnet, viterbi
+from htk_tpu_torch.algo import adapt, nnet, viterbi
 from htk_tpu_torch.algo.composite import build_composite
 from htk_tpu_torch.algo.fb import _fb_outp
 from htk_tpu_torch.algo.lvnet import compile_lv_loop
 from htk_tpu_torch.algo.net import compile_network, word_internal_phone_map
 from htk_tpu_torch.algo.trainer import (DeviceCompositeTrainer, Trainer,
-                                        _bucket, prepare_utterance_ids)
+                                        _bucket, make_batches, pad_batch,
+                                        prepare_utterance,
+                                        prepare_utterance_ids)
 from htk_tpu_torch.io.dictionary import read_dict
 from htk_tpu_torch.io import parmkind as pk
 from htk_tpu_torch.io.htkfeat import read_htk_file
@@ -282,15 +309,17 @@ from htk_tpu_torch.ops import xw_gather as xg
 from htk_tpu_torch.ops import xw_route, xw_window
 from htk_tpu_torch.ops.dsp import (FrontendConfig, compute_features,
                                    compute_features_batch)
-from htk_tpu_torch.recipes import demo
+from htk_tpu_torch.recipes import demo, full
 from htk_tpu_torch.recipes.speech import utterance_set, write_wav
 from htk_tpu_torch.synth import (PARM_KIND, lv_system, random_decode_net,
                                  random_fb_operands, random_maxplus_operands,
                                  random_xw_operands, word_accuracy,
                                  write_system, write_word_mlf)
-from htk_tpu_torch.tools import (hcopy, hdecode, herest, hinit, hmmirest,
-                                 hnforward, hntrainsgd, hrest, hvite)
+from htk_tpu_torch.tools import (hcopy, hdecode, herest, hhed, hinit,
+                                 hmmirest, hnforward, hntrainsgd, hrest, hvite)
 from htk_tpu_torch.tools._common import DEVICE_ENV
+from htk_tpu_torch.tools._xfcli import (chain_model_params,
+                                        load_input_transforms)
 from htk_tpu_torch.utils.logmath import LZERO
 
 ATOL = 1e-5
@@ -2975,6 +3004,295 @@ def phase_dnn(sysm, root, card, dev):
     return hk["launches"], d_err, f_err, seq_n
 
 
+ADAPT_MASK = "utt0%*"  # phase 27: speakers "0" (utt000-009), "1" (-015)
+ADAPT_SPEAKERS = {"0": 10, "1": 6}
+RC_CLASSES = 8  # phase 27: HHEd RC's regression classes
+XF_ATOL = 1e-2  # phase 27's TMFs, card against CPU path, of each scale
+
+
+def adapt_groups(sysm):
+    """{speaker: [(feature path, phone names)]} under ADAPT_MASK."""
+    mlf = MLF.load(sysm.train_mlf)
+    groups = {}
+    for path in sysm.feats:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        groups.setdefault(adapt.speaker_from_mask(ADAPT_MASK, path), []
+                          ).append((path, mlf.lookup(f"*/{stem}.lab").names()))
+    sizes = {k: len(v) for k, v in groups.items()}
+    if sizes != ADAPT_SPEAKERS:
+        raise AssertionError(f"-h {ADAPT_MASK}: speakers {sizes}, expected "
+                             f"{ADAPT_SPEAKERS}")
+    return groups
+
+
+def host_batches(comp, utts) -> int:
+    """FB batches of one accumulation pass of the host-composite Trainer
+    (HERest -K's) over [(feature path, phone names)]."""
+    return len(make_batches([prepare_utterance(
+        comp, p, read_htk_file(p).data, names) for p, names in utts],
+        HEREST_BATCH))
+
+
+def xf_close(got_dir, ref_dir, what) -> float:
+    """Two directories of single-transform TMFs: the same files, A and b
+    within XF_ATOL of each array's scale; returns the max |diff|."""
+    names = sorted(os.listdir(ref_dir))
+    if sorted(os.listdir(got_dir)) != names:
+        raise AssertionError(f"{what}: TMFs {os.listdir(got_dir)} against "
+                             f"{names}")
+    err = 0.0
+    for n in names:
+        (_g, xg), (_r, xr) = (adapt.load_tmf(os.path.join(d, n))
+                              for d in (got_dir, ref_dir))
+        for a, b in ((xg.A, xr.A), (xg.b, xr.b)):
+            e = float(np.abs(a - b).max())
+            if e > XF_ATOL * max(float(np.abs(b).max()), 1.0):
+                raise AssertionError(f"{what}: {n} differs by {e}")
+            err = max(err, e)
+    return err
+
+
+def adapt_herest(sysm, out, cfg_text, mmf, where, dev):
+    """HERest -K on `where` over the 16 utterances with -h ADAPT_MASK:
+    (wall, fb_scans launches, fb_scans launches inside each
+    mix_posteriors_utterance call, host seconds in the CMLLR statistics
+    and estimates, peak device memory)."""
+    cfg = out + ".cfg"
+    with open(cfg, "w") as f:
+        f.write(cfg_text)
+    os.makedirs(out)
+    real = herest.mix_posteriors_utterance
+    per_call, host = [], []
+
+    def counted(*a, **k):
+        n0 = fbs.KERNEL.launches
+        r = real(*a, **k)
+        per_call.append(fbs.KERNEL.launches - n0)
+        return r
+
+    argv = ["-C", cfg, "-h", ADAPT_MASK, "-I", sysm.train_mlf, "-H", mmf,
+            "-K", out, "-S", sysm.train_scp, sysm.hmmlist]
+    herest.mix_posteriors_utterance = counted
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        with tool_device(where), \
+                timed_calls(adapt, "cmllr_stats_from_gammas", host), \
+                timed_calls(adapt, "estimate_cmllr", host):
+            t0 = time.perf_counter()
+            rc = herest.run(argv)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+    finally:
+        herest.mix_posteriors_utterance = real
+    if rc != 0:
+        raise RuntimeError(f"HERest -K on {where} returned {rc}")
+    return (wall, fbs.KERNEL.launches, per_call, sum(host),
+            torch.cuda.max_memory_allocated(dev))
+
+
+def adapt_hvite(sysm, root, xf_dir, tag, where, dev):
+    """HVite -J xf_dir -h ADAPT_MASK on `where`: (wall, decode_scan
+    launches, rec.mlf bytes)."""
+    mlf = os.path.join(root, f"rec_{tag}_{where}.mlf")
+    cfg = os.path.join(root, "hvite.cfg")
+    argv = ["-C", cfg, "-w", sysm.wdnet, "-J", xf_dir, "-h", ADAPT_MASK,
+            "-H", sysm.hmmdefs, "-i", mlf, "-s", str(LM_SCALE), "-p",
+            str(WORD_PEN), "-S", sysm.scp, sysm.dict, sysm.hmmlist]
+    reset_counts()
+    with tool_device(where):
+        t0 = time.perf_counter()
+        rc = hvite.run(argv)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"HVite -J ({tag}) on {where} returned {rc}")
+    return wall, ds.KERNEL.launches, _rec_rows(mlf)
+
+
+def phase_adapt(sysm, root, net, comp, card, dev):
+    """Speaker adaptation on the config-4 system at full width, the 16
+    utterances as two speakers (-h ADAPT_MASK: 10 and 6):
+
+      - HERest -K CMLLR (BLOCKS 3) on the card and on the CPU path: the
+        TMFs' A and b within XF_ATOL of scale; on the card one accumulation
+        pass (its host-composite FB batches) and one fb_scans launch in
+        each of the 16 mix_posteriors_utterance calls; the host seconds
+        of the float64 CMLLR statistics and estimates beside the wall;
+        peak device memory;
+      - HHEd RC 8, then HERest -K MLLRMEAN through the base classes
+        (BASECLASS; a regression-class TMF a speaker): on the card, the
+        accumulation pass and one more a speaker;
+      - HVite -J -h with each kind, on the card and on the CPU path:
+        rec.mlf equal; decode_scan launches one a bucket for CMLLR (the
+        features transformed on the host), one an utterance for MLLR
+        (the set adapted a speaker); the walls;
+      - HDecode -J -h with the CMLLR TMFs on the card and on the CPU path
+        (the LV loop, one pass-1 batch a speaker): rec.mlf equal, one
+        maxplus launch a padded frame of each speaker's batch;
+      - on utt000, CMLLR-transformed, the fb_scans kernel against its
+        plain version (its composite's OutP), and the decode_scan kernel
+        against its plain version on the network's OutP under the
+        speaker's MLLR parameters (model_params).
+
+    Returns (launches {kernel: n}, max |d| of fb_scans, of decode_scan)."""
+    groups = adapt_groups(sysm)
+    with open(os.path.join(root, "hvite.cfg"), "w") as f:
+        f.write(f"HREC: DECODEBATCH = {DECODEBATCH}\n")
+    cmllr_cfg = "HADAPT: TRANSKIND = CMLLR\nHADAPT: BLOCKS = 3\n"
+    runs = {w: adapt_herest(sysm, os.path.join(root, f"xf_cmllr_{w}"),
+                            cmllr_cfg, sysm.hmmdefs, w, dev)
+            for w in ("cuda", "cpu")}
+    wall, n_fb, per_call, host_s, peak = runs["cuda"]
+    acc_batches = host_batches(comp, [u for g in groups.values()
+                                      for u in g])
+    if per_call != [1] * N_UTTS or n_fb != acc_batches + N_UTTS:
+        raise AssertionError(f"HERest -K CMLLR: fb_scans launched {n_fb} "
+                             f"times ({per_call} inside the posterior "
+                             f"calls), expected {acc_batches} + one in each "
+                             f"of {N_UTTS} calls")
+    xf_card = os.path.join(root, "xf_cmllr_cuda")
+    xf_err = xf_close(xf_card, os.path.join(root, "xf_cmllr_cpu"),
+                      "HERest -K CMLLR card vs CPU")
+    log(f"HERest -K CMLLR (BLOCKS 3, -h {ADAPT_MASK}: 2 speakers) on "
+        f"{card}: rc 0 in {wall:.3f} s (CPU path {runs['cpu'][0]:.3f} s); "
+        f"fb_scans launches {n_fb} ({acc_batches} accumulation batches + "
+        f"one in each of {len(per_call)} mix_posteriors_utterance calls); "
+        f"host float64 statistics and estimates {host_s:.3f} s "
+        f"({100 * host_s / wall:.1f}% of the wall); TMFs card vs CPU max "
+        f"|d| {xf_err:.3g}; peak device memory {peak / 2**30:.2f} GiB")
+
+    rc_dir = os.path.join(root, "rc")
+    hed = os.path.join(root, "rc.hed")
+    with open(hed, "w") as f:
+        f.write(f"RC {RC_CLASSES} rtree\n")
+    t0 = time.perf_counter()
+    if hhed.run(["-H", sysm.hmmdefs, "-M", rc_dir, hed, sysm.hmmlist]) != 0:
+        raise RuntimeError("HHEd RC returned non-zero")
+    rc_wall = time.perf_counter() - t0
+    rc_mmf = os.path.join(rc_dir, os.path.basename(sysm.hmmdefs))
+    mwall, m_fb, m_calls, _h, m_peak = adapt_herest(
+        sysm, os.path.join(root, "xf_mllr"),
+        "HADAPT: TRANSKIND = MLLRMEAN\nHADAPT: BASECLASS = "
+        f"{os.path.join(rc_dir, 'rtree.cls')}\n", rc_mmf, "cuda", dev)
+    want = acc_batches + sum(host_batches(comp, g) for g in groups.values())
+    if m_fb != want or m_calls:
+        raise AssertionError(f"HERest -K MLLRMEAN: fb_scans launched {m_fb} "
+                             f"times, expected {want}")
+    xf_mllr = os.path.join(root, "xf_mllr")
+    multi = [adapt.load_tmf_classes(os.path.join(xf_mllr, f"{k}.tmf"))
+             for k in sorted(groups)]
+    log(f"HHEd RC {RC_CLASSES} in {rc_wall:.3f} s; HERest -K MLLRMEAN "
+        f"through its base classes on {card}: rc 0 in {mwall:.3f} s, "
+        f"fb_scans launches {m_fb} (the pass and one a speaker), "
+        + ", ".join(f"speaker {k}: {len(x[1])} transforms"
+                    for k, x in zip(sorted(groups), multi))
+        + f"; peak device memory {m_peak / 2**30:.2f} GiB")
+
+    launches = {"fb_scans": n_fb + m_fb}
+    n_buckets = -(-N_UTTS // DECODEBATCH)
+    for tag, xf_dir, want in (("cmllr", xf_card, n_buckets),
+                              ("mllr", xf_mllr, N_UTTS)):
+        k = adapt_hvite(sysm, root, xf_dir, tag, "cuda", dev)
+        c = adapt_hvite(sysm, root, xf_dir, tag, "cpu", dev)
+        if k[1] != want:
+            raise AssertionError(f"HVite -J ({tag}): decode_scan launched "
+                                 f"{k[1]} times, expected {want}")
+        if k[2] != c[2]:
+            raise AssertionError(f"HVite -J ({tag}): the card's rec.mlf "
+                                 "differs from the CPU run's")
+        launches[f"decode_scan {tag}"] = k[1]
+        log(f"HVite -J -h ({tag.upper()}) on {card}: rc 0 in {k[0]:.3f} s "
+            f"(CPU path {c[0]:.3f} s), decode_scan launches {k[1]}, rec.mlf "
+            f"== the CPU run's")
+
+    hd = {}
+    for where in ("cuda", "cpu"):
+        mlf = os.path.join(root, f"rechd_xf_{where}.mlf")
+        reset_counts()
+        with tool_device(where), contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            rc = hdecode.run(["-w", sysm.lm, "-s", str(LM_SCALE), "-p",
+                              str(WORD_PEN), "-J", xf_card, "-h", ADAPT_MASK,
+                              "-i", mlf, "-H", sysm.hmmdefs, "-S", sysm.scp,
+                              sysm.dict, sysm.hmmlist])
+            torch.cuda.synchronize(dev)
+            hd[where] = (time.perf_counter() - t0, mp.KERNEL.launches,
+                         _rec_rows(mlf))
+        if rc != 0:
+            raise RuntimeError(f"HDecode -J on {where} returned {rc}")
+    lens = dict(zip(sysm.feats, sysm.n_frames))
+    want = sum(pad_T([lens[p] for p, _n in g]) for g in groups.values())
+    if hd["cuda"][1] != want or hd["cuda"][2] != hd["cpu"][2]:
+        raise AssertionError(f"HDecode -J: maxplus launched "
+                             f"{hd['cuda'][1]} times (expected {want}), "
+                             f"rec.mlf equal: {hd['cuda'][2] == hd['cpu'][2]}")
+    launches["maxplus"] = hd["cuda"][1]
+    log(f"HDecode -J -h (CMLLR) on {card}: rc 0 in {hd['cuda'][0]:.3f} s "
+        f"(CPU path {hd['cpu'][0]:.3f} s), maxplus launches {want} (one a "
+        f"padded frame of each speaker's batch), rec.mlf == the CPU run's")
+
+    # kernel == plain on one adapted utterance
+    path, names = groups["0"][0]
+    _n, xf = adapt.load_tmf(os.path.join(xf_card, "0.tmf"))
+    x = xf.apply_to_features(read_htk_file(path).data).astype(np.float32)
+    tr = Trainer(comp, device=dev)
+    arrs = {k: torch.as_tensor(v, device=dev) for k, v in pad_batch(
+        [prepare_utterance(comp, path, x, names)], comp.n_states).items()}
+    outp = _fb_outp(arrs["feats"], arrs["comp_state"], arrs["q_mask"],
+                    **tr.params(),
+                    slot_blocks=tuple(comp.slot_blocks) or None)[0]
+    ops = (outp, arrs["logA"], arrs["a0"], arrs["aE"],
+           arrs["t_real"].to(torch.int32))
+    f_err = compare_scans(fbs.fb_scans_cuda(*ops), fbs.fb_scans_plain(*ops),
+                          ops[4], "fb_scans on CMLLR-adapted utt000")
+    chain = load_input_transforms([xf_mllr])["0"]
+    _x, params = chain_model_params(comp, chain, x, (comp.means,
+                                                     comp.variances))
+    scores = dec.scorer_with(comp, dev, model_params=params)(
+        torch.as_tensor(x, device=dev))
+    d_err = decode_hold(net, scores, (LM_SCALE, WORD_PEN),
+                        "decode_scan on utt000 under CMLLR features and "
+                        "its speaker's MLLR classes")
+    log(f"adapted utt000 ({x.shape[0]} frames, Q={outp.shape[2]}): fb_scans "
+        f"kernel == plain (max |d| {f_err:.3g}), decode_scan kernel == plain "
+        f"(max |d| {d_err:.3g})")
+    return launches, f_err, d_err
+
+
+def phase_full(card, dev):
+    """The twin of recipes/full/run_full.sh (recipes/full.py) at the
+    default corpus size in a temporary directory: every stage's wall,
+    %Corr and %Acc; check_results.py's rule (fails the phase when a
+    stage falls more than TOL below results_expected.md); the
+    decode_scan, fb_scans and maxplus launches of the whole chain.
+    Returns those launches."""
+    work = tempfile.mkdtemp(prefix="chip_full_")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        walls, rows = full.run_chain(work, quiet=True)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n = {"decode_scan": ds.KERNEL.launches, "fb_scans": fbs.KERNEL.launches,
+         "maxplus": mp.KERNEL.launches}
+    log(f"full recipe twin on {card}: every stage of run_full.sh in "
+        f"{wall:.2f} s; " + "; ".join(
+            f"{k} %Corr {c:.2f} %Acc {a:.2f} (expected >= "
+            f"{full.EXPECTED[k][1] - full.TOL:.2f})"
+            for k, (c, a) in rows.items())
+        + f"; launches {n}; " + ", ".join(f"{lab} {s:.3f} s"
+                                          for lab, s in walls))
+    bad = full.check(rows)
+    if bad:
+        raise AssertionError("full recipe: " + "; ".join(bad))
+    if not (n["decode_scan"] and n["fb_scans"]):
+        raise AssertionError(f"full recipe: launches {n}")
+    return n
+
+
 def kernel_entry(name, source, replaces, launches, err, times, bnd,
                  library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
@@ -3061,6 +3379,11 @@ def main() -> int:
         dnn_launches, dnn_derr, dnn_ferr, seq_launches = phase_dnn(
             sysm, root, card, dev)
         done("DNN hybrid")
+        ad_launches, ad_ferr, ad_derr = phase_adapt(sysm, root, net, comp,
+                                                    card, dev)
+        done("adaptation")
+        full_launches = phase_full(card, dev)
+        done("full recipe twin")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     dbound = decode_bound(TIMING_B, TIMING_T, net.n_states, net.n_nodes,
@@ -3086,18 +3409,23 @@ def main() -> int:
         f"{arc_bound[1]}); kernel against plain at the new shapes: max "
         f"|d| decode_scan {max(dnn_derr, demo_launches[5]):.3g}, fb_scans "
         f"{max(mmi_err, dnn_ferr, demo_launches[6]):.3g}")
+    log(f"adaptation paths on {card}: launches under phase 27 "
+        f"{ad_launches}, under the full recipe twin {full_launches}; "
+        f"kernel against plain on adapted inputs: max |d| fb_scans "
+        f"{ad_ferr:.3g}, decode_scan {ad_derr:.3g}")
     log(f"chip_smoke: {time.perf_counter() - t_all:.1f} s in all")
     log(card)
     xs = "htk_tpu_torch/csrc/xw_gather.cu"
     print(json.dumps({"kernels": [
         kernel_entry("decode_scan", "htk_tpu_torch/csrc/decode_scan.cu",
                      "htk_tpu/ops/decode_pallas.py:137", launches,
-                     max(err, e2, dnn_derr, demo_launches[5]), (kms, pms),
+                     max(err, e2, dnn_derr, demo_launches[5], ad_derr),
+                     (kms, pms),
                      dbound),
         kernel_entry("fb_scans", "htk_tpu_torch/csrc/fb_scans.cu",
                      "htk_tpu/ops/fb_pallas.py:127", fb_launches,
                      max(fb_err, fb_err2, mmi_err, dnn_ferr,
-                         demo_launches[6]), (fkms, fpms), fbound),
+                         demo_launches[6], ad_ferr), (fkms, fpms), fbound),
         kernel_entry("maxplus", "htk_tpu_torch/csrc/maxplus.cu",
                      "htk_tpu/ops/maxplus_pallas.py:67", mp_launches,
                      max(mp_err, mp_err2), (mkms, mpms), mbound),

@@ -16,7 +16,7 @@ model) are supported: tee chains multiply through so a model may be
 skipped entirely, matching HNet/HFB semantics.
 
 Copied from `htk_tpu/algo/composite.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -50,8 +50,12 @@ batched traceback walks the word-link records on the device and only the
 `state_scores` (T, S_phys), ANN log-posteriors minus log-priors (HVite
 -N), replace the GMM OutP; network states gather their columns, which
 feed the decode kernel on general nets and the uniform scan (its
-`state_mode`) on uniform-row nets. The adaptation hook (`model_params`)
-and the opt-in routed leg (`HTKTPU_XW_ROUTE`) are not taken.
+`state_mode`) on uniform-row nets. `decode`, `generate_lattice` and
+`generate_lattice_batch` take the reference's adaptation hook too:
+`model_params` ({means, variances, gconsts}, HDecode -J) replaces the
+set's Gaussians through a scorer built for the call (`scorer_with`),
+never the one cached on the set (`scorer_for`). The opt-in routed leg
+(`HTKTPU_XW_ROUTE`) is not taken.
 
 Word lattices (HVite -z, HDecode, and -n's N-best source) come from the
 same word-end planes: `generate_lattice` (one utterance, the whole planes
@@ -198,7 +202,9 @@ def _scale_xw3(x3: Optional[dict], lm_scale: float) -> Optional[dict]:
 def scorer_for(comp: CompiledHMMSet, device,
                precision: str = "highest") -> GaussianScorer:
     """The set's packed Gaussians on `device`, built once per
-    (device, precision) and kept on the compiled set."""
+    (device, precision) and kept on the compiled set. Code that changes
+    the set's Gaussians in place drops the cache (`models.hmmset.
+    write_back` and `drop_device_caches`)."""
     cache = getattr(comp, "_torch_scorers", None)
     if cache is None:
         cache = comp._torch_scorers = {}
@@ -207,6 +213,16 @@ def scorer_for(comp: CompiledHMMSet, device,
     if sc is None:
         sc = cache[key] = GaussianScorer(comp, device, precision)
     return sc
+
+
+def scorer_with(comp: CompiledHMMSet, device, precision: str = "highest",
+                model_params: Optional[dict] = None) -> GaussianScorer:
+    """`scorer_for`, or under a `model_params` override ({means,
+    variances, gconsts}) a scorer of its own, built for the call and not
+    cached on the set."""
+    if model_params is None:
+        return scorer_for(comp, device, precision)
+    return GaussianScorer(comp, device, precision, params=model_params)
 
 
 def decode_operands(outp_states: torch.Tensor, net: DecodeNetwork,
@@ -686,11 +702,12 @@ def _result_from_chain(net, words_fwd, score) -> DecodeResult:
     )
 
 
-def _net_outp(net, comp, feats, precision, device) -> torch.Tensor:
+def _net_outp(net, comp, feats, precision, device,
+              model_params=None) -> torch.Tensor:
     """(..., T, Ns) network-state observation log-likelihoods on `device`
-    from frames (..., T, D)."""
+    from frames (..., T, D), under the `model_params` override if given."""
     x = torch.as_tensor(np.asarray(feats, np.float32), device=device)
-    logb = scorer_for(comp, device, precision)(x)
+    logb = scorer_with(comp, device, precision, model_params)(x)
     return logb[..., _net_dev(net, device)["comp_state"]].contiguous()
 
 
@@ -699,12 +716,14 @@ def _as_scores(state_scores, device) -> torch.Tensor:
     return torch.as_tensor(state_scores, dtype=torch.float32, device=device)
 
 
-def _outp_states(net, comp, feats, state_scores, precision, device):
+def _outp_states(net, comp, feats, state_scores, precision, device,
+                 model_params=None):
     """(1, T, Ns) network-state scores of one utterance: the hybrid
     hook's (T, S_phys) `state_scores` gathered on the network's states,
-    or the GMM OutP of `feats`."""
+    or the GMM OutP of `feats` (under `model_params` if given)."""
     if state_scores is None:
-        return _net_outp(net, comp, feats[None], precision, device)
+        return _net_outp(net, comp, feats[None], precision, device,
+                         model_params)
     logb = _as_scores(state_scores, device)
     return logb[:, _net_dev(net, device)["comp_state"]][None].contiguous()
 
@@ -724,12 +743,13 @@ def _lv_chunk(T: int, B: int, Ns: int) -> int:
 
 
 def _lv_scan_body(net, comp, d, precision, max_active, x, lm_scale,
-                  word_pen, beam, state_mode=False):
+                  word_pen, beam, state_mode=False, model_params=None):
     """The uniform-row scan with OutP computed chunk-wise inside the frame
     loop (the full (B, T, Ns) plane is never formed). `state_mode`: x
     holds external state scores (B, T, S_phys), gathered a chunk at a
-    time. Returns the final carry (v, rec) and the word-end record planes
-    WEs/pwns/pwts in (B, T, C) layout (plane t = word ends at time t-1)."""
+    time. `model_params` overrides the Gaussians. Returns the final carry
+    (v, rec) and the word-end record planes WEs/pwns/pwts in (B, T, C)
+    layout (plane t = word ends at time t-1)."""
     S = net.uniform_width
     B, T = x.shape[0], x.shape[1]
     Ns = len(net.comp_state)
@@ -742,7 +762,7 @@ def _lv_scan_body(net, comp, d, precision, max_active, x, lm_scale,
         def scorer(chunk):
             return chunk
     else:
-        scorer = scorer_for(comp, x.device, precision)
+        scorer = scorer_with(comp, x.device, precision, model_params)
     CH = _lv_chunk(T, B, Ns)
     carry = _uniform_init(B, Ns, x.device)
     recs = []
@@ -756,7 +776,7 @@ def _lv_scan_body(net, comp, d, precision, max_active, x, lm_scale,
 
 
 def _lv_pipeline(net, comp, x, t_reals, lm_scale, word_pen, beam,
-                 max_active, precision, state_mode=False):
+                 max_active, precision, state_mode=False, model_params=None):
     """OutP -> scan -> device traceback for frames x (B, T, D) on their
     device (state scores (B, T, S_phys) under `state_mode`); returns the
     (B, 3, T) path plane and the (B,) scores, both on the device. The
@@ -764,14 +784,15 @@ def _lv_pipeline(net, comp, x, t_reals, lm_scale, word_pen, beam,
     d = _net_dev(net, x.device)
     (v, rec), WEs, pwns, pwts = _lv_scan_body(
         net, comp, d, precision, max_active, x, lm_scale, word_pen, beam,
-        state_mode)
+        state_mode, model_params)
     return _traceback_device(v, *_unpack(rec), WEs, pwns, pwts, d["aE"],
                              d["end_exit"] * lm_scale, t_reals,
                              net.uniform_width)
 
 
 def _decode_uniform(net, comp, x, t_reals, lm_scale, word_pen, beam,
-                    max_active, precision, device, state_mode=False):
+                    max_active, precision, device, state_mode=False,
+                    model_params=None):
     # the packed word-link record carries a 15-bit frame field; past it
     # the frame index would overflow into the row bits (callers chunk
     # long utterances before reaching this point)
@@ -783,7 +804,7 @@ def _decode_uniform(net, comp, x, t_reals, lm_scale, word_pen, beam,
     packed, scores = _lv_pipeline(
         net, comp, x, t_reals, float(lm_scale), float(word_pen),
         _BEAM_OFF if beam is None else float(beam), max_active, precision,
-        state_mode)
+        state_mode, model_params)
     p = packed.cpu().numpy()  # (B, 3, T): one transfer for all planes
     return _format_uniform_results(net, p[:, 0], p[:, 1], p[:, 2],
                                    scores.cpu().numpy())
@@ -818,7 +839,7 @@ CHUNK_WINDOW = 2_000
 
 
 def _decode_chunked(net, comp, feats, lm_scale, word_pen, precision, beam,
-                    max_active, device, state_scores=None):
+                    max_active, device, state_scores=None, model_params=None):
     """Decode an over-long utterance on a uniform-row net as concatenated
     chunks (htk_tpu/algo/decode.py : _decode_chunked), from its frames or
     from its hybrid `state_scores`.
@@ -859,7 +880,8 @@ def _decode_chunked(net, comp, feats, lm_scale, word_pen, precision, beam,
         xb[0, :tc] = chunk
         r = _decode_uniform(net, comp, xb, [tc], lm_scale, word_pen, beam,
                             max_active, precision, device,
-                            state_mode=state_scores is not None)[0]
+                            state_mode=state_scores is not None,
+                            model_params=model_params)[0]
         if r is None:
             continue
         any_ok = True
@@ -884,6 +906,7 @@ def decode(
     beam: Optional[float] = None,
     max_active: Optional[int] = None,
     state_scores=None,
+    model_params: Optional[dict] = None,
     *,
     device,
 ) -> Optional[DecodeResult]:
@@ -893,20 +916,22 @@ def decode(
 
     `state_scores` (T, S_phys), numpy or a tensor, replaces the GMM
     observation model: the hybrid-decoding hook (ANN log-posterior minus
-    log-prior scores, HVite -N)."""
+    log-prior scores, HVite -N). `model_params` {means, variances,
+    gconsts} replaces the set's Gaussians: the speaker-adaptation hook
+    (HDecode -J)."""
     T = feats.shape[0]
     if net.uniform_width:
         if T > REC_TMASK:
             return _decode_chunked(net, comp, feats, lm_scale, word_pen,
                                    precision, beam, max_active, device,
-                                   state_scores)
+                                   state_scores, model_params)
         state_mode = state_scores is not None
         x = (_as_scores(state_scores, device) if state_mode else feats)[None]
         return _decode_uniform(net, comp, x, [T], lm_scale, word_pen, beam,
                                max_active, precision, device,
-                               state_mode)[0]
+                               state_mode, model_params)[0]
     outp_states = _outp_states(net, comp, feats, state_scores, precision,
-                               device)
+                               device, model_params)
     (vb, wnb, wtb), (WEs, pwns, pwts) = run_decode_batch(
         outp_states, net, lm_scale, word_pen,
         beam=beam, max_active=max_active,
@@ -1004,7 +1029,7 @@ def decode_batch(
 # nets the batch generator compacts them on the device first
 # (`_lv_lattice_pipeline`: the per-frame top-K, the in-beam records,
 # the ranked finals) and brings only those records to the host. The host
-# walk is numpy copied from htk_tpu/algo/decode.py (`_lattice_from_rec`,
+# walk is numpy copied out of htk_tpu/algo/decode.py (`_lattice_from_rec`,
 # `_host_lm_lookup`, `_host_lm3_lookup`), so the same records give
 # byte-identical SLF.
 
@@ -1145,6 +1170,7 @@ def generate_lattice(
     max_active: Optional[int] = None,
     max_preds: int = 1,
     state_scores=None,
+    model_params: Optional[dict] = None,
     *,
     device,
 ):
@@ -1161,12 +1187,12 @@ def generate_lattice(
 
     `want_result=True` additionally returns the 1-best DecodeResult from
     the same recursion, so HVite -z needs one decode, not two.
-    `state_scores` is the hybrid observation hook, as in `decode`; the
-    reference's `model_params` hook is not taken.
+    `state_scores` and `model_params` are the hybrid and adaptation
+    hooks, as in `decode`.
     """
     T = feats.shape[0]
     outp_states = _outp_states(net, comp, feats, state_scores, precision,
-                               device)
+                               device, model_params)
     (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
         outp_states, net, lm_scale, word_pen,
         beam=beam, max_active=max_active,
@@ -1500,7 +1526,8 @@ def _ranked(key: torch.Tensor, k: int):
 
 
 def _lv_lattice_pipeline(net, comp, x, t_reals, lm_scale, word_pen, beam,
-                         lattice_beam, max_active, precision, k_lat, k_rec):
+                         lattice_beam, max_active, precision, k_lat, k_rec,
+                         model_params=None):
     """The batched lattice front half on uniform-row nets
     (htk_tpu/algo/decode.py : _lv_lattice_pipeline): the uniform-row scan
     with chunk-wise OutP on frames x (B, T, D), then on the device
@@ -1525,7 +1552,8 @@ def _lv_lattice_pipeline(net, comp, x, t_reals, lm_scale, word_pen, beam,
     d = _net_dev(net, x.device)
     S = net.uniform_width
     (v, rec), WEs, pwns, pwts = _lv_scan_body(
-        net, comp, d, precision, max_active, x, lm_scale, word_pen, beam)
+        net, comp, d, precision, max_active, x, lm_scale, word_pen, beam,
+        model_params=model_params)
     B, T, C = WEs.shape
     dev = x.device
     ev = (v + d["aE"][None]).reshape(B, C, S)
@@ -1602,6 +1630,7 @@ def generate_lattice_batch(
     max_preds: int = 1,
     want_results: bool = False,
     stats: Optional[dict] = None,
+    model_params: Optional[dict] = None,
     *,
     device,
 ):
@@ -1625,8 +1654,10 @@ def generate_lattice_batch(
     pruned chain records resurrect from the planes left on the device).
     `stats`, when given, receives each uniform batch's counts: in-beam
     records, records kept, overflowing utterances, resurrection gathers
-    and records resurrected (summed over calls). The reference's
-    `state_scores_list` and `model_params` hooks are not taken.
+    and records resurrected (summed over calls). `model_params` is the
+    adaptation hook, as in `decode`, for the whole bucket (HDecode
+    batches by speaker). The reference's `state_scores_list` hook is not
+    taken.
     """
     B = len(feats_list)
     lens = [int(f.shape[0]) for f in feats_list]
@@ -1640,7 +1671,7 @@ def generate_lattice_batch(
     for b, f in enumerate(feats_list):
         fb[b, : lens[b]] = f
     if not net.uniform_width:
-        outp = _net_outp(net, comp, fb, precision, device)
+        outp = _net_outp(net, comp, fb, precision, device, model_params)
         (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
             outp, net, lm_scale, word_pen, beam=beam, max_active=max_active)
         return lattices_from_planes(
@@ -1652,7 +1683,7 @@ def generate_lattice_batch(
         net, comp, x, lens, float(lm_scale), float(word_pen),
         _BEAM_OFF if beam is None else float(beam), float(lattice_beam),
         max_active, precision,
-        LAT_TOPK if k_lat is None else int(k_lat), int(k_rec))
+        LAT_TOPK if k_lat is None else int(k_lat), int(k_rec), model_params)
     K, M = r["K"], r["M"]
     st = {"in_beam": 0, "kept": 0, "overflow": 0, "gathers": 0,
           "resurrected": 0}

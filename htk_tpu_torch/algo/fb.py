@@ -18,9 +18,11 @@ batch dimension itself. `forward_scan`, `backward_scan` and `xi_scan` are
 the plain version of the scans kernel. For MMI's arc batches
 (tools/hmmirest.py) `fb_batch` takes per-utterance `weights` and
 `gather_outp`, which scores only the Gaussians each composite touches,
-and `loglik_batch` is the forward scan's logP alone. Not ported yet: the
+and `loglik_batch` is the forward scan's logP alone.
+`mix_posteriors_utterance` gives one utterance's per-frame Gaussian
+posteriors, the adaptation statistics of HERest -K. Not ported yet: the
 FULLC scorer, the second channel of single-pass retraining (-r), and
-`fb_utterance` and `mix_posteriors_utterance` (adaptation).
+`fb_utterance`.
 """
 
 from __future__ import annotations
@@ -312,6 +314,54 @@ def fb_batch(feats, t_real, comp_state, q_mask, logA, a0, aE, tr_seg,
         total_frames=torch.sum(t_real.to(torch.float32) * ok),
         n_utts=torch.sum(ok))
     return logps, summed
+
+
+def mix_posteriors_utterance(feats, t_real, comp_state, q_mask, logA, a0,
+                             aE, *, means, variances, gconsts, state_mix,
+                             state_logw, state_sw=None, slot_blocks=None,
+                             precision: str = "highest"):
+    """Per-frame physical-Gaussian posteriors gamma (T, M) of one
+    utterance, the statistics of speaker adaptation (HERest -K): the
+    front half of the forward-backward pass, as in the reference
+    (htk_tpu/algo/fb.py : mix_posteriors_utterance).
+
+    feats (T, D), t_real (), the composite's comp_state (Q,), q_mask (Q,),
+    logA (Q, Q), a0/aE (Q,); the state tables carry the trailing trash
+    row. OutP comes from `_fb_outp`, the scans from one `fb_scans` launch
+    (the kernel on the card; no beam, as the reference has none), and the
+    slot posteriors normalise by their own stream's b_js before one
+    `index_add_` scatters them onto the M physical Gaussians. Returns
+    (logP (), gamma (T, M)); frames at t >= t_real are zero."""
+    T = feats.shape[0]
+    M = means.shape[0]
+    maxmix = state_mix.shape[1]
+    Q = comp_state.shape[0]
+    blocks = list(slot_blocks) if slot_blocks else [(0, maxmix)]
+    t_real = t_real.reshape(1).to(torch.int32)
+    outp, gathered, b_stream = _fb_outp(
+        feats[None], comp_state[None], q_mask[None], means=means,
+        variances=variances, gconsts=gconsts, state_mix=state_mix,
+        state_logw=state_logw, state_sw=state_sw, slot_blocks=slot_blocks,
+        precision=precision)
+    alphas, betas, logp, _xi = _scans.fb_scans(
+        outp, logA[None].contiguous(), a0[None].contiguous(),
+        aE[None].contiguous(), t_real.contiguous(), None)
+    cs = comp_state.long()
+    st_mix = state_mix[cs]  # (Q, n_slots)
+    gamma = (alphas + betas - logp[:, None, None])[0]  # (T, Q)
+    if len(blocks) == 1:
+        bnorm = b_stream[0][0][..., None]
+    else:
+        bnorm = torch.cat([bs[0][..., None].expand(T, Q, j1 - j0)
+                           for (j0, j1), bs in zip(blocks, b_stream)], dim=2)
+    l_log = gamma[..., None] + state_logw[cs][None] + gathered[0] - bnorm
+    l_log = torch.where((st_mix >= 0)[None], l_log, LZERO)
+    t_mask = (torch.arange(T, device=feats.device) < t_real).to(feats.dtype)
+    L = exp_or_zero(l_log) * t_mask[:, None, None]  # (T, Q, n_slots)
+    flat_mix = torch.where(st_mix >= 0, st_mix, M).reshape(-1)
+    gamma_m = L.new_zeros((M + 1, T)).index_add_(
+        0, flat_mix.long(), L.reshape(T, Q * maxmix).T)
+    return logp[0], gamma_m[:M].T
 
 
 def loglik_batch(feats, t_real, comp_state, q_mask, logA, a0, aE, *, means,

@@ -5,7 +5,7 @@ farthest-point seeding then Lloyd iterations. Host numpy — this runs once
 at initialisation on tiny data; the hot path is elsewhere.
 
 Copied from `htk_tpu/algo/kmeans.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -9,7 +9,7 @@ Arc score = aclike + lmscale * lmlike + wdpenalty (penalty applied to
 arcs that terminate a word instance, i.e. whose end node carries a word).
 
 Copied from `htk_tpu/algo/latops.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -30,7 +30,7 @@ Copied whole from `htk_tpu/algo/lvnet.py` into the PyTorch port: host
 code, numpy only, behaviour unchanged, so the same network compiles in
 both packages. The port's decoder runs every cross-word form: dense,
 factored (`xw_backoff`) and trigram-guided (`xw_trigram`). The port
-cannot import htk_tpu, whose utils package pulls in JAX.
+cannot use htk_tpu, whose utils package pulls in JAX.
 """
 
 from __future__ import annotations

@@ -30,7 +30,7 @@ price of the dense banded layout; fine up to medium vocabularies,
 large-vocab sharing is a later round. [LC]
 
 Copied from `htk_tpu/algo/net.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -16,7 +16,7 @@ with var_d(S) the occupancy-weighted pooled variance. Split gain =
 L(yes) + L(no) - L(parent).
 
 Copied from `htk_tpu/algo/tree.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

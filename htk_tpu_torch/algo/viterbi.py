@@ -53,14 +53,12 @@ def state_outp_for(comp: CompiledHMMSet, feats: torch.Tensor,
                    precision: str = "highest") -> torch.Tensor:
     """(T, Q) observation log-likelihoods of the composite's states for
     frames (T, D), on the frames' device (htk_tpu/algo/viterbi.py :
-    state_outp_for with an all-true q_mask)."""
+    state_outp_for with an all-true q_mask). Multi-stream sets sum their
+    stream blocks, each raised to its stream weight, in the scorer."""
     from .decode import scorer_for
 
     if comp.discrete:
         HError(7331, "align: discrete HMM sets are not ported to "
-                     "htk_tpu_torch")
-    if len(comp.slot_blocks) > 1:
-        HError(7331, "align: multi-stream HMM sets are not ported to "
                      "htk_tpu_torch")
     logb = scorer_for(comp, feats.device, precision)(feats)
     return logb[:, comp_state]

@@ -1,5 +1,5 @@
 """Carry a compiled HMM set, a decode network, an n-gram LM, an ANN and
-accumulators across from htk_tpu.
+accumulators across to the port out of htk_tpu.
 
 The JAX package's `CompiledHMMSet` (models/hmmset.py) and `DecodeNetwork`
 (algo/net.py) hold numpy arrays; the port's copies of those modules

@@ -9,7 +9,7 @@ defaults to the word itself; `[]` suppresses output (HTK convention for
 silence words).
 
 Copied from `htk_tpu/io/dictionary.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -28,7 +28,7 @@ lines are skipped until `endHeader`) and writing sticks to the subset
 above. Byte parity is untested against real Entropic files.
 
 Copied from `htk_tpu/io/esignal.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

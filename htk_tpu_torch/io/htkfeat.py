@@ -24,7 +24,7 @@ byte-verified against the (absent) reference; reads of foreign files treat a
 mismatch as a warning, and our own write/read round-trips are exact.
 
 Copied from `htk_tpu/io/htkfeat.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

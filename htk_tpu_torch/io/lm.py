@@ -5,7 +5,7 @@ ARPA back-off files up to trigram. Log probs in the file are base-10
 (ARPA convention); accessors return natural logs (HTK works in ln).
 
 Copied from `htk_tpu/io/lm.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX. The native ARPA codec (htk_tpu/native) is
 left out: `read_arpa` always takes the Python reader, which builds the
 same dicts (`PackedNGramLM` stays for the binary reader).

@@ -14,7 +14,7 @@ Source label formats (SOURCELABEL / -G): HTK, TIMIT, ESPS and
 SCRIBE/SAM — see `load_label_file`.
 
 Copied from `htk_tpu/io/mlf.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

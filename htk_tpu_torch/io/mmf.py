@@ -27,7 +27,7 @@ like HModel.c's binForm flag. [LC: exact symbol codes reconstructed from
 canonical HTK 3.4.1; byte-check against the reference when it appears.]
 
 Copied from `htk_tpu/io/mmf.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -11,7 +11,7 @@ qualifier bits (HTK defines these in octal; hex here):
   _C 0x400  is compressed           _T 0x8000  has third derivatives
 
 Copied from `htk_tpu/io/parmkind.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

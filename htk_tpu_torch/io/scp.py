@@ -9,7 +9,7 @@ Mirrors `HTKLib/HShell.c` extended-filename handling used by HParm/HWave:
   logical=path[s,e]     both combined
 
 Copied from `htk_tpu/io/scp.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

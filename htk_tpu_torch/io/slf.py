@@ -13,7 +13,7 @@ Words may sit on nodes (W= on I lines) or on arcs (W= on J lines); both
 forms round-trip. Times are seconds; scores are natural-log.
 
 Copied from `htk_tpu/io/slf.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

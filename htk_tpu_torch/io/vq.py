@@ -12,7 +12,7 @@ then one line per node: stream vq_id node_id left_id right_id followed by
 the mean vector. [LC] byte-parity with HTK .vq files unverified.
 
 Copied from `htk_tpu/io/vq.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -13,7 +13,7 @@ audio, plus ESIG waveforms via io/esignal.py; writes HTK and WAV.
 The TIMIT/OGI/SDES1/ESIG header layouts are [LC] pending the reference.
 
 Copied from `htk_tpu/io/wavefile.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

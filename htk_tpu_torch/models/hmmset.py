@@ -17,8 +17,9 @@ Only single-stream DIAGC sets are compiled for device use in this round
 load/save via io.mmf.
 
 Copied from `htk_tpu/models/hmmset.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
-utils package pulls in JAX.
+only, behaviour unchanged. The port cannot use htk_tpu, whose
+utils package pulls in JAX. `write_back` also drops the device scorers
+cached on the set (`drop_device_caches`).
 """
 
 from __future__ import annotations
@@ -435,6 +436,16 @@ def write_back_discrete(comp: CompiledHMMSet, table_logp: np.ndarray) -> HMMSet:
     return comp._hset
 
 
+def drop_device_caches(comp: CompiledHMMSet) -> None:
+    """Forget the device copies of the set's Gaussians (the scorers that
+    algo/decode.scorer_for keeps on the set), so the next use packs its
+    current arrays. Every in-place change to means, variances, gConsts
+    or the full-covariance factors calls this. (A compiled network's
+    device tables hold its own topology and transitions, taken when it
+    was compiled, and no Gaussian, so they stay.)"""
+    comp.__dict__.pop("_torch_scorers", None)
+
+
 def write_back(
     comp: CompiledHMMSet,
     means: Optional[np.ndarray] = None,
@@ -452,6 +463,7 @@ def write_back(
     if comp.full_cov and (means is not None or variances is not None):
         HError(7060, "write_back: full-covariance sets are decode/align-"
                      "only here — train/adapt with DIAGC models")
+    drop_device_caches(comp)
     if means is not None or variances is not None:
         import math as _math
 

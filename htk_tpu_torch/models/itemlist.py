@@ -13,7 +13,7 @@ Returns typed item tuples the HHEd commands operate on. Name patterns use
 HTK wildcards (* and ?) matched against model names.
 
 Copied from `htk_tpu/models/itemlist.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

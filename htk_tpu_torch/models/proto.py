@@ -4,7 +4,7 @@ Builds left-to-right prototype HMMs programmatically — what HTK recipes
 keep as a hand-written `proto` MMF consumed by HCompV (HTKBook tutorial).
 
 Copied from `htk_tpu/models/proto.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

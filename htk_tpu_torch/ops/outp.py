@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.errors import HError
 from ..utils.logmath import LZERO, ladd_reduce
 
 
@@ -135,9 +136,15 @@ class GaussianScorer(nn.Module):
     state tables `state_mix`/`state_logw` (+ `state_sw` for multi-stream
     sets). forward(x) maps frames (..., T, D) to state log-likelihoods
     (..., T, S), as `all_state_outp` does.
+
+    `params` ({means, variances, gconsts}, numpy) replaces a diagonal
+    set's Gaussians: the speaker-adaptation override of the decoders'
+    `model_params` hook. The set's own arrays are read as they are when
+    the scorer is built; a scorer does not follow later changes to them.
     """
 
-    def __init__(self, comp, device, precision: str = "highest"):
+    def __init__(self, comp, device, precision: str = "highest",
+                 params: Optional[dict] = None):
         super().__init__()
 
         def f32(a):
@@ -146,12 +153,18 @@ class GaussianScorer(nn.Module):
         self.precision = precision
         self.full_cov = bool(comp.full_cov)
         if self.full_cov:
+            if params is not None:
+                HError(7450, "GaussianScorer: parameter overrides need a "
+                             "diagonal set")
             self.register_buffer("fc_proj", f32(comp.fc_proj))
             self.register_buffer("fc_mu", f32(comp.fc_mu))
             self.register_buffer("gconsts", f32(comp.gconsts))
         else:
-            Wt, c = pack_gaussians(f32(comp.means), f32(comp.variances),
-                                   f32(comp.gconsts))
+            g = ((comp.means, comp.variances, comp.gconsts)
+                 if params is None else (params["means"],
+                                         params["variances"],
+                                         params["gconsts"]))
+            Wt, c = pack_gaussians(*(f32(a) for a in g))
             self.register_buffer("Wt", Wt)
             self.register_buffer("c", c)
         self.register_buffer("state_mix", torch.as_tensor(

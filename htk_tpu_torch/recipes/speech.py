@@ -8,13 +8,13 @@ here so that the port's demo corpus (recipes/demo.py) needs nothing
 outside htk_tpu_torch. The same phones and seed give the same samples.
 
 `synth_words`/`write_wav` are the corpus helpers of
-`recipes/demo/make_corpus.py`, and `utterance_set` draws a set of longer
-utterances over the same vowels (the chip check's HCopy set).
+`recipes/demo/make_corpus.py` (`synth_words` also those of
+`recipes/full/make_corpus.py`, whose speakers differ in formant scale and
+pitch), and `utterance_set` draws a set of longer utterances over the same
+vowels (the chip check's HCopy set).
 """
 
 import struct
-
-import numpy as np
 
 import numpy as np
 
@@ -31,13 +31,19 @@ VOWELS = {
 
 
 def synth_speech(phones, dur_s=0.18, trans_s=0.03, f0_start=125.0,
-                 f0_end=90.0, seed=12345):
+                 f0_end=90.0, seed=12345, formant_scale=1.0):
     """Source-filter synthesis with formant transitions.
 
     phones: list of vowel names or 'sil'.  dur_s: seconds per phone —
     a scalar or a per-phone sequence (variable durations make forced
-    alignment non-trivial).  Returns float64 samples in int16 range.
+    alignment non-trivial).  `formant_scale` multiplies every formant
+    frequency (a speaker's vocal-tract length, as recipes/full/
+    make_corpus.py scales the table).  Returns float64 samples in int16
+    range.
     """
+    vowels = VOWELS if formant_scale == 1.0 else {
+        k: ([f * formant_scale for f in fs], bs)
+        for k, (fs, bs) in VOWELS.items()}
     rng = np.random.default_rng(seed)
     n_ph = len(phones)
     durs = np.full(n_ph, dur_s, float) if np.isscalar(dur_s) \
@@ -50,7 +56,7 @@ def synth_speech(phones, dur_s=0.18, trans_s=0.03, f0_start=125.0,
     # silence keeps the neighbouring vowel's target (no discontinuity).
     def track(fidx, kind):
         knots_t = [(bounds[i] + bounds[i + 1]) / 2.0 for i in range(n_ph)]
-        knots_v = [None if p == "sil" else VOWELS[p][kind][fidx]
+        knots_v = [None if p == "sil" else vowels[p][kind][fidx]
                    for p in phones]
         vals = [v for v in knots_v if v is not None]
         prev = vals[0] if vals else 500.0
@@ -120,12 +126,15 @@ def synth_speech(phones, dur_s=0.18, trans_s=0.03, f0_start=125.0,
 
 
 
-def synth_words(phs, rng):
+def synth_words(phs, rng, formant_scale=1.0, f0_start=125.0, f0_end=90.0):
     """One demo utterance: 80 ms silences, vowels of 120-220 ms drawn
-    from `rng`, int16 samples (make_corpus.py : synth)."""
+    from `rng`, int16 samples (make_corpus.py : synth); the full recipe's
+    speakers give their formant scale and pitch."""
     durs = [0.08 if p == "sil" else float(rng.uniform(0.12, 0.22))
             for p in phs]
-    x = synth_speech(phs, dur_s=durs, seed=int(rng.integers(1 << 31)))
+    x = synth_speech(phs, dur_s=durs, f0_start=f0_start, f0_end=f0_end,
+                     seed=int(rng.integers(1 << 31)),
+                     formant_scale=formant_scale)
     return x.astype(np.int16)
 
 

@@ -16,7 +16,7 @@ Usage: HBuild [options] wordList latFile
   Standard: -A -C -D -S -T -V
 
 Copied from `htk_tpu/tools/hbuild.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

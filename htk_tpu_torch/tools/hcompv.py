@@ -15,7 +15,7 @@ Usage: HCompV [options] hmmfile trainfiles...
   Standard: -A -C -D -S -T -V
 
 Copied from `htk_tpu/tools/hcompv.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -17,7 +17,7 @@ Config: TARGETKIND, SOURCEFORMAT, SOURCERATE, SAVECOMPRESSED (_C),
 SAVEWITHCRC (_K), plus all HPARM frontend keys.
 
 Copied from `htk_tpu/tools/hcopy.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX. The waveform frontend runs in torch on the
 tool's device (tools/_common.default_device): the CUDA card, or the CPU
 when HTK_TPU_TORCH_DEVICE=cpu asks for it.

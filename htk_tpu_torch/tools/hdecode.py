@@ -35,6 +35,8 @@ Usage: HDecode [options] dictFile hmmList testFiles...
   -u n      max active word-ends per frame (histogram pruning; 0 = off)
   -n f      lattice beam (default 250)
   -o flags  output label format (accepted)
+  -J dir    input transform dir (repeatable)   -h mask  speaker mask
+  -k        the MMF's own input transform (~a) is the base of each chain
   Standard: -A -C -D -S -T -V
 
 The port of `htk_tpu/tools/hdecode.py`. Pass 1 runs on
@@ -43,11 +45,16 @@ HTK_TPU_TORCH_DEVICE=cpu asks for it): on LV nets (the uniform-row loop
 of algo/lvnet) the cross-word step launches the maxplus kernel on dense
 nets and segmax on factored ones; below the LV threshold the general
 network's recursion is the decode_scan kernel. Pass 2 (latops) is host
-code. Adaptation (-J, -k, -h) is not ported yet and raises HError 3290,
-as the port's HVite does; nor are the reference's `model_params` and
-`preload_corpus` hooks. Under -T the batched pass 1 prints its lattice
-records: in beam, kept, overflowing utterances (8523) and the gathers
-that resurrected beam-pruned predecessors.
+code. Input transforms (-J, -k, -h; tools/_xfcli.py): feature-space
+(CMLLR) legs apply to the features on the host; model-space legs become
+per-speaker `model_params` overrides of the decoder, derived once a
+speaker, and pass 1 batches utterances by (speaker, length) so each
+bucket has one speaker's parameters. Chains that would promote the
+scorer to full covariance are refused (HError 7450), as in the
+reference. The reference's `preload_corpus` hook is not taken. Under -T
+the batched pass 1 prints its lattice records: in beam, kept,
+overflowing utterances (8523) and the gathers that resurrected
+beam-pruned predecessors.
 
 Config: HTKTPU: LVDECODE = T/F forces/disables the uniform-row LV
 network (default: auto, on when the vocabulary has >= 800 words);
@@ -63,6 +70,7 @@ from typing import List
 
 import numpy as np
 
+from ..algo.adapt import load_tmf_text, speaker_from_mask
 from ..algo.decode import generate_lattice, generate_lattice_batch
 from ..algo.latops import best_path_trigram
 from ..algo.lvnet import compile_lv_loop
@@ -78,6 +86,8 @@ from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
 from ..utils.metrics import maybe_profile
 from ._common import default_device, open_speech_file, outp_precision
+from ._xfcli import (chain_feature_data, chain_model_params,
+                     load_input_transforms, resolve_chain)
 
 USAGE = ("Usage: python -m htk_tpu_torch.tools.hdecode [options] dictFile "
          "hmmList testFiles...")
@@ -101,16 +111,9 @@ OPTS = {
 
 LV_VOCAB_THRESHOLD = 800
 
-_NOT_PORTED = {"J": "input transforms", "k": "input transforms",
-               "h": "speaker masks"}
-
 
 def run(argv: List[str]) -> int:
     ta = parse_args("HDecode", argv, OPTS, min_args=2, usage=USAGE)
-    for opt, what in _NOT_PORTED.items():
-        if ta.has(opt):
-            HError(3290, "HDecode: -%s (%s) is not yet ported to "
-                         "htk_tpu_torch", opt, what)
     cfg = ta.config
     dict_file, hmm_list_file = ta.args[0], ta.args[1]
     files = ta.script + ta.args[2:]
@@ -235,19 +238,58 @@ def run(argv: List[str]) -> int:
     out_mlf_path = ta.get("i")
     out_mlf = MLF() if out_mlf_path else None
 
-    # pass 1 runs batched on LV nets: utterances are bucketed by length
-    # and each bucket goes through one scan and one compacted record
-    # fetch (generate_lattice_batch), HDecode.c's sequential file loop
-    # replaced by the batch pipeline; identical lattices per utterance
-    # (tested). Pass 2 and the rescoring stay per utterance (host DP).
-    entries, featl = [], []
+    # input adaptation transforms (-J): per-speaker chains; feature-space
+    # CMLLR applies to the features per utterance, model-space transforms
+    # become per-speaker parameter overrides of the decoder
+    xforms = load_input_transforms(ta.get_all("J"), ta.trace, "HDecode")
+    spk_mask = ta.get("h")
+    # -k: the model set's own ~a input transform (HHEd XF) becomes the
+    # base of every utterance's chain
+    base_xf = None
+    if ta.has("k") and hset.input_xform:
+        _bnm, base_xf = load_tmf_text(hset.input_xform)
+        if not xforms:
+            xforms = {"global": [base_xf]}
+            base_xf = None
+    xf_base = ((comp.means.copy(), comp.variances.copy())
+               if xforms else None)
+    spk_params: dict = {}
+
+    def adapt(logical, data):
+        """Returns (data, speaker key); caches per-speaker params."""
+        if not xforms:
+            return data, None
+        spk = (speaker_from_mask(spk_mask, logical) if spk_mask
+               else "_single")
+        chain = resolve_chain(xforms, spk_mask, logical, "HDecode")
+        if base_xf is not None:
+            chain = [base_xf] + list(chain)
+        if spk in spk_params:
+            # model-space params are per-speaker and already derived;
+            # only the feature-space legs touch per-utterance data
+            return chain_feature_data(chain, data), spk
+        data, params = chain_model_params(comp, chain, data, xf_base,
+                                          "HDecode")
+        spk_params[spk] = params
+        return data, spk
+
+    # pass 1 runs batched on LV nets: utterances are bucketed by
+    # (speaker, length) and each bucket goes through one scan and one
+    # compacted record fetch (generate_lattice_batch), HDecode.c's
+    # sequential file loop replaced by the batch pipeline; identical
+    # lattices per utterance (tested). Pass 2 and the rescoring stay per
+    # utterance (host DP).
+    entries, featl, spks = [], [], []
     for fn in files:
         data, _p, _k, e = open_speech_file(fn, cfg)
+        data, spk = adapt(e.logical, np.asarray(data))
         entries.append(e)
         featl.append(np.asarray(data))
+        spks.append(spk)
     lats: List = [None] * len(files)
     if use_lv and len(files) > 1:
-        order = sorted(range(len(featl)), key=lambda i: featl[i].shape[0])
+        order = sorted(range(len(featl)),
+                       key=lambda i: (str(spks[i]), featl[i].shape[0]))
         bsz = int(cfg.int_("DECODEBATCH", 0, module="HREC") or 0)
         if not bsz:
             # auto: 3 f32/int32 record planes (B, T, C) within ~4 GB
@@ -256,14 +298,21 @@ def run(argv: List[str]) -> int:
             bsz = max(1, min(64, (4 << 30) // (t_pad * net.n_chains * 12)))
         stats: dict = {}
         with maybe_profile(cfg, "HDecode"):
-            for i0 in range(0, len(order), bsz):
-                idx = order[i0:i0 + bsz]
+            i0 = 0
+            while i0 < len(order):
+                idx = [order[i0]]
+                while (len(idx) < bsz and i0 + len(idx) < len(order)
+                       and spks[order[i0 + len(idx)]] == spks[idx[0]]):
+                    idx.append(order[i0 + len(idx)])
+                i0 += len(idx)
                 ls = generate_lattice_batch(
                     net, comp, [featl[j] for j in idx], lm_scale,
                     word_pen, lattice_beam=lat_beam,
                     frame_period_s=period / 1e7, beam=main_beam,
                     max_active=max_active, precision=prec,
-                    max_preds=lat_preds, stats=stats, device=device)
+                    max_preds=lat_preds, stats=stats,
+                    model_params=spk_params.get(spks[idx[0]]),
+                    device=device)
                 for j, lt in zip(idx, ls):
                     lats[j] = lt
         if ta.trace:
@@ -278,7 +327,8 @@ def run(argv: List[str]) -> int:
                 net, comp, data, lm_scale, word_pen, lattice_beam=lat_beam,
                 frame_period_s=period / 1e7, beam=main_beam,
                 max_active=max_active, precision=prec,
-                max_preds=lat_preds, device=device)
+                max_preds=lat_preds, model_params=spk_params.get(spks[j]),
+                device=device)
 
     # HFB.c-style retry escalation on the pass-1 beam (the decoder
     # analogue of HERest's -t retry ladder): an utterance whose pruned
@@ -305,12 +355,13 @@ def run(argv: List[str]) -> int:
                     net, comp, featl[j], lm_scale, word_pen,
                     lattice_beam=lat_beam, frame_period_s=period / 1e7,
                     beam=b, max_active=ma, precision=prec,
-                    max_preds=lat_preds, device=device)
+                    max_preds=lat_preds,
+                    model_params=spk_params.get(spks[j]), device=device)
                 if lt is not None:
                     lats[j] = lt
                     break
 
-    for e, data, lat in zip(entries, featl, lats):
+    for e, data, lat, spk in zip(entries, featl, lats, spks):
         stem = os.path.splitext(os.path.basename(e.logical))[0]
         tr = Transcription(alternatives=[[]])
         if lat is None:
@@ -325,7 +376,8 @@ def run(argv: List[str]) -> int:
                 lat2 = generate_lattice(
                     xnet, comp, data, lm_scale, word_pen,
                     lattice_beam=lat_beam, frame_period_s=period / 1e7,
-                    precision=prec, device=device)
+                    precision=prec, model_params=spk_params.get(spk),
+                    device=device)
                 if lat2 is not None:
                     lat = lat2
             if ta.has("z"):

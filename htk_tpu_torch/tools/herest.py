@@ -24,27 +24,48 @@ Usage: python -m htk_tpu_torch.tools.herest [options] hmmList [accFiles...]
   -p N     parallel mode (above)                -v f    minimum variance
   -w f     mixture weight floor (accepted)      -s file write stats file
   -b n     utterances per FB batch (default 8)  -B      binary MMF output
+  -K dir   estimate adaptation transforms (HADAPT: TRANSKIND = MLLRMEAN,
+           CMLLR or MLLRCOV; BLOCKS, BASECLASS, OCCTHRESH, MLLRVAR,
+           NUMREGCLASSES) instead of updating models: one TMF per -h
+           speaker, or global.tmf without -h
+  -J dir   input transform directory (with -a)  -h mask speaker mask
+  -a       apply input transforms during accumulation: CMLLR in feature
+           space (fMLLR-SAT), MLLR mean/variance per speaker group in
+           model space (each group accumulates against its adapted
+           parameters; the canonical model updates from summed stats)
   Standard: -A -C -D -S -T -V
 
 Config: HTKTPU: DEVICECOMPOSITE (default T: composites assembled on the
 device from model ids; F: built on the host), HTKTPU: PRECISION,
-HTKTPU: METRICS, HTKTPU: PROFILE. The device is the CUDA card, or the CPU
-when HTK_TPU_TORCH_DEVICE=cpu asks for it (tools/_common.py).
+HTKTPU: METRICS, HTKTPU: PROFILE, HMAP: MAPTAU (> 0: MAP mean update,
+algo/adapt.map_update). The device is the CUDA card, or the CPU when
+HTK_TPU_TORCH_DEVICE=cpu asks for it (tools/_common.py).
+
+Transform estimation (-K) takes host-built composites: CMLLR and MLLRCOV
+read each utterance's Gaussian posteriors (algo/fb.
+mix_posteriors_utterance: one fb_scans launch an utterance, the kernel on
+the card) and sum their statistics on the host in float64, as the
+reference does; MLLRMEAN reads the Baum-Welch accumulators, summed again
+per speaker when there is more than one.
 
 Not yet ported, each refused with HError 2390: single-pass retraining
-(-r), input transforms and adaptation (-a, -J, -K, -h), FULLC and
-DISCRETE sets, and MAP updates (HMAP: MAPTAU > 0).
+(-r), and FULLC and DISCRETE sets.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 from typing import List
 
 import numpy as np
 
+import torch
+
+from ..algo import adapt
+from ..algo.fb import mix_posteriors_utterance
 from ..algo.reestimate import UpdateFlags, reestimate
-from ..algo.trainer import (DeviceCompositeTrainer, Trainer,
+from ..algo.trainer import (DeviceCompositeTrainer, Trainer, pad_batch,
                             prepare_utterance, prepare_utterance_ids)
 from ..io.mlf import MLF, find_labels
 from ..io.mmf import load_hmm_list, load_mmf, save_mmf
@@ -79,13 +100,7 @@ OPTS = {
     "r": Option("r", 0, "single-pass retraining (paired script)"),
 }
 
-_NOT_PORTED = {
-    "r": "single-pass retraining",
-    "a": "input transforms",
-    "J": "input transforms",
-    "K": "adaptation transform estimation",
-    "h": "speaker masks",
-}
+_NOT_PORTED = {"r": "single-pass retraining"}
 
 
 def _not_ported(what: str):
@@ -126,8 +141,31 @@ def _prune_setting(ta):
     return prune
 
 
+def _input_transforms(ta):
+    """-a -J: {speaker key: TMF} from every *.tmf under the -J
+    directories, a multi-class TMF as its (name, xforms, class_to_xf,
+    classes) tuple."""
+    in_xfs = {}
+    if not (ta.has("a") and ta.get_all("J")):
+        return in_xfs
+    for d in ta.get_all("J"):
+        for tmf in sorted(glob.glob(os.path.join(d, "*.tmf"))):
+            key = os.path.splitext(os.path.basename(tmf))[0]
+            multi = adapt.load_tmf_classes(tmf)
+            in_xfs[key] = multi if multi is not None else adapt.load_tmf(
+                tmf)[1]
+    if not in_xfs:
+        HRError(7441, "HERest: -a but no TMFs under -J")
+    return in_xfs
+
+
 def _accumulate(ta, comp, prune, files, batch_size):
-    """Forward-backward over the training files on the tool's device."""
+    """Forward-backward over the training files on the tool's device.
+
+    Returns (accs, trainer, utts). With -a, each utterance's input
+    transform applies: CMLLR to its features, MLLR by accumulating its
+    speaker's group against the adapted means (and variances) through
+    `write_back`, the base parameters restored afterwards."""
     cfg = ta.config
     device = default_device()
     if ta.trace:
@@ -136,13 +174,17 @@ def _accumulate(ta, comp, prune, files, batch_size):
     label_dir = ta.get("L")
     label_ext = ta.get("X", "lab")
     # device-side composite assembly is the default trainer path;
-    # HTKTPU: DEVICECOMPOSITE = F restores host assembly
-    use_dev_comp = cfg.bool_("DEVICECOMPOSITE", True, module="HTKTPU")
+    # HTKTPU: DEVICECOMPOSITE = F restores host assembly. Transform
+    # estimation (-K) needs the host composites.
+    use_dev_comp = (cfg.bool_("DEVICECOMPOSITE", True, module="HTKTPU")
+                    and not ta.has("K"))
     cls = DeviceCompositeTrainer if use_dev_comp else Trainer
     trainer = cls(comp, precision=outp_precision(cfg), prune=prune,
                   device=device)
     prep = prepare_utterance_ids if use_dev_comp else prepare_utterance
-    utts = []
+    in_xfs = _input_transforms(ta)
+    spk_mask = ta.get("h")
+    tagged = []  # (model-space speaker or None, utt)
     for fn in files:
         data, _period, _kind, e = open_speech_file(fn, cfg)
         tr = find_labels(e.logical, mlfs, label_dir, label_ext)
@@ -150,12 +192,202 @@ def _accumulate(ta, comp, prune, files, batch_size):
         if not names:
             HRError(7325, "HERest: empty transcription for %s", e.logical)
             continue
-        utts.append(prep(comp, e.logical, data, names))
-    if not utts:
+        spk = None
+        if in_xfs:
+            spk = (adapt.speaker_from_mask(spk_mask, e.logical) if spk_mask
+                   else next(iter(in_xfs)))
+            xf = in_xfs.get(spk)
+            if xf is None:
+                HRError(7441, "HERest: no input transform for %s", spk)
+                spk = None
+            elif not isinstance(xf, tuple) and xf.kind == "CMLLR":
+                data = xf.apply_to_features(data).astype(np.float32)
+                spk = None  # feature-space transform: no model group
+        tagged.append((spk, prep(comp, e.logical, data, names)))
+    if not tagged:
         HError(7326, "HERest: no trainable utterances")
+    utts = [u for _spk, u in tagged]
+
+    model_groups = {}
+    plain = []
+    for spk, u in tagged:
+        if spk is not None:
+            model_groups.setdefault(spk, []).append(u)
+        else:
+            plain.append(u)
     with maybe_profile(cfg, "HERest"):
-        return trainer.accumulate(utts, batch_size=batch_size,
-                                  trace=ta.trace)
+        if not model_groups:
+            return (trainer.accumulate(utts, batch_size=batch_size,
+                                       trace=ta.trace), trainer, utts)
+        base_means = comp.means.copy()
+        base_vars = comp.variances.copy()
+        acc_list = []
+        if plain:
+            acc_list.append(trainer.accumulate(
+                plain, batch_size=batch_size, trace=ta.trace))
+        for spk, uset in model_groups.items():
+            xf = in_xfs[spk]
+            if isinstance(xf, tuple):
+                _nm, xfs_l, c2x, classes = xf
+                nv = (adapt.apply_mllr_classes_vars(comp, base_vars, xfs_l,
+                                                    c2x, classes)
+                      if any(x.var_scale is not None for x in xfs_l)
+                      else None)
+                write_back(comp, means=adapt.apply_mllr_classes(
+                    comp, base_means, xfs_l, c2x, classes), variances=nv)
+            else:
+                write_back(comp, means=xf.apply_to_means(base_means),
+                           variances=(xf.apply_to_vars(base_vars)
+                                      if xf.var_scale is not None else None))
+            acc_list.append(trainer.accumulate(
+                uset, batch_size=batch_size, trace=ta.trace))
+        write_back(comp, means=base_means, variances=base_vars)
+    return sum_accs(acc_list), trainer, utts
+
+
+def _gammas(comp, trainer, uset):
+    """(utterance, its Gaussian posteriors (T, M) as float64 numpy) for
+    each of `uset`: one `mix_posteriors_utterance` call an utterance on
+    the trainer's device, at the set's current parameters."""
+    params = trainer.params()
+    blocks = tuple(comp.slot_blocks) or None
+    for u in uset:
+        arrs = {k: torch.as_tensor(v[0], device=trainer.device)
+                for k, v in pad_batch([u], comp.n_states).items()}
+        _lp, gam = mix_posteriors_utterance(
+            arrs["feats"], arrs["t_real"], arrs["comp_state"],
+            arrs["q_mask"], arrs["logA"], arrs["a0"], arrs["aE"],
+            **params, slot_blocks=blocks, precision=trainer.precision)
+        T = u.feats.shape[0]
+        yield u, gam[:T].cpu().numpy()
+
+
+def _sum_cmllr(tot, st):
+    if tot is None:
+        return st
+    tot.G += st.G
+    tot.k += st.k
+    tot.beta += st.beta
+    return tot
+
+
+def _estimate_transforms(ta, hset, comp, trainer, utts, accs, batch_size):
+    """HERest -K: one transform per speaker (-h mask; one "global"
+    speaker without it), saved as TMFs; the models are unchanged."""
+    cfg = ta.config
+    kind = (cfg.str_("TRANSKIND", "MLLRMEAN", module="HADAPT")
+            or "MLLRMEAN").upper()
+    # HADAPT: BLOCKS — block-diagonal transform structure (HAdapt
+    # BLOCKINFO): the standard guard against under-determined
+    # full-matrix solves on sparse adaptation data (3 on _D_A
+    # features keeps statics/deltas/accelerations separate)
+    n_blocks = int(cfg.flt_("BLOCKS", 1.0, module="HADAPT"))
+    out_xf_dir = ta.get("K")
+    os.makedirs(out_xf_dir, exist_ok=True)
+    mask = ta.get("h")
+    groups = {}
+    for u in utts:
+        spk = adapt.speaker_from_mask(mask, u.name) if mask else "global"
+        groups.setdefault(spk, []).append(u)
+
+    def cmllr_from(uset):
+        stats = None
+        for u, gam in _gammas(comp, trainer, uset):
+            stats = _sum_cmllr(stats, adapt.cmllr_stats_from_gammas(
+                u.feats.astype(np.float64), gam, comp.means,
+                comp.variances))
+        return adapt.estimate_cmllr(stats, blocks=n_blocks)
+
+    def mllrcov_from(uset):
+        G = None
+        beta = 0.0
+        for u, gam in _gammas(comp, trainer, uset):
+            g, b = adapt.mllrcov_stats_from_gammas(
+                u.feats.astype(np.float64), gam, comp.means, comp.variances)
+            G = g if G is None else G + g
+            beta += b
+        return adapt.estimate_mllrcov(G, beta)
+
+    n_reg = cfg.int_("NUMREGCLASSES", 1, module="HADAPT") or 1
+    # HHEd RC output (classes + regression tree) overrides on-the-fly
+    # clustering when given; the tree enables occupancy back-off
+    bc_path = cfg.str_("BASECLASS", None, module="HADAPT")
+    bc_classes = None
+    bc_tree = None
+    if bc_path:
+        _bc_name, bc_classes, bc_tree = adapt.load_baseclass(
+            bc_path, hset=hset, comp=comp)
+        if len(bc_classes) != comp.n_mix:
+            HError(7460, "HERest: baseclass %s covers %d Gaussians, "
+                   "set has %d", bc_path, len(bc_classes), comp.n_mix)
+        n_reg = max(n_reg, int(bc_classes.max()) + 1)
+    mllr_var = cfg.bool_("MLLRVAR", False, module="HADAPT") or False
+    occ_thresh = cfg.flt_("OCCTHRESH", 700.0, module="HADAPT") or 700.0
+
+    def spk_accs(uset):
+        if len(groups) == 1:
+            return accs
+        return trainer.accumulate(uset, batch_size=batch_size)
+
+    for spk, uset in groups.items():
+        tmf_path = os.path.join(out_xf_dir, f"{spk}.tmf")
+        if kind == "MLLRMEAN":
+            sa = spk_accs(uset)
+            if n_reg > 1:
+                if bc_tree is not None:
+                    classes = bc_classes
+                    xfs, c2x = adapt.estimate_mllr_tree(
+                        comp, sa, classes, bc_tree[0], bc_tree[1],
+                        occ_thresh=occ_thresh, mllr_var=mllr_var)
+                else:
+                    classes = (bc_classes if bc_classes is not None
+                               else adapt.build_regression_classes(
+                                   comp, n_reg))
+                    xfs, c2x = adapt.estimate_mllr_classes(comp, sa, classes)
+                adapt.save_tmf_classes(tmf_path, spk, xfs, c2x, classes)
+                if ta.trace:
+                    print(f"HERest: {len(xfs)} regression-class "
+                          f"transforms for {spk} -> {tmf_path}")
+                continue
+            xf = adapt.estimate_mllr_mean(comp, sa, blocks=n_blocks)
+            if mllr_var:
+                xf.var_scale = adapt.estimate_mllr_var(
+                    comp, sa, xf.apply_to_means(comp.means))
+        elif kind == "CMLLR":
+            if n_reg > 1:
+                classes = (bc_classes if bc_classes is not None
+                           else adapt.build_regression_classes(comp, n_reg))
+                C = int(classes.max()) + 1
+                g_stats = None
+                c_stats = [None] * C
+                for u, gam in _gammas(comp, trainer, uset):
+                    fx = u.feats.astype(np.float64)
+                    g_stats = _sum_cmllr(g_stats, adapt.cmllr_stats_from_gammas(
+                        fx, gam, comp.means, comp.variances))
+                    for c in range(C):
+                        gm = gam * (classes[None, :] == c)
+                        if gm.sum() <= 0:
+                            continue
+                        c_stats[c] = _sum_cmllr(
+                            c_stats[c], adapt.cmllr_stats_from_gammas(
+                                fx, gm, comp.means, comp.variances))
+                xfs, c2x = adapt.estimate_cmllr_classes(
+                    c_stats, g_stats, occ_thresh=occ_thresh)
+                adapt.save_tmf_classes(tmf_path, spk, xfs, c2x, classes,
+                                       kind="CMLLRCLASSES")
+                if ta.trace:
+                    print(f"HERest: {len(xfs)} base-class CMLLR "
+                          f"transforms for {spk} -> {tmf_path}")
+                continue
+            xf = cmllr_from(uset)
+        elif kind == "MLLRCOV":
+            xf = mllrcov_from(uset)
+        else:
+            HError(7450, "HERest: unsupported TRANSKIND %s", kind)
+        adapt.save_tmf(tmf_path, spk, xf)
+        if ta.trace:
+            print(f"HERest: estimated {kind} transform for {spk} "
+                  f"({len(uset)} utts) -> {tmf_path}")
 
 
 def run(argv: List[str]) -> int:
@@ -181,8 +413,6 @@ def run(argv: List[str]) -> int:
         _not_ported("training a FULLC set")
     if comp.discrete:
         _not_ported("training a DISCRETE set")
-    if (cfg.flt_("MAPTAU", 0.0, module="HMAP") or 0.0) > 0:
-        _not_ported("MAP updating (HMAP: MAPTAU > 0)")
 
     flags = UpdateFlags.parse(ta.get("u", "tmvw"))
     min_var = float(ta.get("v", 1e-6) or 1e-6)
@@ -192,6 +422,9 @@ def run(argv: List[str]) -> int:
     batch_size = int(ta.get("b", 8) or 8)
 
     if p_mode == 0:
+        if ta.has("K"):
+            HError(1030, "HERest: -K transform estimation needs utterance "
+                         "mode, not -p 0 accumulator combining")
         if not extra:
             HError(1030, "HERest: -p 0 needs accumulator files")
         accs = sum_accs([load_accs(p) for p in extra])
@@ -199,7 +432,8 @@ def run(argv: List[str]) -> int:
         files = ta.script + extra
         if not files:
             HError(1030, "HERest: no training files\n%s", USAGE)
-        accs = _accumulate(ta, comp, prune, files, batch_size)
+        accs, trainer, utts = _accumulate(ta, comp, prune, files,
+                                          batch_size)
         if p_mode > 0:
             os.makedirs(out_dir, exist_ok=True)
             acc_path = os.path.join(out_dir, f"HER{p_mode}.acc")
@@ -217,9 +451,17 @@ def run(argv: List[str]) -> int:
     emit_metric(cfg, "HERest", logp_per_frame=tl / max(tf, 1.0),
                 frames=int(tf), utterances=nu)
 
-    m, v, w, t = reestimate(comp, accs, flags, var_floor=var_floor,
-                            min_var=min_var)
-    write_back(comp, means=m, variances=v, weights=w, transps=t)
+    if ta.has("K"):
+        _estimate_transforms(ta, hset, comp, trainer, utts, accs,
+                             batch_size)
+        return 0
+    map_tau = cfg.flt_("MAPTAU", 0.0, module="HMAP") or 0.0
+    if map_tau > 0:
+        write_back(comp, means=adapt.map_update(comp, accs, map_tau))
+    else:
+        m, v, w, t = reestimate(comp, accs, flags, var_floor=var_floor,
+                                min_var=min_var)
+        write_back(comp, means=m, variances=v, weights=w, transps=t)
     if ta.has("s"):
         write_stats_file(ta.get("s"), comp, accs)
 

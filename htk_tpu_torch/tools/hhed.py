@@ -43,10 +43,8 @@ Usage: python -m htk_tpu_torch.tools.hhed [options] edScript hmmList
   Standard: -A -B -C -D -S -T -V
 
 Copied from `htk_tpu/tools/hhed.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
-utils package pulls in JAX. RC and XF need the adaptation module
-(htk_tpu's algo/adapt.py), which is not ported yet: each raises HError
-2690 until it is, so no base-class file is written either.
+only, behaviour unchanged. The port cannot use htk_tpu, whose
+utils package pulls in JAX. RC and XF use the port's algo/adapt.py.
 """
 
 from __future__ import annotations
@@ -65,10 +63,6 @@ from ..models.itemlist import Item, parse_item_list
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
 
-
-def _not_ported(what: str):
-    HError(2690, "HHEd: %s needs the adaptation module (algo/adapt.py), "
-                 "not yet ported to htk_tpu_torch", what)
 
 USAGE = "Usage: HHEd [options] edScript hmmList"
 
@@ -479,7 +473,17 @@ class Editor:
         directory; HERest picks it up via HADAPT: BASECLASS and HVite
         via the MLLRCLASSES TMF chain.
         """
-        _not_ported("RC (regression class trees)")
+        from ..algo.adapt import build_regression_tree
+        from ..models.hmmset import compile_hmmset
+
+        comp = compile_hmmset(self.hset)
+        classes, parent, leaf_node = build_regression_tree(comp, n)
+        self.baseclasses[f"{name}.cls"] = (name, classes, parent, leaf_node)
+        if self.trace:
+            import numpy as _np
+            sizes = _np.bincount(classes, minlength=len(leaf_node))
+            print(f"HHEd: RC {len(leaf_node)} classes / {len(parent)} tree "
+                  f"nodes over {len(classes)} Gaussians (sizes {list(sizes)})")
 
     def cmd_hk(self, kind: str):
         """HK kind: convert the HMM-set kind (HHEd.c SetHMMSetKind).
@@ -911,7 +915,17 @@ class Editor:
         <INPUTXFORM>); tools run with -k apply it as the base feature/
         model transform. The SAT recipe's final step.
         """
-        _not_ported("XF (input transforms)")
+        from ..algo.adapt import load_tmf_text
+
+        try:
+            txt = open(fname).read()
+        except OSError as e:
+            HError(2610, "XF: cannot open transform %s (%s)", fname, e)
+        load_tmf_text(txt)  # validate before embedding
+        self.hset.input_xform = txt if txt.lstrip().startswith("~a") \
+            else '~a "global"\n' + txt
+        if self.trace:
+            print(f"HHEd: XF attached input transform {fname}")
 
     def cmd_su(self, widths: List[int]):
         """SU n w1..wn: split the single stream into n streams of the
@@ -1417,6 +1431,15 @@ def run(argv: List[str]) -> int:
     os.makedirs(out_dir, exist_ok=True)
     out = os.path.join(out_dir, os.path.basename(mmfs[0]))
     save_mmf(hset, out, binary=ta.binary)
+    if ed.baseclasses:
+        from ..algo.adapt import save_baseclass
+
+        for fname, (macro, classes, parent, leaf_node) in \
+                ed.baseclasses.items():
+            save_baseclass(os.path.join(out_dir, fname), macro, classes,
+                           parent=parent, leaf_node=leaf_node)
+            if ta.trace:
+                print(f"HHEd: wrote {os.path.join(out_dir, fname)}")
     if ta.has("w"):
         with open(ta.get("w"), "w") as f:
             for nm in hset.hmms:

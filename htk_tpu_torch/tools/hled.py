@@ -29,7 +29,7 @@ Usage: HLEd [options] edScript labFiles...
   Standard: -A -C -D -S -T -V
 
 Copied from `htk_tpu/tools/hled.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

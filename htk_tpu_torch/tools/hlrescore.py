@@ -18,7 +18,7 @@ Usage: HLRescore [options] dictFile latFiles...
 
 Copied from `htk_tpu/tools/hlrescore.py` into the PyTorch port: host
 code on the port's algo/latops, behaviour unchanged. The port cannot
-import htk_tpu, whose utils package pulls in JAX.
+use htk_tpu, whose utils package pulls in JAX.
 """
 
 from __future__ import annotations

@@ -22,9 +22,9 @@ Usage: HResults [options] hmmList recFiles...
   Standard: -A -C -D -S -T -V
 
 Copied from `htk_tpu/tools/hresults.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
-utils package pulls in JAX. `speaker_from_mask` (for -k) is copied
-beside it from `htk_tpu/algo/adapt.py`.
+only, behaviour unchanged. The port cannot use htk_tpu, whose
+utils package pulls in JAX. `speaker_from_mask` (for -k) comes from the
+port's algo/adapt.py.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import os
 import re
 from typing import Dict, List, Optional, Tuple
 
+from ..algo.adapt import speaker_from_mask
 from ..io.mlf import MLF, find_labels, load_label_file
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
@@ -56,50 +57,6 @@ OPTS = {
 
 SUB_COST, INS_COST, DEL_COST = 10, 7, 7
 
-
-
-def speaker_from_mask(mask: str, name: str) -> str:
-    """Extract the speaker id from a filename using an HTK -h mask.
-
-    HTK masks use `%` to capture one speaker-name character and `*` as a
-    wildcard, e.g. `*/%%%_*.mfc` captures the first 3 chars of the
-    basename. Matching follows HAdapt's MaskMatch semantics; returns the
-    captured characters, or the whole basename when the mask doesn't
-    match (with a warning at the caller).
-
-    Copied from `htk_tpu/algo/adapt.py`, which the port does not carry
-    yet (adaptation waits for its own slice).
-    """
-    import os as _os
-
-    cand = name
-    base = _os.path.basename(name)
-
-    def match(m: str, s: str):
-        # returns captured string or None; simple backtracking matcher
-        if not m:
-            return "" if not s else None
-        if m[0] == "*":
-            for k in range(len(s) + 1):
-                r = match(m[1:], s[k:])
-                if r is not None:
-                    return r
-            return None
-        if not s:
-            return None
-        if m[0] == "%":
-            r = match(m[1:], s[1:])
-            return None if r is None else s[0] + r
-        if m[0] == "?" or m[0] == s[0]:
-            r = match(m[1:], s[1:])
-            return r
-        return None
-
-    for target in (name, base):
-        got = match(mask, target)
-        if got:
-            return got
-    return _os.path.splitext(base)[0]
 
 def dp_align(ref: List[str], hyp: List[str]):
     """HTK DP alignment; returns (hits, subs, dels, ins, pairs)."""

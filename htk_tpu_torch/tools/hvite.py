@@ -29,19 +29,33 @@ Usage: python -m htk_tpu_torch.tools.hvite [options] dictFile hmmList testFiles.
   -n i N      N-best output from the lattice
   -N annfile  hybrid decoding: the ANN's log-posteriors minus log-priors
               (algo/nnet.hybrid_outp) replace the GMM OutP
+  -J dir      input transform dir (repeatable; per-speaker chains compose,
+              a "global" TMF acts as the parent transform)
+  -h mask     speaker mask for -J selection
+  -k          the MMF's own input transform (~a, HHEd XF) is the base of
+              every utterance's chain
   -T n        trace (prints the decode device)
 
-Not yet ported, each refused with HError 3290: input transforms (-J, and
--k with a model-set input transform), discrete sets, and live audio.
+Input transforms (tools/_xfcli.py): CMLLR legs transform the features;
+MLLRMEAN (with MLLRVAR), regression-class MLLR, MLLRCOV and base-class
+CMLLR transform the set in place per utterance (`write_back`, the last
+two through the full-covariance scorer), and each in-place change drops
+the device scorer cached on the set, so the next decode scores the
+adapted Gaussians. A set loaded full-covariance adapts with MLLRMEAN and
+plain CMLLR only (HError 7450 otherwise), as in the reference.
+
+Not yet ported, each refused with HError 3290: discrete sets and live
+audio.
 
 Config: HNET: FORCECXTEXP/ALLOWXWRDEXP/CFPHONES/SHAREINTERIORS,
 HREC: DECODEBATCH (recognition batch size, default 8), LATTICEBEAM,
 PRUNERETRYINC, HTKTPU: PRECISION, HTKTPU: PROFILE. Several files decode
 in length-sorted buckets of DECODEBATCH utterances, one decode launch per
 bucket, and with -z each bucket's lattices and 1-best come from that one
-launch; a single file, -n and -N take the per-utterance path. The device is
-the CUDA card, or the CPU when HTK_TPU_TORCH_DEVICE=cpu asks for it
-(tools/_common.py).
+launch; feature-space (CMLLR) transform chains batch too. A single file,
+-n, -N and model-space transform chains take the per-utterance path. The
+device is the CUDA card, or the CPU when HTK_TPU_TORCH_DEVICE=cpu asks for
+it (tools/_common.py).
 """
 
 from __future__ import annotations
@@ -51,6 +65,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..algo import adapt
 from ..algo.composite import build_composite
 from ..algo.decode import (decode, decode_batch, generate_lattice,
                            generate_lattice_batch)
@@ -63,11 +78,12 @@ from ..io.mlf import MLF, Label, Transcription, find_labels, save_label_file
 from ..io.mmf import load_hmm_list, load_mmf
 from ..io.slf import NULL_WORD, LArc, Lattice, LNode, read_slf, write_slf
 from ..models.ann import ANNModule, load_ann
-from ..models.hmmset import compile_hmmset
+from ..models.hmmset import compile_hmmset, drop_device_caches, write_back
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
 from ..utils.metrics import maybe_profile
 from ._common import default_device, open_speech_file, outp_precision
+from ._xfcli import load_input_transforms, resolve_chain
 
 USAGE = ("Usage: python -m htk_tpu_torch.tools.hvite [options] dictFile "
          "hmmList testFiles...")
@@ -96,12 +112,8 @@ OPTS = {
     "q": Option("q", 1, "lattice output format flags (accepted)"),
     "J": Option("J", 1, "input transform dir", repeatable=True),
     "k": Option("k", 0, "use input transforms"),
-    "h": Option("h", 1, "speaker mask (accepted; global transform)"),
+    "h": Option("h", 1, "speaker mask for -J selection"),
     "N": Option("N", 1, "ANN file for hybrid decoding"),
-}
-
-_NOT_PORTED = {
-    "J": "input transforms",
 }
 
 
@@ -157,11 +169,136 @@ def _nbest_transcription(lat, nbest, vocab, logical, trace):
     return tr
 
 
+def _has_model_xf(chain) -> bool:
+    return any(isinstance(x, tuple) or x.kind in ("MLLRMEAN", "MLLRCOV")
+               for x in chain)
+
+
+def _has_var_xf(chain) -> bool:
+    return any((any(y.var_scale is not None for y in x[1])
+                if isinstance(x, tuple) else x.var_scale is not None)
+               for x in chain)
+
+
+def _input_transforms(ta, hset, comp):
+    """-J/-h/-k: returns (adapt_for, model_space). `adapt_for(logical,
+    data)` applies the utterance's transform chain: it returns the data
+    with the chain's feature-space legs applied and sets the compiled set
+    to the chain's model-space parameters (restoring the base ones for a
+    speaker without any). `model_space` says whether any chain touches
+    the set; `adapt_for` is None without transforms."""
+    xforms = load_input_transforms(ta.get_all("J"), ta.trace, "HVite")
+    spk_mask = ta.get("h")
+    # -k: the model set's own ~a input transform (HHEd XF) becomes the
+    # base of every utterance's chain
+    base_xf = None
+    if ta.has("k") and hset.input_xform:
+        _bnm, base_xf = adapt.load_tmf_text(hset.input_xform)
+        if ta.trace:
+            print(f"HVite: using MMF input transform ({base_xf.kind})")
+        if not xforms:
+            xforms = {"global": [base_xf]}
+            base_xf = None
+    if not xforms:
+        return None, False
+    base_means = comp.means.copy()
+    base_vars = comp.variances.copy()
+    base_gconsts = comp.gconsts.copy()
+    # a set that loaded full-covariance (as opposed to one a transform
+    # promotes to the FULLC scorer below) adapts means only: MLLRMEAN
+    # moves fc_mu, CMLLR stays in feature space, and anything that would
+    # re-Cholesky against the placeholder diagonal variances is refused
+    native_fc = bool(comp.full_cov)
+    if native_fc:
+        for chain in xforms.values():
+            for x in chain:
+                bad = ((x[1] and x[1][0].kind == "CMLLR")
+                       or any(y.var_scale is not None for y in x[1])
+                       ) if isinstance(x, tuple) else (
+                           x.kind == "MLLRCOV" or x.var_scale is not None)
+                if bad:
+                    HError(7450, "HVite: full-covariance sets adapt with "
+                                 "MLLRMEAN (model) and plain CMLLR "
+                                 "(feature) transforms only")
+    any_model_xf = any(_has_model_xf(c) for c in xforms.values())
+    # if any speaker scales variances, every speaker must write them back
+    # (else the next speaker would inherit the previous one's scaling)
+    any_var_xf = any(_has_var_xf(c) for c in xforms.values())
+
+    def adapt_for(logical, data):
+        # -h given: always resolve the speaker, even with one TMF loaded —
+        # a single speaker-specific TMF must not silently apply to other
+        # speakers' utterances (_xfcli.resolve_chain)
+        chain = resolve_chain(xforms, spk_mask, logical, "HVite")
+        if base_xf is not None:
+            chain = [base_xf] + list(chain)
+        cur_m, cur_v = base_means, base_vars
+        vars_touched = False
+        cov_xf = None
+        cmllr_cls = None
+        for xf in chain:
+            if isinstance(xf, tuple):  # regression-class MLLR/CMLLR set
+                _nm, xfs, c2x, classes = xf
+                if xfs and xfs[0].kind == "CMLLR":
+                    cmllr_cls = xf  # model-space constrained, applied last
+                    continue
+                if any(x.var_scale is not None for x in xfs):
+                    cur_v = adapt.apply_mllr_classes_vars(
+                        comp, cur_v, xfs, c2x, classes)
+                    vars_touched = True
+                cur_m = adapt.apply_mllr_classes(comp, cur_m, xfs, c2x,
+                                                 classes)
+            elif xf.kind == "MLLRMEAN":
+                cur_m = xf.apply_to_means(cur_m)
+                if xf.var_scale is not None:
+                    cur_v = xf.apply_to_vars(cur_v)
+                    vars_touched = True
+            elif xf.kind == "MLLRCOV":
+                cov_xf = xf  # full variance transform, applied last
+            else:  # CMLLR: feature space
+                data = xf.apply_to_features(data).astype(data.dtype)
+        if native_fc:
+            # full-covariance set: MLLRMEAN means project through the
+            # compiled precision Cholesky (covariances untouched, so
+            # fc_proj/gConsts stay); cur_m falls back to base_means for
+            # a speaker with a feature-only chain, restoring the set
+            if any_model_xf:
+                comp.means = cur_m.astype(np.float32)
+                comp.fc_mu = adapt.fc_mu_from_means(comp, cur_m)
+                drop_device_caches(comp)
+            return data
+        # drop any previous speaker's full-cov override first so
+        # write_back's diagonal guard and gconsts stay consistent
+        if comp.full_cov:
+            comp.full_cov = False
+            comp.fc_proj = comp.fc_mu = None
+            comp.gconsts = base_gconsts.copy()
+            drop_device_caches(comp)
+        if any_model_xf:
+            # also restores canonical params after a previous speaker
+            write_back(comp, means=cur_m,
+                       variances=(cur_v if (vars_touched or any_var_xf)
+                                  else None))
+        if cov_xf is not None:
+            fc_proj, fc_mu, gc = adapt.apply_mllrcov(
+                comp, cov_xf, means=cur_m,
+                variances=(cur_v if vars_touched else None))
+        elif cmllr_cls is not None:
+            _nm, xfs, c2x, classes = cmllr_cls
+            fc_proj, fc_mu, gc = adapt.apply_cmllr_classes_fc(
+                comp, xfs, c2x, classes, means=cur_m)
+        else:
+            return data
+        comp.fc_proj, comp.fc_mu, comp.gconsts = fc_proj, fc_mu, gc
+        comp.full_cov = True
+        drop_device_caches(comp)
+        return data
+
+    return adapt_for, any_model_xf
+
+
 def run(argv: List[str]) -> int:
     ta = parse_args("HVite", argv, OPTS, min_args=2, usage=USAGE)
-    for opt, what in _NOT_PORTED.items():
-        if ta.has(opt):
-            _not_ported(f"-{opt} ({what})")
     gen_beam = float(ta.get("t")) if ta.has("t") else None
     max_act = int(ta.get("u")) if ta.has("u") else None
     if ta.trace and (gen_beam is not None or max_act is not None):
@@ -181,11 +318,10 @@ def run(argv: List[str]) -> int:
     if not mmfs:
         HError(1030, "HVite: at least one -H mmf required")
     hset = load_mmf(mmfs, cfg=ta.config)
-    if ta.has("k") and hset.input_xform:
-        _not_ported("-k (model-set input transform)")
     comp = compile_hmmset(hset)
     if comp.discrete:
         _not_ported("recognition with a discrete HMM set")
+    adapt_for, model_xf = _input_transforms(ta, hset, comp)
     device = default_device()
     if ta.trace:
         print(f"HVite: device {device}")
@@ -213,7 +349,7 @@ def run(argv: List[str]) -> int:
             HError(1030, "HVite: either -w netfile or -a required\n%s",
                    USAGE)
         _align_files(ta, cfg, comp, vocab, files, prec, device, out_mlf,
-                     out_dir, out_ext, period, ofmt)
+                     out_dir, out_ext, period, ofmt, adapt_for)
         _save_mlf(ta, out_mlf, out_mlf_path, sup_times, sup_scores)
         return 0
     lat = read_slf(ta.get("w"), ta.config)
@@ -255,6 +391,20 @@ def run(argv: List[str]) -> int:
         data, _p, _k, e = open_speech_file(fn, cfg)
         entries.append(e)
         featl.append(np.asarray(data))
+    raw = list(featl)
+
+    def adapted(j):
+        """Utterance j's features under its transform chain, the set
+        adapted to its speaker for model-space chains."""
+        if adapt_for is not None:
+            featl[j] = np.asarray(adapt_for(entries[j].logical, raw[j]))
+        return featl[j]
+
+    if adapt_for is not None and not model_xf:
+        # feature-space (CMLLR) chains touch no model state, so they
+        # batch fine: applied per utterance up front
+        for j in range(len(featl)):
+            adapted(j)
     results: List = [None] * len(featl)
     lats: List = [None] * len(featl)
     # hybrid decoding (-N): the ANN's scores replace OutP, computed once
@@ -281,6 +431,8 @@ def run(argv: List[str]) -> int:
 
     def decode_one(j, b, ma, first):
         """One utterance's decode (with its lattice under -z/-n)."""
+        if model_xf:
+            adapted(j)
         if not want_lat:
             return decode(net, comp, featl[j], lm_scale, word_pen,
                           precision=prec, beam=b, max_active=ma,
@@ -297,7 +449,8 @@ def run(argv: List[str]) -> int:
         return r
 
     with maybe_profile(cfg, "HVite"):
-        if len(featl) > 1 and not ta.has("n") and ann is None:
+        if (len(featl) > 1 and not ta.has("n") and ann is None
+                and not model_xf):
             # batched recognition: one decode launch per length-sorted
             # bucket, identical results to the per-utterance path; with
             # -z the bucket's lattices come from the same launch
@@ -365,14 +518,15 @@ def _save_mlf(ta, out_mlf, out_mlf_path, sup_times, sup_scores):
 
 
 def _align_files(ta, cfg, comp, vocab, files, prec, device, out_mlf,
-                 out_dir, out_ext, period, ofmt):
+                 out_dir, out_ext, period, ofmt, adapt_for=None):
     """HVite -a: each file's word transcription (-I/-L/-X), with the -b
     boundary word around it, becomes a composite HMM of the words' first
     pronunciations (word-internally context-expanded, as the recognition
     network compiler applies: on a triphone set a raw monophone pron
     would align against stale monophone models); the Viterbi alignment
     gives model-level labels with word tags (-m) or merged word segments,
-    and with -z the aligned 1-best as a linear word lattice."""
+    and with -z the aligned 1-best as a linear word lattice. `adapt_for`
+    applies each utterance's input transform chain first (-J)."""
     mlfs = [MLF.load(p, ta.config) for p in ta.get_all("I")]
     label_dir = ta.get("L")
     label_ext = ta.get("X", "lab")
@@ -384,6 +538,8 @@ def _align_files(ta, cfg, comp, vocab, files, prec, device, out_mlf,
     pron_map = word_internal_phone_map(comp.names)
     for fn in files:
         data, _p, _k, e = open_speech_file(fn, cfg)
+        if adapt_for is not None:
+            data = adapt_for(e.logical, data)
         wtr = find_labels(e.logical, mlfs, label_dir, label_ext)
         words = [lab.name for lab in wtr.labels]
         if bound:

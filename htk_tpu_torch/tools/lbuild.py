@@ -20,7 +20,7 @@ job, kept simple here).
 Copied from `htk_tpu/tools/lbuild.py` into the PyTorch port: host code,
 behaviour unchanged. The gram-file reader it uses (`is_gram_file`,
 `read_gram`) is copied beside it from `htk_tpu/tools/lgram.py`. The port
-cannot import htk_tpu, whose utils package pulls in JAX.
+cannot use htk_tpu, whose utils package pulls in JAX.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ plus per-tool letters declared by each tool (e.g. HERest's ``-H mmf -M dir
 conventions: options are ``-x [value]``, everything else is positional.
 
 Copied from `htk_tpu/utils/cli.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -13,7 +13,7 @@ Mirrors `HTKLib/HShell.c : GetConfig()/GetConfStr/Int/Flt/Bool`:
 - Unknown keys are ignored (tools can dump the resolved table with ``-D``).
 
 Copied from `htk_tpu/utils/config.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -12,7 +12,7 @@ Module code blocks (canonical HTK assignments):
   82xx HLat    85xx HRec    86xx HNet    1xxxx tools
 
 Copied from `htk_tpu/utils/errors.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -14,7 +14,7 @@ Readers stay filter-agnostic: call ``maybe_filter(path, KEY, cfg)``
 around the open and ``cleanup(...)`` after (or use ``filtered()``).
 
 Copied from `htk_tpu/utils/filters.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot import htk_tpu, whose
+only, behaviour unchanged. The port cannot use htk_tpu, whose
 utils package pulls in JAX.
 """
 

@@ -17,8 +17,10 @@ HRest) against htk_tpu's, on the CPU.
   arithmetic, which the rounding breaks either way. There the path of
   physical states is identical and the score within 1e-4 relative, which
   is what both packages' alignments agree on.
-- Multi-stream and discrete sets, which the port's alignment does not
-  take, raise HError 7331.
+- A two-stream set (stream weights 0.7 / 1.3) aligns as the reference's
+  does: the score within 1e-4 relative, the same physical state path.
+  Discrete sets, which the port's alignment does not take, raise HError
+  7331.
 - HVite -a (rec.mlf byte-identical), -a -m (labels and times identical,
   scores within 1e-4 relative), -a -z (lattices within `assert_slf_close`)
   and -b, and HError 8621 on a word the dictionary lacks.
@@ -50,7 +52,7 @@ from htk_tpu_torch.io.htkfeat import read_htk_file
 from htk_tpu_torch.io.mlf import MLF
 from htk_tpu_torch.io.mmf import load_mmf, save_mmf
 from htk_tpu_torch.models.hmmset import compile_hmmset
-from htk_tpu_torch.models.proto import make_proto
+from htk_tpu_torch.models.proto import clone_proto, make_proto
 from htk_tpu_torch.synth import write_system, write_word_mlf
 from htk_tpu_torch.tools import hinit as p_hinit
 from htk_tpu_torch.tools import hrest as p_hrest
@@ -204,18 +206,59 @@ def test_align_on_shared_states_keeps_the_physical_path(tied):
                                       hmm.comp_state[rj.states])
 
 
+PHONES = ["aa", "eh", "iy", "uw"]
+
+
+def _multi_stream_set(path, widths=(20, 19), nmix=2, seed=3):
+    """A two-stream set (stream widths summing to 39) over the untied
+    system's phones, random Gaussians and stream weights 0.7 / 1.3,
+    written to `path` with the port's writer."""
+    hs = make_proto(nstates=5, dim=sum(widths), parm_kind="USER",
+                    nmix=nmix, stream_widths=list(widths))
+    cl = clone_proto(hs, "proto", PHONES)
+    rng = np.random.default_rng(seed)
+    for h in cl.hmms.values():
+        for si in h.states:
+            si.stream_weights = np.asarray([0.7, 1.3], np.float32)
+            for k, se in enumerate(si.streams):
+                for mp in se.mixes:
+                    mp.mean = rng.normal(size=widths[k]).astype(np.float32)
+                    mp.var = (0.5 + rng.random(widths[k])).astype(
+                        np.float32)
+                    mp.fix_gconst()
+    save_mmf(cl, path)
+    return path
+
+
 @pytest.mark.parametrize("what", ["multi-stream", "discrete"])
-def test_align_refuses_unported_sets_with_7331(untied, what):
+def test_align_refuses_unported_sets_with_7331(untied, tmp_path, what):
+    """Discrete sets are refused with HError 7331. Multi-stream sets,
+    refused until the scorer's stream sum was taken for alignment, now
+    align as the reference does: the score within SCORE_RTOL and the
+    same physical state path."""
     comp, _jc, vocab, pmap, feats = _load(untied)
-    hmm = build_composite(comp, [comp.model_id(n) for n in _models(
-        vocab, pmap, untied.transcripts[0])])
     if what == "discrete":
+        hmm = build_composite(comp, [comp.model_id(n) for n in _models(
+            vocab, pmap, untied.transcripts[0])])
         comp.discrete = True
-    else:
-        comp.slot_blocks = [(0, 1), (1, comp.max_mix)]
-    with pytest.raises(HTKError) as e:
-        pvit.align(comp, hmm, feats[0], device="cpu")
-    assert e.value.code == 7331
+        with pytest.raises(HTKError) as e:
+            pvit.align(comp, hmm, feats[0], device="cpu")
+        assert e.value.code == 7331
+        return
+    mmf = _multi_stream_set(str(tmp_path / "ms"))
+    pc, jc = compile_hmmset(load_mmf([mmf])), j_comp(j_mmf([mmf]))
+    assert len(pc.slot_blocks) == 2 and pc.state_sw is not None
+    rng = np.random.default_rng(5)
+    for k in range(3):
+        names = [PHONES[int(i)] for i in rng.integers(0, len(PHONES), 4)]
+        x = rng.normal(size=(60 + 17 * k, 39)).astype(np.float32)
+        hmm = build_composite(pc, [pc.model_id(n) for n in names])
+        jhmm = j_build(jc, [jc.model_id(n) for n in names])
+        rp = pvit.align(pc, hmm, x, device="cpu")
+        rj = jvit.align(jc, jhmm, x)
+        assert rp.score == pytest.approx(rj.score, rel=SCORE_RTOL)
+        np.testing.assert_array_equal(hmm.comp_state[rp.states],
+                                      jhmm.comp_state[rj.states])
 
 
 def _hvite(run, s, out, extra):

@@ -16,12 +16,14 @@ HDecode runs on four legs, each with both packages on the same files:
 The -i MLF is byte-identical and the -z lattices are within
 `assert_slf_close`. Also: the 8524 knee warning, the 8525 retry ladder
 (the batched pass 1 made to lose every utterance, as
-tests/test_beam_guardrail.py:72-89 does), -J refused with 3290, LBuild's
-ARPA and HLRescore's MLF and lattices byte-identical.
+tests/test_beam_guardrail.py:72-89 does), -J/-k/-h with the MLF
+byte-identical, LBuild's ARPA and HLRescore's MLF and lattices
+byte-identical.
 """
 
 import os
 
+import numpy as np
 import pytest
 
 from htk_tpu.algo import lvnet as j_lvnet
@@ -33,7 +35,6 @@ from htk_tpu_torch.synth import write_system
 from htk_tpu_torch.tools import hdecode as p_hdecode
 from htk_tpu_torch.tools import hlrescore as p_hlrescore
 from htk_tpu_torch.tools import lbuild as p_lbuild
-from htk_tpu_torch.utils.errors import HTKError
 
 from _torch_compare import assert_slf_close, one_torch_thread  # noqa: F401
 
@@ -135,11 +136,27 @@ def test_hdecode_retry_ladder_recovers(system, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("opt", [["-J", "xforms"], ["-k"], ["-h", "*%%%"]])
 def test_hdecode_refuses_adaptation(system, tmp_path, opt):
+    """-J, -k and -h, refused with HError 3290 until the adaptation module
+    was ported, now decode as the reference does: a global CMLLR TMF
+    under -J, and -k and -h alone (no transforms to apply), rec.mlf
+    byte-identical."""
+    from htk_tpu_torch.algo.adapt import Transform, save_tmf
+
     s, _text, _lm3 = system
-    with pytest.raises(HTKError) as e:
-        p_hdecode.run([*opt, "-w", s.lm, "-H", s.hmmdefs, s.dict,
-                       s.hmmlist, s.feats[0]])
-    assert e.value.code == 3290
+    xf_dir = tmp_path / "xforms"
+    xf_dir.mkdir()
+    rng = np.random.default_rng(6)
+    save_tmf(str(xf_dir / "global.tmf"), "global", Transform(
+        kind="CMLLR", A=np.eye(39) + 0.02 * rng.normal(size=(39, 39)),
+        b=0.1 * rng.normal(size=39)))
+    opt = [str(xf_dir) if o == "xforms" else o for o in opt]
+    outs = []
+    for run, tag in ((p_hdecode.run, "p"), (j_hdecode.run, "j")):
+        mlf = str(tmp_path / f"{tag}.mlf")
+        assert run([*opt, "-w", s.lm, "-s", LM_SCALE, "-p", PEN, "-i", mlf,
+                    "-H", s.hmmdefs, s.dict, s.hmmlist, *s.feats[:3]]) == 0
+        outs.append(open(mlf, "rb").read())
+    assert outs[0] == outs[1]
 
 
 @pytest.mark.parametrize("args", [["-n", "3"], ["-n", "2", "-d", "GT"],

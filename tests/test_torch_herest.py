@@ -201,12 +201,18 @@ def _fullc_mmf(s, path):
                                   "DISCRETE", "MAPTAU"])
 def test_unported_options_raise_numbered_error(system, tmp_path, case,
                                                capsys):
+    """-r, FULLC and DISCRETE training are refused with HError 2390.
+    -a, -J, -K, -h and HMAP: MAPTAU, refused until the adaptation module
+    was ported, now run as the reference's: -a, -J and -h alone change
+    nothing (no TMFs to apply), -K writes a global MLLRMEAN TMF (within
+    tests/test_torch_sat.py's tolerances) and MAPTAU a MAP-updated MMF;
+    the MMFs within this file's tolerances."""
     s, _root, _jax_runs, _acc = system
     mmf, hmmlist, opts = s.hmmdefs, s.hmmlist, []
     if case in ("-r", "-a"):
         opts = [case]
     elif case in ("-J", "-K", "-h"):
-        opts = [case, str(tmp_path)]
+        opts = [case, "OUT/xf" if case == "-K" else str(tmp_path)]
     elif case == "FULLC":
         mmf = str(tmp_path / "fullc")
         _fullc_mmf(s, mmf)
@@ -220,10 +226,28 @@ def test_unported_options_raise_numbered_error(system, tmp_path, case,
         with open(cfg, "w") as f:
             f.write("HMAP: MAPTAU = 10\n")
         opts = ["-C", cfg]
-    rc = torch_herest.main(opts + ["-H", mmf, "-M", str(tmp_path), "-S",
-                                   s.train_scp, "-I", s.train_mlf, hmmlist])
-    assert rc != 0
-    assert "[+2390]" in capsys.readouterr().err
+    if case in ("-r", "FULLC", "DISCRETE"):
+        rc = torch_herest.main(opts + ["-H", mmf, "-M", str(tmp_path), "-S",
+                                       s.train_scp, "-I", s.train_mlf,
+                                       hmmlist])
+        assert rc != 0
+        assert "[+2390]" in capsys.readouterr().err
+        return
+    from test_torch_sat import assert_tmf_close
+
+    outs = []
+    for run, tag in ((torch_herest.run, "p"), (jax_herest.run, "j")):
+        out = str(tmp_path / tag)
+        os.makedirs(out)
+        assert run([o.replace("OUT", out) for o in opts]
+                   + ["-H", mmf, "-M", out, "-S", s.train_scp, "-I",
+                      s.train_mlf, hmmlist]) == 0
+        outs.append(out)
+    if case == "-K":
+        assert_tmf_close(*(os.path.join(o, "xf", "global.tmf")
+                           for o in outs))
+    else:
+        assert_mmf_close(*(os.path.join(o, "hmmdefs") for o in outs))
 
 
 @pytest.mark.parametrize("tool", ["herest", "hvite"])

@@ -6,8 +6,8 @@ arguments, and compares every file the two runs wrote (and their
 stdout): byte for byte for HCompV, HLEd, HHEd, HBuild and HResults, and
 for HCopy wherever the source is a feature file; for a waveform source
 HCopy's headers are byte-identical and its data within the frontend's
-tolerance (tests/_torch_compare.py). HHEd's RC and XF, which need the
-unported adaptation module, give the numbered error 2690.
+tolerance (tests/_torch_compare.py). HHEd's RC (the base-class file
+too) and XF (the MMF's ~a macro) are byte-identical as well.
 """
 
 import importlib
@@ -262,15 +262,25 @@ def test_hhed_tb_ro_qs_st(triset, tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("script", ["RC 4 rtree\n", "XF xf.tmf\n"])
 def test_hhed_rc_xf_numbered_error(triset, tmp_path, monkeypatch, capsys,
                                    script):
-    from htk_tpu_torch.tools import hhed
+    """RC and XF, refused with HError 2690 until the adaptation module was
+    ported, now write what the reference writes: the MMF and RC's
+    base-class file (its regression tree) or XF's ~a macro, byte for
+    byte."""
+    from htk_tpu_torch.algo.adapt import Transform, save_tmf
 
-    monkeypatch.chdir(triset)
+    rng = np.random.default_rng(3)
+    save_tmf(str(triset / "xf.tmf"), "global", Transform(
+        kind="CMLLR", A=np.eye(6) + 0.1 * rng.normal(size=(6, 6)),
+        b=rng.normal(size=6)))
     (triset / "a.hed").write_text(script)
-    (triset / "xf.tmf").write_text("~a \"global\"\n")
-    rc = hhed.main(["-H", "mono", "-M", str(tmp_path), "a.hed",
-                    "monophones"])
-    assert rc != 0
-    assert "[+2690]" in capsys.readouterr().err
+    (triset / "rc_out").mkdir(exist_ok=True)
+    files = assert_same(tmp_path, monkeypatch, capsys, "hhed",
+                        ["-T", "1", "-H", "tri", "-M", "rc_out", "a.hed",
+                         "trilist"], triset)
+    if script.startswith("RC"):
+        assert "rc_out/rtree.cls" in files
+    else:
+        assert '~a "global"' in files["rc_out/tri"].decode()
 
 
 @pytest.mark.parametrize("argv", [

@@ -147,21 +147,38 @@ def test_convert_carries_jax_objects(system):
                                  ["DISCRETE"]])
 def test_unported_options_raise_numbered_error(system, tmp_path, opt,
                                                capsys):
-    """Input transforms and (since -N, hybrid decoding, is ported)
-    recognition with a discrete set are refused."""
+    """Recognition with a discrete set is refused with HError 3290. Input
+    transforms (-J, and -k), refused until the adaptation module was
+    ported, now decode as the reference does: a global MLLRMEAN TMF under
+    -J (-k adds nothing, the MMF has no ~a), rec.mlf byte-identical."""
     s, _cfg = system
-    argv = _argv(s, str(tmp_path / "x.mlf"), "scp")
     if opt == ["DISCRETE"]:
+        argv = _argv(s, str(tmp_path / "x.mlf"), "scp")
         mmf, hmmlist = str(tmp_path / "discrete"), str(tmp_path / "list")
         j_save_mmf(discrete_set(), mmf)
         with open(hmmlist, "w") as f:
             f.write("a\nb\n")
         argv[argv.index(s.hmmdefs)] = mmf
         argv[-1] = hmmlist
-        opt = []
-    rc = torch_hvite.main(opt + argv)
-    assert rc != 0
-    assert "[+3290]" in capsys.readouterr().err
+        rc = torch_hvite.main(argv)
+        assert rc != 0
+        assert "[+3290]" in capsys.readouterr().err
+        return
+    from htk_tpu_torch.algo.adapt import Transform, save_tmf
+
+    xf_dir = tmp_path / "xf"
+    xf_dir.mkdir()
+    rng = np.random.default_rng(4)
+    save_tmf(str(xf_dir / "global.tmf"), "global", Transform(
+        kind="MLLRMEAN", A=np.eye(39) + 0.02 * rng.normal(size=(39, 39)),
+        b=0.1 * rng.normal(size=39)))
+    opt = [str(xf_dir) if o == "xf" else o for o in opt]
+    outs = []
+    for run, tag in ((torch_hvite.run, "p"), (jax_hvite.run, "j")):
+        mlf = str(tmp_path / f"{tag}.mlf")
+        assert run(opt + _argv(s, mlf, "scp")) == 0
+        outs.append(_read(mlf))
+    assert outs[0] == outs[1]
 
 
 def test_uniform_network_raises_numbered_error():
