@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: HCopy's frontend,
-HVite -w recognition and -z lattices, HVite -a forced alignment, HERest,
+HVite -w recognition and -z lattices, live mode (the streaming decoder,
+HVite live, HCopy live capture), HVite -a forced alignment, HERest,
 HInit and HRest training, HMMIRest (MMI), the DNN hybrid (HNTrainSGD,
 HNForward, HVite -N), HDecode with LV lattices, speaker adaptation
 (HERest -K, HHEd RC, HVite and HDecode -J), FULLC, DISCRETE and -r
@@ -14,8 +15,9 @@ Drives htk_tpu_torch's main paths, `htk_tpu_torch.tools.hcopy.run`,
 `hvite.run` -N, `hhed.run` RC, `herest.run` -K, `hvite.run` and
 `hdecode.run` -J, `herest.run` on FULLC and DISCRETE sets and -r,
 `hvite.run` on a DISCRETE set, `hquants.run`, `hhed.run` HK,
-`recipes.demo.run_chain`, `recipes.full.run_chain`
-and `algo.decode.decode_batch` and
+`recipes.demo.run_chain`, `recipes.full.run_chain`,
+`algo.stream_decode.StreamingDecoder`, `hvite.run` live, `hcopy.run`
+with a live source, and `algo.decode.decode_batch` and
 `generate_lattice_batch` on `compile_lv_loop` networks, on a synthetic
 system at htk_tpu's BASELINE config #4 widths (1,000-word back-off
 bigram, as a word network and as ARPA tables; 40 phones, word-internal
@@ -243,6 +245,28 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      utterance, a discrete batch and a -r batch, decode_scan kernel ==
      plain on an utterance's discrete state scores; each tool's wall,
      launches, host share (fullcov_update) and peak device memory
+ 30. live mode: (a) decode_scan with a carried state (`init`, `t0`) over
+     chunks of 32 frames on two random nets (B = 4, T = 96, one
+     tie-heavy) and the longest config-#4 utterance (B = 1, T = 512):
+     the kernel == its plain version over the same chunks == one
+     unchunked launch == the chunked kernel at a forced grid of 2 blocks,
+     bit for bit, and the plain chunked run == the plain unchunked one;
+     the live chunk's time (B = 1, T = 32, from a carried state), kernel
+     and plain in turns, beside its bound; (b) the 16 utterances through
+     `StreamingDecoder` fed 1-79 frames at a time: words and times ==
+     phase 5's batch HVite, one decode_scan launch a chunk (the sum of
+     ceil(T / 32)), the stream's xRT and peak memory; an instrumented
+     pass splits a chunk into OutP, the launch and the record copy
+     (median and p95) and times partial_result() at the end of the
+     longest utterance; (c) on phase 28's files, the set retrained at
+     ENORMALISE = F (HCopy and two HERest passes: live mode refuses
+     ENORMALISE), HVite live replays a test utterance on the card: one
+     launch a chunk, live.mlf == the CPU path's (`python -m
+     htk_tpu_torch.tools.hvite`, HTK_TPU_TORCH_DEVICE=cpu) == batch
+     HVite's on the file, words against the transcription
+     (informational), the wall a second of audio; (d) HCopy live capture
+     (SOURCEKIND = HAUDIO) of 4 test utterances, card vs CPU within the
+     frontend tolerances
  20. one JSON line of kernels, then the device line last
 
 Phase 19 also runs the demo's trigram HDecode stage (LBuild, HDecode
@@ -250,7 +274,9 @@ below the LV threshold: one decode_scan launch an utterance, HResults at
 Acc=100.00), its decode_scan launches read around that stage.
 
 Each main path runs with every launch count set to 0 just before it and
-read just after. Tolerances, kernel against plain: maxplus, tropical,
+read just after; decode_scan's `launches` in the kernels line is the sum
+over phase 5's HVite and phase 30's two paths (the stream and HVite
+live), each logged apart. Tolerances, kernel against plain: maxplus, tropical,
 segmax and gather-add exactly equal; decode (at every grid) and the LV
 planes: live scores within 1e-5 and every word-link record exactly
 equal; FB logP within 1e-5 relative, alphas and betas at t < t_real with
@@ -309,6 +335,7 @@ from htk_tpu_torch.algo.decode import (_final_records, _finalize,
                                        _net_outp, decode_operands)
 from htk_tpu_torch.algo import adapt, fb_discrete, fullcov_train, nnet, viterbi
 from htk_tpu_torch.algo.composite import build_composite
+from htk_tpu_torch.algo.stream_decode import StreamingDecoder
 from htk_tpu_torch.algo.fb import _fb_outp
 from htk_tpu_torch.algo.lvnet import compile_lv_loop
 from htk_tpu_torch.algo.net import compile_network, word_internal_phone_map
@@ -323,6 +350,7 @@ from htk_tpu_torch.io.lm import read_arpa
 from htk_tpu_torch.io.mlf import MLF
 from htk_tpu_torch.io.mmf import load_mmf, save_mmf
 from htk_tpu_torch.io.slf import read_slf, write_slf
+from htk_tpu_torch.io.wavefile import read_wave
 from htk_tpu_torch.models.ann import load_ann
 from htk_tpu_torch.models.hmmset import compile_hmmset
 from htk_tpu_torch.models.proto import make_proto
@@ -333,7 +361,7 @@ from htk_tpu_torch.ops import tropical as trop
 from htk_tpu_torch.ops import xw_gather as xg
 from htk_tpu_torch.ops import xw_route, xw_window
 from htk_tpu_torch.ops.dsp import (FrontendConfig, compute_features,
-                                   compute_features_batch)
+                                   compute_features_batch, num_frames)
 from htk_tpu_torch.recipes import demo, full
 from htk_tpu_torch.recipes.speech import utterance_set, write_wav
 from htk_tpu_torch.synth import (PARM_KIND, lv_system, random_decode_net,
@@ -3286,22 +3314,18 @@ def phase_adapt(sysm, root, net, comp, card, dev):
     return launches, f_err, d_err
 
 
-def phase_full(card, dev):
+def phase_full(work, card, dev):
     """The twin of recipes/full/run_full.sh (recipes/full.py) at the
-    default corpus size in a temporary directory: every stage's wall,
-    %Corr and %Acc; check_results.py's rule (fails the phase when a
-    stage falls more than TOL below results_expected.md); the
-    decode_scan, fb_scans and maxplus launches of the whole chain.
+    default corpus size in `work` (phase 30 reads its files): every
+    stage's wall, %Corr and %Acc; check_results.py's rule (fails the
+    phase when a stage falls more than TOL below results_expected.md);
+    the decode_scan, fb_scans and maxplus launches of the whole chain.
     Returns those launches."""
-    work = tempfile.mkdtemp(prefix="chip_full_")
-    try:
-        reset_counts()
-        t0 = time.perf_counter()
-        walls, rows = full.run_chain(work, quiet=True)
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    walls, rows = full.run_chain(work, quiet=True)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
     n = {"decode_scan": ds.KERNEL.launches, "fb_scans": fbs.KERNEL.launches,
          "maxplus": mp.KERNEL.launches}
     log(f"full recipe twin on {card}: every stage of run_full.sh in "
@@ -3745,6 +3769,338 @@ def phase_setkinds(sysm, root, card, dev):
     rl, f3 = phase_retrain(sysm, root, card, dev)
     return {**fl, **dl, **rl}, max(f1, f2, f3), d_err
 
+LIVE_CHUNK = 32  # phase 30: frames a StreamingDecoder chunk (its default)
+LIVE_T = 512  # phase 30(a): the config-#4 utterance cut into chunks
+LIVE_GRID = 2  # phase 30(a): the forced small grid
+LIVE_SEED = 30  # phase 30: random nets and feed sizes
+LIVE_FEED = (1, 80)  # phase 30(b): frames a feed() call, drawn uniformly
+LIVE_TEST = "spkC/spkC_test{}.wav"  # phase 30(c, d): the full corpus's
+LIVE_HCOPY = 4  # phase 30(d): test utterances captured live
+LIVE_RETRAIN = 2  # phase 30(c): HERest passes at ENORMALISE = F
+LIVE_CFG = "SOURCEFORMAT = WAV\nTARGETKIND = MFCC_E_D_A\nENORMALISE = F\n"
+
+
+def carried_scan(launch, args, chunk):
+    """`launch` (a decode_scan implementation) over args' frames in chunks
+    of `chunk` frames, the state carried from one to the next: the finals
+    and the records of the whole run."""
+    outp = args[0]
+    carry, recs = None, []
+    for t0 in range(0, outp.shape[1], chunk):
+        carry, r = launch(outp[:, t0:t0 + chunk].contiguous(), *args[1:],
+                          init=carry, t0=t0)
+        recs.append(r)
+    return carry, tuple(torch.cat(p, dim=1) for p in zip(*recs))
+
+
+def identical(got, ref, what: str) -> None:
+    """Finals and records equal bit for bit."""
+    for a, b, name in zip(got[0] + got[1], ref[0] + ref[1],
+                          ("v", "wn", "wt", "WE", "pwn", "pwt")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs at "
+                                 f"{int((a != b).sum())} places")
+
+
+def phase_live_kernel(net, comp, feats, card, dev):
+    """Phase 30(a): decode_scan with a carried state. On random nets and
+    on the longest config-#4 utterance at LIVE_T frames (B = 1), the
+    kernel over chunks of LIVE_CHUNK frames, the state carried, equals
+    its plain version over the same chunks, one unchunked launch and the
+    chunked kernel at a forced grid of LIVE_GRID blocks, bit for bit; the
+    plain chunked run equals the plain unchunked one. Then the chunk
+    shape's time (B = 1, T = LIVE_CHUNK, from a carried state), kernel
+    and plain in turns, and its bound. Returns (max |d|, (kernel ms,
+    plain ms), bound)."""
+    grid = lambda *a, **k: ds.decode_scan_cuda(*a, grid=LIVE_GRID, **k)  # noqa: E731
+    cases = [(f"random net seed={s} ties={t}",
+              random_net(s, dev, t, **dict(RANDOM_NET, T=3 * LIVE_CHUNK)))
+             for s, t in ((LIVE_SEED, False), (LIVE_SEED + 1, True))]
+    x = max(feats, key=len)[:LIVE_T]
+    fb = np.zeros((1, LIVE_T, x.shape[1]), np.float32)
+    fb[0, :len(x)] = x
+    args = decode_args(net, comp, fb, dev)
+    cases.append((f"config-4 utterance (B=1, T={LIVE_T})", args))
+    for what, a in cases:
+        p = ds.decode_scan_plain(*a)
+        pc = carried_scan(ds.decode_scan_plain, a, LIVE_CHUNK)
+        kc = carried_scan(ds.decode_scan_cuda, a, LIVE_CHUNK)
+        kg = carried_scan(grid, a, LIVE_CHUNK)
+        k = ds.decode_scan_cuda(*a)
+        torch.cuda.synchronize(dev)
+        identical(pc, p, f"{what}: plain chunked vs unchunked")
+        identical(kc, pc, f"{what}: kernel vs plain, chunked")
+        identical(kc, k, f"{what}: kernel chunked vs one launch")
+        identical(kg, kc, f"{what}: kernel at {LIVE_GRID} blocks")
+        n = -(-a[0].shape[1] // LIVE_CHUNK)
+        log(f"{what}: kernel over {n} chunks of {LIVE_CHUNK} frames, the "
+            f"state carried == plain over the same chunks == one launch "
+            f"== {LIVE_GRID} blocks, bit for bit; "
+            f"{int((p[1][1] >= 0).sum())} live word-end records")
+    (carry, _r) = ds.decode_scan_plain(
+        args[0][:, :LIVE_CHUNK].contiguous(), *args[1:])
+    one = (args[0][:, LIVE_CHUNK:2 * LIVE_CHUNK].contiguous(),) + args[1:]
+    kms, pms, k, p = in_turns(
+        time_launches,
+        lambda: ds.decode_scan_plain(*one, init=carry, t0=LIVE_CHUNK),
+        lambda: ds.decode_scan_cuda(*one, init=carry, t0=LIVE_CHUNK), dev,
+        plain_timer=time_call)
+    bnd = decode_bound(1, LIVE_CHUNK, net.n_states, net.n_nodes,
+                       net.band.shape[0])
+    log(f"decode_scan at the live chunk on {card} (B=1, T={LIVE_CHUNK}, "
+        f"Nn={net.n_nodes}, Ns={net.n_states}, from a carried state): "
+        f"kernel {kms:.6f} ms a launch (CUDA events over {LAUNCH_LOOP} "
+        f"launches; samples {' '.join(f'{v:.6f}' for v in k)}), plain "
+        f"{pms:.3f} ms a call (samples {' '.join(f'{v:.3f}' for v in p)}), "
+        f"bound {bnd[0]:.6f} ms by {bnd[1]}")
+    return 0.0, (kms, pms), bnd  # every comparison above is bit for bit
+
+
+def stream_pass(sd_of, feats, rng, timers=None, partial_at=None):
+    """Every utterance through its own StreamingDecoder (`sd_of()`), fed
+    in sizes drawn from LIVE_FEED; `timers` {method: list} wraps the
+    decoder's _outp/_launch/_keep with synchronised host timers; at
+    utterance `partial_at` a partial_result() before the flush is timed.
+    Returns the results, the wall s and the partial_result ms."""
+    results, part_ms = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for u, x in enumerate(feats):
+        sd = sd_of()
+        for name, acc in (timers or {}).items():
+            setattr(sd, name, synced(getattr(sd, name), acc))
+        pos = 0
+        while pos < len(x):
+            n = int(rng.integers(*LIVE_FEED))
+            sd.feed(x[pos:pos + n])
+            pos += n
+        if u == partial_at:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sd.partial_result()
+            torch.cuda.synchronize()
+            part_ms = (time.perf_counter() - t1) * 1e3
+        results.append(sd.flush())
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0, part_ms
+
+
+def synced(fn, acc):
+    """fn, its calls' host ms (each ending in a synchronise) into acc."""
+    def wrapper(*a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        acc.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapper
+
+
+def phase_live_stream(sysm, hyps, net, comp, feats, card, dev):
+    """Phase 30(b): the config-#4 utterances through StreamingDecoder
+    on the card in chunks of LIVE_CHUNK frames, fed in random sizes:
+    words and times equal to phase 5's batch HVite, one decode_scan
+    launch a chunk (the sum of ceil(T / LIVE_CHUNK)); the stream's xRT
+    and peak memory; a second, instrumented pass splits a chunk's ms into
+    OutP, the launch and the record copy (median and p95) and times
+    partial_result() at the end of the longest utterance. Returns the
+    launches of the first pass."""
+    def sd_of():
+        return StreamingDecoder(net, comp, LM_SCALE, WORD_PEN, LIVE_CHUNK,
+                                device=dev)
+
+    want = sum(-(-len(x) // LIVE_CHUNK) for x in feats)
+    audio_s = sum(len(x) for x in feats) * FRAME_S
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    res, wall, _ = stream_pass(sd_of, feats, np.random.default_rng(LIVE_SEED))
+    launches = ds.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    if launches != want:
+        raise AssertionError(f"stream: {launches} decode_scan launches, "
+                             f"expected {want}")
+    period = 100000
+    for p, r in zip(sysm.feats, res):
+        got = [(w, t0 * period, (t1 + 1) * period)
+               for w, (t0, t1) in zip(r.words, r.times)]
+        tool = [(lab.name, lab.start, lab.end) for lab in hyps[p].labels]
+        if got != tool:
+            raise AssertionError(f"{p}: streamed {got} != HVite {tool}")
+    timers = {"_outp": [], "_launch": [], "_keep": []}
+    longest = max(range(len(feats)), key=lambda u: len(feats[u]))
+    _r, wall2, part_ms = stream_pass(sd_of, feats,
+                                     np.random.default_rng(LIVE_SEED),
+                                     timers, longest)
+    chunk = [sum(ms) for ms in zip(*timers.values())]
+
+    def med95(v):
+        return f"median {np.median(v):.3f}, p95 {np.percentile(v, 95):.3f}"
+
+    log(f"StreamingDecoder on {card}: the {len(feats)} config-#4 "
+        f"utterances ({audio_s:.2f} s of audio) in chunks of {LIVE_CHUNK} "
+        f"frames, fed {LIVE_FEED[0]}-{LIVE_FEED[1] - 1} frames at a time: "
+        f"words and times == batch HVite for all; {launches} decode_scan "
+        f"launches "
+        f"(sum of ceil(T / {LIVE_CHUNK}) = {want}); wall {wall:.3f} s, xRT "
+        f"{wall / audio_s:.4e}; peak device memory {peak / 2**20:.1f} MiB")
+    log(f"  a chunk, instrumented pass ({len(chunk)} chunks, wall "
+        f"{wall2:.3f} s; synchronised after each part): all {med95(chunk)} "
+        f"ms; OutP {med95(timers['_outp'])}; launch "
+        f"{med95(timers['_launch'])}; record copy {med95(timers['_keep'])}; "
+        f"partial_result() at the end of the longest utterance "
+        f"({len(feats[longest])} frames) {part_ms:.3f} ms")
+    return launches
+
+
+def retrain_unnormalised(dev):
+    """The full twin's mix3 set retrained on features without ENORMALISE
+    (live mode refuses it, HError 6324): HCopy of the training audio at
+    LIVE_CFG, then LIVE_RETRAIN HERest passes from mix3 on the card, in
+    the current directory. Returns the new MMF and the wall s."""
+    t0 = time.perf_counter()
+    mfcs = open("train.scp").read().split()
+    with open("copy_enf.scp", "w") as f:
+        f.writelines(f"{m[:-4]}.wav enf/{m}\n" for m in mfcs)
+    with open("train_enf.scp", "w") as f:
+        f.writelines(f"enf/{m}\n" for m in mfcs)
+    for d in {os.path.dirname(m) for m in mfcs}:
+        os.makedirs(os.path.join("enf", d), exist_ok=True)
+    mmf = "mix3"
+    with contextlib.redirect_stdout(io.StringIO()):
+        if hcopy.run(["-C", "cfg_file", "-S", "copy_enf.scp"]) != 0:
+            raise RuntimeError("HCopy of the training audio at "
+                               "ENORMALISE = F failed")
+        for it in range(1, LIVE_RETRAIN + 1):
+            os.makedirs(f"enf{it}", exist_ok=True)
+            if herest.run(["-C", "cfg", "-I", "tri.mlf", "-H",
+                           f"{mmf}/hmmdefs", "-M", f"enf{it}", "-S",
+                           "train_enf.scp", "tiedlist"]) != 0:
+                raise RuntimeError(f"HERest pass {it} at ENORMALISE = F "
+                                   "failed")
+            mmf = f"enf{it}"
+    torch.cuda.synchronize(dev)
+    return f"{mmf}/hmmdefs", time.perf_counter() - t0
+
+
+def phase_live_tools(work, card, dev):
+    """Phase 30(c, d), on the full twin's files (phase 28): its set
+    retrained without ENORMALISE (`retrain_unnormalised`), HVite live
+    (SOURCEKIND = HAUDIO, ENORMALISE = F) replays the first test
+    utterance on the card, its live.mlf equal to the CPU path's (`python
+    -m htk_tpu_torch.tools.hvite` with HTK_TPU_TORCH_DEVICE=cpu) and to
+    the port's batch HVite of the same file with the same config, its
+    words held against the corpus's transcription (informational); then
+    HCopy captures LIVE_HCOPY test utterances live on the card and on
+    the CPU path, features within the frontend tolerances. Returns the
+    decode_scan launches of the live HVite."""
+    wav = LIVE_TEST.format(0)
+    with open(os.path.join(work, "cfg_live"), "w") as f:
+        f.write(LIVE_CFG + f"SOURCEKIND = HAUDIO\nHAUDIO: AUDIOSOURCE = "
+                f"{wav}\n")
+    with open(os.path.join(work, "cfg_file"), "w") as f:
+        f.write(LIVE_CFG)
+    old = os.getcwd()
+    os.chdir(work)
+    try:
+        mmf, rt_wall = retrain_unnormalised(dev)
+        net = ["-w", "wdnet.slf", "-p", "-12", "-H", mmf]
+        n = len(read_wave(wav, fmt="WAV").samples)
+        audio_s = n / 16000.0
+        want = -(-num_frames(n, FrontendConfig()) // LIVE_CHUNK)
+        reset_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = hvite.run(["-C", "cfg_live", "-T", "2", *net, "-i",
+                            "live.mlf", "dict", "tiedlist"])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = ds.KERNEL.launches
+        if rc != 0:
+            raise RuntimeError(f"HVite live returned {rc}")
+        parts = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("live [")]
+        final = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("live:")]
+        env = dict(os.environ, PYTHONPATH=old, **{DEVICE_ENV: "cpu"})
+        t0 = time.perf_counter()
+        cpu = subprocess.run(
+            [sys.executable, "-m", "htk_tpu_torch.tools.hvite", "-C",
+             "cfg_live", *net, "-i", "live_cpu.mlf", "dict", "tiedlist"],
+            env=env, capture_output=True, text=True, timeout=300)
+        cpu_wall = time.perf_counter() - t0
+        if cpu.returncode != 0:
+            raise RuntimeError(f"HVite live on the CPU path returned "
+                               f"{cpu.returncode}: {cpu.stderr[-2000:]}")
+        if hvite.run(["-C", "cfg_file", *net, "-i", "batch.mlf", "dict",
+                      "tiedlist", wav]) != 0:
+            raise RuntimeError("batch HVite of the live file failed")
+        mlf = {n: open(n, "rb").read()
+               for n in ("live.mlf", "live_cpu.mlf", "batch.mlf")}
+        if not mlf["live.mlf"] == mlf["live_cpu.mlf"] == mlf["batch.mlf"]:
+            raise AssertionError(f"live.mlf differs: {mlf}")
+        stem = os.path.splitext(os.path.basename(wav))[0]
+        hyp = MLF.load("live.mlf").lookup(f"*/{stem}.rec").names()
+        ref = MLF.load("words_test.mlf").lookup(f"*/{stem}.lab").names()
+        if not hyp:
+            raise AssertionError("HVite live recognised no word")
+        if launches != want:
+            raise AssertionError(f"HVite live: {launches} decode_scan "
+                                 f"launches, expected {want}")
+        log(f"the full twin's set retrained at ENORMALISE = F "
+            f"({LIVE_RETRAIN} HERest passes from mix3, HCopy included): "
+            f"{rt_wall:.2f} s")
+        log(f"HVite live on {card} ({wav}, {audio_s:.2f} s of audio, "
+            f"ENORMALISE = F): rc 0 in {wall:.3f} s ({wall / audio_s:.4f} s "
+            f"of wall a second of audio), words {hyp} against {ref} "
+            f"(accuracy {word_accuracy([ref], [hyp]):.2f}%, informational), "
+            f"{launches} decode_scan launches, "
+            f"{len(parts)} partial lines (last: {parts[-1] if parts else ''})"
+            f", {final[0] if final else 'no final line'}; live.mlf == the "
+            f"CPU path's (python -m, {cpu_wall:.2f} s with start-up) == "
+            f"batch HVite's on the file, byte for byte")
+        with open("cfg_hcopy", "w") as f:
+            f.write(LIVE_CFG + "SOURCEKIND = HAUDIO\n")
+        errs = (0.0, 0.0)
+        walls = {}
+        for where in ("cuda", "cpu"):
+            os.makedirs(f"live_{where}", exist_ok=True)
+            with open(f"live_{where}.scp", "w") as f:
+                f.writelines(f"{LIVE_TEST.format(i)} live_{where}/c{i}.mfc\n"
+                             for i in range(LIVE_HCOPY))
+            t0 = time.perf_counter()
+            with tool_device(where):
+                rc = hcopy.run(["-C", "cfg_hcopy", "-S", f"live_{where}.scp"])
+            torch.cuda.synchronize(dev)
+            walls[where] = time.perf_counter() - t0
+            if rc != 0:
+                raise RuntimeError(f"HCopy live capture on {where} returned "
+                                   f"{rc}")
+        for i in range(LIVE_HCOPY):
+            e = _feature_err(read_htk_file(f"live_cuda/c{i}.mfc").data,
+                             read_htk_file(f"live_cpu/c{i}.mfc").data, False)
+            errs = (max(errs[0], e[0]), max(errs[1], e[1]))
+        if errs[0] > FE_MAX or errs[1] > FE_MEAN:
+            raise AssertionError(f"HCopy live capture: card vs CPU max "
+                                 f"{errs[0]:.3g} mean {errs[1]:.3g}")
+        log(f"HCopy live capture (SOURCEKIND = HAUDIO) of {LIVE_HCOPY} test "
+            f"utterances: card {walls['cuda']:.3f} s, CPU path "
+            f"{walls['cpu']:.3f} s; card vs CPU max |diff| {errs[0]:.3g}, "
+            f"mean {errs[1]:.3g}")
+    finally:
+        os.chdir(old)
+    return launches
+
+
+def phase_live(sysm, hyps, net, comp, feats, work, card, dev):
+    """Phase 30: live mode. Returns (launches: the stream's decode_scan
+    launches and live HVite's, max |d| of decode_scan with a carry, its
+    chunk-shape times and bound)."""
+    err, times, bnd = phase_live_kernel(net, comp, feats, card, dev)
+    n_stream = phase_live_stream(sysm, hyps, net, comp, feats, card, dev)
+    n_hvite = phase_live_tools(work, card, dev)
+    return {"stream": n_stream, "HVite live": n_hvite}, err, times, bnd
+
 
 def kernel_entry(name, source, replaces, launches, err, times, bnd,
                  library_ms=None):
@@ -3835,10 +4191,14 @@ def main() -> int:
         ad_launches, ad_ferr, ad_derr = phase_adapt(sysm, root, net, comp,
                                                     card, dev)
         done("adaptation")
-        full_launches = phase_full(card, dev)
+        work = os.path.join(root, "full")
+        full_launches = phase_full(work, card, dev)
         done("full recipe twin")
         sk_launches, sk_ferr, sk_derr = phase_setkinds(sysm, root, card, dev)
         done("set kinds")
+        lv_launches, lv_err, lv_times, lv_bound = phase_live(
+            sysm, hyps, net, comp, feats, work, card, dev)
+        done("live mode")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     dbound = decode_bound(TIMING_B, TIMING_T, net.n_states, net.n_nodes,
@@ -3871,14 +4231,20 @@ def main() -> int:
     log(f"set-kind paths on {card}: launches under phase 29 {sk_launches}; "
         f"kernel against plain on FULLC, discrete and -r inputs: max |d| "
         f"fb_scans {sk_ferr:.3g}, decode_scan {sk_derr:.3g}")
+    log(f"live paths on {card}: decode_scan launches under phase 30 "
+        f"{lv_launches} (phase 5's HVite: {launches}); at the live chunk "
+        f"(B=1, T={LIVE_CHUNK}) {lv_times[0]:.6f} ms a launch (plain "
+        f"{lv_times[1]:.3f}, bound {lv_bound[0]:.6f} by {lv_bound[1]}); "
+        f"kernel against plain with a carry: max |d| {lv_err:.3g}")
     log(f"chip_smoke: {time.perf_counter() - t_all:.1f} s in all")
     log(card)
     xs = "htk_tpu_torch/csrc/xw_gather.cu"
     print(json.dumps({"kernels": [
         kernel_entry("decode_scan", "htk_tpu_torch/csrc/decode_scan.cu",
-                     "htk_tpu/ops/decode_pallas.py:137", launches,
+                     "htk_tpu/ops/decode_pallas.py:137",
+                     launches + sum(lv_launches.values()),
                      max(err, e2, dnn_derr, demo_launches[5], ad_derr,
-                         sk_derr),
+                         sk_derr, lv_err),
                      (kms, pms),
                      dbound),
         kernel_entry("fb_scans", "htk_tpu_torch/csrc/fb_scans.cu",

@@ -7,13 +7,19 @@
 //   1. word ends   WE[n] = max(LZERO, max_{s in n} v[s] + aE[s]); the first
 //                  maximising state gives pwn/pwt, -1 where WE <= LSMALL
 //   2. cross-word  entry[j] = (max_i WE[i] + trans[i,j]) + wdpen[j], first i;
-//                  at t == 0 entry = start and an = -1
+//                  at global frame t0 + t == 0 entry = start and an = -1
 //   3. within-word max_k v[s-k] + band[k,s] over the K-wide band, first k,
 //                  wn/wt carried from the same k
 //   4. combine     entry_s = (entry[node[s]] + a0[s]) + bonus[s];
 //                  v' = max(within, entry_s) + outp[b,t,s]; records from the
-//                  entry (an[node], t-1) where entry_s > within; records of
-//                  states with v' <= LSMALL reset to -1
+//                  entry (an[node], t0 + t - 1) where entry_s > within;
+//                  records of states with v' <= LSMALL reset to -1
+//
+// The state before frame 0 is LZERO / -1, or, for a run that continues an
+// earlier one (the live decoder's chunks, htk_tpu/algo/stream_decode.py :
+// _chunk_step_fn), the carried finals vinit/wninit/wtinit of that run, and
+// t0 is the global index of frame 0. A run cut into chunks so gives the
+// records and finals of one unsplit run, bit for bit.
 //
 // Every value is one fp32 add or a max, in the reference's order, so the
 // kernel and the plain torch version (ops/decode_scan.py) agree bit for bit.
@@ -44,7 +50,7 @@
 //     maximising v(t) + aE with its records; a shuffle reduction over the
 //     group gives the node's word end, written to the (B, T, Nn) records.
 //     The word ends of frame 0 come from the same pass over the initial
-//     states, before the loop.
+//     (or carried) states, before the loop.
 // One barrier a frame is enough: v(t-1), halos included, is complete before
 // the barrier of frame t, and a block overwrites that plane (in frame t+1)
 // only after the barrier of frame t+1, which every block reaches only after
@@ -154,8 +160,12 @@ decode_scan_kernel(const float* __restrict__ outp,        // (B, T, Ns)
                    int* wnbuf,                            // (2, B, Ns)
                    int* wtbuf,                            // (2, B, Ns)
                    unsigned* barrier,                     // (1,), zeroed
+                   const float* __restrict__ vinit,       // (B, Ns) or null
+                   const int* __restrict__ wninit,        // (B, Ns) or null
+                   const int* __restrict__ wtinit,        // (B, Ns) or null
                    int B, int T, int Ns, int Nn, int K, int nnp,
-                   int cols_max, int trans_smem, int bchunk, int jw, int gw) {
+                   int cols_max, int trans_smem, int bchunk, int jw, int gw,
+                   int t0) {
   const int n0 = bounds[blockIdx.x];
   const int n1 = bounds[blockIdx.x + 1];
   const int cols = n1 - n0;
@@ -217,8 +227,9 @@ decode_scan_kernel(const float* __restrict__ outp,        // (B, T, Ns)
   }
 
   // one pass over the (utterance, node) pairs of utterances [b0, b0 + nb):
-  // at init, plane 0 := LZERO / -1 and the word ends of frame 0; in frame t,
-  // band and combine into plane nxt and the word ends of frame t + 1
+  // at init, plane 0 := LZERO / -1 (or the carried state) and the word ends
+  // of frame 0; in frame t, band and combine into plane nxt and the word
+  // ends of frame t + 1
   auto states_pass = [&](int t, int b0, int nb, size_t cur, size_t nxt,
                          bool init) {
     const int npairs = nb * cols;
@@ -260,11 +271,15 @@ decode_scan_kernel(const float* __restrict__ outp,        // (B, T, Ns)
             nv = (use_entry ? es : within)
                  + outp[(static_cast<size_t>(b) * T + t) * Ns + s];
             rwn = use_entry ? an : wwn;
-            rwt = use_entry ? t - 1 : wwt;
+            rwt = use_entry ? t0 + t - 1 : wwt;
             if (nv <= kLSmall) {
               rwn = -1;
               rwt = -1;
             }
+          } else if (vinit != nullptr) {
+            nv = vinit[row + s];
+            rwn = wninit[row + s];
+            rwt = wtinit[row + s];
           }
           vbuf[nxt + row + s] = nv;
           wnbuf[nxt + row + s] = rwn;
@@ -309,7 +324,7 @@ decode_scan_kernel(const float* __restrict__ outp,        // (B, T, Ns)
     for (int b0 = 0; b0 < B; b0 += bchunk) {
       const int nb = min(bchunk, B - b0);
       // cross-word step for the block's columns
-      if (t == 0) {
+      if (t0 + t == 0) {
         for (int q = tid; q < nb * cols; q += kThreads) {
           const int bb = q / cols;
           const int jl = q - bb * cols;
@@ -436,21 +451,25 @@ extern "C" int decode_scan_grid(int device) {
 // Launches the cooperative grid of `grid` blocks on `stream`; returns the
 // cudaError_t of the launch (a grid larger than the card holds at once is
 // refused). The finals after T frames sit in plane (T & 1) of the buffers.
+// vinit/wninit/wtinit: the carried state (all three, or all null) and t0
+// the global index of frame 0.
 extern "C" int decode_scan_launch(
     const void* outp, const void* band, const void* a0, const void* aE,
     const void* bonus, const void* node_off, const void* bounds,
     const void* trans, const void* start, const void* wdpen, void* we_out,
     void* pwn_out, void* pwt_out, void* vbuf, void* wnbuf, void* wtbuf,
-    void* barrier, int B, int T, int Ns, int Nn, int K, int nnp, int cols_max,
-    int trans_smem, int bchunk, int jw, int gw, int grid, int smem,
+    void* barrier, const void* vinit, const void* wninit, const void* wtinit,
+    int B, int T, int Ns, int Nn, int K, int nnp, int cols_max,
+    int trans_smem, int bchunk, int jw, int gw, int t0, int grid, int smem,
     void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       decode_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&outp, &band, &a0, &aE, &bonus, &node_off, &bounds,
                   &trans, &start, &wdpen, &we_out, &pwn_out, &pwt_out,
-                  &vbuf, &wnbuf, &wtbuf, &barrier, &B, &T, &Ns, &Nn, &K,
-                  &nnp, &cols_max, &trans_smem, &bchunk, &jw, &gw};
+                  &vbuf, &wnbuf, &wtbuf, &barrier, &vinit, &wninit, &wtinit,
+                  &B, &T, &Ns, &Nn, &K, &nnp, &cols_max, &trans_smem,
+                  &bchunk, &jw, &gw, &t0};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(decode_scan_kernel), dim3(grid),
       dim3(kThreads), args, static_cast<size_t>(smem),

@@ -21,6 +21,15 @@ Two implementations with one signature:
                      card, each block owning a contiguous range of nodes
                      (`partition`), one grid barrier a frame.
 
+Both take an optional carried state, the live decoder's chunking
+(`htk_tpu/algo/stream_decode.py : _chunk_step_fn`): `init = (v, wn, wt)`,
+each (B, Ns), the finals of the previous chunk, and `t0`, the global
+index of the chunk's first frame. Frame 0's word ends and records then
+come from the carried state, the start entry applies only where
+t0 + t == 0, and a word link's time is the global t0 + t - 1, so a run
+cut into chunks gives exactly the records and finals of one unsplit run.
+Without them a run starts from LZERO / -1 at frame 0.
+
 `decode_scan` takes the plain version for CPU tensors only; for CUDA
 tensors it launches the kernel or raises. Word-link records follow the
 reference's tie rules: first maximising state, first source node, first
@@ -50,7 +59,7 @@ Outputs = Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
 
 def _bind(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.decode_scan_launch.argtypes = [vp] * 17 + [ci] * 13 + [vp]
+    lib.decode_scan_launch.argtypes = [vp] * 20 + [ci] * 14 + [vp]
     lib.decode_scan_launch.restype = ci
     lib.decode_scan_grid.argtypes = [ci]
     lib.decode_scan_grid.restype = ci
@@ -172,13 +181,37 @@ def _check_operands(outp, band, a0, aE, node_of_state, entry_bonus, trans,
     return B, T, Ns, Nn, K
 
 
+def _check_carry(init, t0, B: int, Ns: int, device):
+    """The carried state (v, wn, wt), each (B, Ns) float32/int32/int32,
+    contiguous, on `device`; t0 a frame index of at least 0."""
+    if int(t0) < 0:
+        raise ValueError(f"decode_scan: t0 must be >= 0, got {t0}")
+    if init is None:
+        return
+    if len(init) != 3:
+        raise ValueError("decode_scan: init must be (v, wn, wt)")
+    for name, x, dt in zip(("v", "wn", "wt"), init,
+                           (torch.float32, torch.int32, torch.int32)):
+        if tuple(x.shape) != (B, Ns) or x.dtype != dt:
+            raise ValueError(f"decode_scan: init {name} must be {dt} of "
+                             f"shape {(B, Ns)}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous() or x.device != device:
+            raise ValueError(f"decode_scan: init {name} must be contiguous "
+                             f"on {device}")
+
+
 def decode_scan_plain(outp, band, a0, aE, node_of_state, entry_bonus, trans,
-                      start_entry, word_pen, n_nodes: int) -> Outputs:
-    """Batched torch version of the decode recursion (any device)."""
+                      start_entry, word_pen, n_nodes: int, init=None,
+                      t0: int = 0) -> Outputs:
+    """Batched torch version of the decode recursion (any device); from
+    the carried state `init` at global frame `t0` if given."""
     B, T, Ns, Nn, K = _check_operands(
         outp, band, a0, aE, node_of_state, entry_bonus, trans, start_entry,
         word_pen, n_nodes)
     dev = outp.device
+    _check_carry(init, t0, B, Ns, dev)
+    t0 = int(t0)
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     nos = node_of_state.to(i64).expand(B, Ns)
     sidx = torch.arange(Ns, device=dev, dtype=i64).expand(B, Ns)
@@ -189,9 +222,12 @@ def decode_scan_plain(outp, band, a0, aE, node_of_state, entry_bonus, trans,
     lz_pad = torch.full((B, K - 1), LZERO, dtype=f32, device=dev)
     m1_pad = torch.full((B, K - 1), -1, dtype=i32, device=dev)
 
-    v = torch.full((B, Ns), LZERO, dtype=f32, device=dev)
-    wn = torch.full((B, Ns), -1, dtype=i32, device=dev)
-    wt = torch.full((B, Ns), -1, dtype=i32, device=dev)
+    if init is None:
+        v = torch.full((B, Ns), LZERO, dtype=f32, device=dev)
+        wn = torch.full((B, Ns), -1, dtype=i32, device=dev)
+        wt = torch.full((B, Ns), -1, dtype=i32, device=dev)
+    else:
+        v, wn, wt = init
     WEs = torch.empty((B, T, Nn), dtype=f32, device=dev)
     pwns = torch.empty((B, T, Nn), dtype=i32, device=dev)
     pwts = torch.empty((B, T, Nn), dtype=i32, device=dev)
@@ -208,8 +244,8 @@ def decode_scan_plain(outp, band, a0, aE, node_of_state, entry_bonus, trans,
         pwns[:, t] = torch.where(ok, wn.gather(1, sid), minus1)
         pwts[:, t] = torch.where(ok, wt.gather(1, sid), minus1)
 
-        # 2. cross-word max-plus (+ start entry at t == 0)
-        if t == 0:
+        # 2. cross-word max-plus (+ start entry at global frame 0)
+        if t0 + t == 0:
             entry = start_entry.expand(B, Nn)
             an = torch.full((B, Nn), -1, dtype=i32, device=dev)
         else:
@@ -235,7 +271,7 @@ def decode_scan_plain(outp, band, a0, aE, node_of_state, entry_bonus, trans,
         # 4. combine
         use_entry = entry_s > within
         v = torch.maximum(within, entry_s) + outp[:, t]
-        tm1 = torch.tensor(t - 1, dtype=i32, device=dev)
+        tm1 = torch.tensor(t0 + t - 1, dtype=i32, device=dev)
         wn = torch.where(use_entry, an.gather(1, nos), wwn)
         wt = torch.where(use_entry, tm1, wwt)
         dead = v <= LSMALL
@@ -291,13 +327,14 @@ def _plan(node_of_state, Nn: int, K: int, G: int) -> dict:
 
 
 def decode_scan_cuda(outp, band, a0, aE, node_of_state, entry_bonus, trans,
-                     start_entry, word_pen, n_nodes: int,
-                     grid: Optional[int] = None) -> Outputs:
+                     start_entry, word_pen, n_nodes: int, init=None,
+                     t0: int = 0, grid: Optional[int] = None) -> Outputs:
     """The Hopper kernel (csrc/decode_scan.cu); operands on one GPU.
 
     Raises on operands the kernel cannot take; allocates the outputs, the
     (2, B, Ns) ping-pong scratch and the barrier counter; launches the
-    cooperative grid on the current stream without synchronising. `grid`
+    cooperative grid on the current stream without synchronising. `init`
+    and `t0`: the carried state, read by the kernel's init pass. `grid`
     forces the number of blocks (tests); by default the full grid."""
     B, T, Ns, Nn, K = _check_operands(
         outp, band, a0, aE, node_of_state, entry_bonus, trans, start_entry,
@@ -309,6 +346,10 @@ def decode_scan_cuda(outp, band, a0, aE, node_of_state, entry_bonus, trans,
                                       word_pen))):
         raise ValueError("decode_scan_cuda: every operand must lie on the "
                          f"same CUDA device as outp ({dev})")
+    _check_carry(init, t0, B, Ns, dev)
+    if int(t0) + T >= 2 ** 31:
+        HError(8528, "decode_scan: frame %d is outside the records' int32 "
+                     "range", int(t0) + T)
     G = full_grid(dev.index) if grid is None else int(grid)
     if G < 1 or T * G >= 2 ** 32:
         HError(8528, "decode_scan: a grid of %d blocks over %d frames is "
@@ -317,6 +358,8 @@ def decode_scan_cuda(outp, band, a0, aE, node_of_state, entry_bonus, trans,
     part = plan["part"]
     bchunk = max(1, min(B, part.bchunk_max))
     f32, i32 = torch.float32, torch.int32
+    carry = ((None,) * 3 if init is None
+             else tuple(x.data_ptr() for x in init))
     WE = torch.empty((B, T, Nn), dtype=f32, device=dev)
     pwn = torch.empty((B, T, Nn), dtype=i32, device=dev)
     pwt = torch.empty((B, T, Nn), dtype=i32, device=dev)
@@ -335,9 +378,9 @@ def decode_scan_cuda(outp, band, a0, aE, node_of_state, entry_bonus, trans,
                 trans.data_ptr(), start_entry.data_ptr(),
                 word_pen.data_ptr(), WE.data_ptr(), pwn.data_ptr(),
                 pwt.data_ptr(), vbuf.data_ptr(), wnbuf.data_ptr(),
-                wtbuf.data_ptr(), barrier.data_ptr(), B, T, Ns, Nn, K,
-                part.nnp, part.cols_max, int(part.trans_in_smem), bchunk,
-                part.jw, part.gw, G,
+                wtbuf.data_ptr(), barrier.data_ptr(), *carry, B, T, Ns, Nn,
+                K, part.nnp, part.cols_max, int(part.trans_in_smem), bchunk,
+                part.jw, part.gw, int(t0), G,
                 smem_bytes(part.nnp, part.cols_max, part.jw, bchunk,
                            part.trans_in_smem), stream)
         if err != 0:
@@ -349,15 +392,16 @@ def decode_scan_cuda(outp, band, a0, aE, node_of_state, entry_bonus, trans,
 
 
 def decode_scan(outp, band, a0, aE, node_of_state, entry_bonus, trans,
-                start_entry, word_pen, n_nodes: int) -> Outputs:
+                start_entry, word_pen, n_nodes: int, init=None,
+                t0: int = 0) -> Outputs:
     """Dispatch on where `outp` lies: the plain version for CPU tensors,
     the kernel for CUDA tensors (which raises rather than fall back)."""
     if outp.device.type == "cpu":
         return decode_scan_plain(outp, band, a0, aE, node_of_state,
                                  entry_bonus, trans, start_entry, word_pen,
-                                 n_nodes)
+                                 n_nodes, init, t0)
     if outp.device.type != "cuda":
         raise ValueError(f"decode_scan: no implementation for device "
                          f"{outp.device}")
     return decode_scan_cuda(outp, band, a0, aE, node_of_state, entry_bonus,
-                            trans, start_entry, word_pen, n_nodes)
+                            trans, start_entry, word_pen, n_nodes, init, t0)

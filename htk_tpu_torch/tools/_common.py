@@ -6,13 +6,12 @@ no card and no such request a tool stops with HError 1090.
 
 The torch counterpart of `htk_tpu/tools/_common.py`. HTK and ESIG
 feature files and waveforms open as in htk_tpu; a waveform runs through
-the port's frontend (ops/dsp.py) on the tool's device. A live HAUDIO
-source raises HError 6373: live audio (htk_tpu's io/audio.py) is not
-ported yet. htk_tpu's `preload_corpus` is not carried over: it only feeds
-the native batch codec, which the port leaves out, so every file goes
-through the numpy reader, which gives the same data. Nor is
-`source_kind`, which has no caller. `channel_config` (HERest -r's
-channel views) is copied as it is.
+the port's frontend (ops/dsp.py) on the tool's device, and so does a
+live HAUDIO source (io/audio.py), pulled dry first. htk_tpu's
+`preload_corpus` is not carried over: it only feeds the native batch
+codec, which the port leaves out, so every file goes through the numpy
+reader, which gives the same data. Nor is `source_kind`, which has no
+caller. `channel_config` (HERest -r's channel views) is copied as it is.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ import numpy as np
 import torch
 
 from ..io import parmkind as pk
+from ..io.audio import open_audio_input
 from ..io.htkfeat import read_htk_file
 from ..io.scp import parse_scp_entry
 from ..io.wavefile import read_wave
@@ -98,18 +98,35 @@ class DeferredWave:
 def open_speech_file(entry: str, cfg: Config, defer_frontend: bool = False):
     """Open a data file as (features, samp_period, parm_kind, scp entry).
 
-    The HParm OpenBuffer role for HTK-format and ESIG feature files and
-    waveforms, with optional segment selection from the scp entry and
-    HPARMFILTER/HWAVEFILTER input filters. A waveform converts per
-    TARGETKIND on `default_device()`; with
-    defer_frontend=True it returns a DeferredWave (samples + frontend
-    config) instead — see compute_features_batch.
+    The HParm OpenBuffer role for HTK-format and ESIG feature files,
+    waveforms and live HAUDIO sources, with optional segment selection
+    from the scp entry and HPARMFILTER/HWAVEFILTER input filters. A
+    waveform or live source converts per TARGETKIND on
+    `default_device()`; with defer_frontend=True a waveform returns a
+    DeferredWave (samples + frontend config) instead — see
+    compute_features_batch.
     """
     e = parse_scp_entry(entry)
     src_kind = cfg.str_("SOURCEKIND", "ANON", module="HPARM").upper()
     if src_kind == "HAUDIO":
-        HError(6373, "open_speech_file: HAUDIO (live audio) sources are "
-                     "not yet ported to htk_tpu_torch")
+        # live capture (HParm live buffer): pull the audio source dry,
+        # then convert like a waveform file. The scp entry (if any)
+        # overrides HAUDIO:AUDIOSOURCE as the replay file — HCopy's
+        # "record then convert" live mode.
+        src = open_audio_input(
+            cfg, fname=(e.physical if e.physical else None))
+        src.start()
+        parts = []
+        while (c := src.read(16000)) is not None:
+            parts.append(c)
+        src.stop()
+        samples = np.concatenate(parts) if parts else np.zeros(0, np.int16)
+        fcfg = FrontendConfig.from_config(cfg, src.samp_period)
+        feats = compute_features(samples.astype(np.float32), fcfg,
+                                 device=default_device())
+        period = int(fcfg.target_rate)
+        return (feats, period,
+                fcfg.target_kind & ~(pk.HASCOMPX | pk.HASCRCC), e)
     src_fmt_c = (cfg.str_("SOURCEFORMAT", "HTK", module="HWAVE") or "HTK").upper()
     # HShell xxFILTER channels: feature reads go through HPARMFILTER,
     # waveform reads through HWAVEFILTER — only the channel actually

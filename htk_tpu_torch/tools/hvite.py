@@ -50,7 +50,12 @@ its own: its codewords read as int64 columns, their table-lookup scores
 the decoder's `state_scores` hook, one decode launch an utterance, as in
 the reference.
 
-Not yet ported, refused with HError 3290: live audio.
+Live mode (HVite.c with SOURCEKIND = HAUDIO and no files): samples
+stream from the audio source (io/audio.py; HAUDIO: AUDIOSOURCE = <file>
+replays a file) through the streaming frontend (ops/stream.py) and the
+streaming decoder (algo/stream_decode.py), one decode launch a chunk of
+32 frames from the carried state; -T 2 prints the partial traceback
+after each 0.25 s read, -T 1 the final `live:` line.
 
 Config: HNET: FORCECXTEXP/ALLOWXWRDEXP/CFPHONES/SHAREINTERIORS,
 HREC: DECODEBATCH (recognition batch size, default 8), LATTICEBEAM,
@@ -79,13 +84,17 @@ from ..algo.fb_discrete import discrete_state_scores
 from ..algo.latops import nbest_paths
 from ..algo.nnet import hybrid_outp
 from ..algo.net import compile_network, word_internal_phone_map
+from ..algo.stream_decode import StreamingDecoder
 from ..algo.viterbi import align
+from ..io.audio import open_audio_input
 from ..io.dictionary import read_dict
 from ..io.mlf import MLF, Label, Transcription, find_labels, save_label_file
 from ..io.mmf import load_hmm_list, load_mmf
 from ..io.slf import NULL_WORD, LArc, Lattice, LNode, read_slf, write_slf
 from ..models.ann import ANNModule, load_ann
 from ..models.hmmset import compile_hmmset, drop_device_caches, write_back
+from ..ops.dsp import FrontendConfig
+from ..ops.stream import StreamingFrontend
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
 from ..utils.metrics import maybe_profile
@@ -122,10 +131,6 @@ OPTS = {
     "h": Option("h", 1, "speaker mask for -J selection"),
     "N": Option("N", 1, "ANN file for hybrid decoding"),
 }
-
-
-def _not_ported(what: str):
-    HError(3290, "HVite: %s is not yet ported to htk_tpu_torch", what)
 
 
 def _out_label_path(logical: str, out_dir: Optional[str], ext: str) -> str:
@@ -315,10 +320,12 @@ def run(argv: List[str]) -> int:
     prec = outp_precision(cfg)
     dict_file, hmm_list_file = ta.args[0], ta.args[1]
     files = ta.script + ta.args[2:]
+    # HVite live mode (HVite.c with SOURCEKIND = HAUDIO and no files):
+    # samples stream from the audio source through the incremental
+    # frontend and decoder instead of per-file batch processing.
     src_kind = (cfg.str_("SOURCEKIND", "", module="HPARM") or "").upper()
-    if not files and src_kind == "HAUDIO":
-        _not_ported("live audio recognition (SOURCEKIND = HAUDIO)")
-    if not files:
+    live = not files and src_kind == "HAUDIO"
+    if not files and not live:
         HError(1030, "HVite: no test files\n%s", USAGE)
 
     mmfs = ta.get_all("H")
@@ -382,6 +389,9 @@ def run(argv: List[str]) -> int:
             f"HVite: network {net.n_nodes} nodes, {net.n_chains} chains, "
             f"{net.n_states} states"
         )
+    if live:
+        return _run_live(ta, cfg, net, comp, lm_scale, word_pen, out_mlf,
+                         out_mlf_path, out_dir, out_ext, period, device)
 
     lat_ext = ta.get("z")
     lat_beam = cfg.flt_("LATTICEBEAM", 200.0, module="HREC") or 200.0
@@ -629,6 +639,59 @@ def _write_numerator_lattice(res, occ_of_phone, words, period, logical,
     stem = os.path.splitext(os.path.basename(logical))[0]
     lt.utterance = stem
     write_slf(lt, os.path.join(out_dir or ".", f"{stem}.{lat_ext}"))
+
+
+def _run_live(ta, cfg, net, comp, lm_scale, word_pen, out_mlf,
+              out_mlf_path, out_dir, out_ext, period, device) -> int:
+    """Live recognition: audio source -> streaming frontend -> streaming
+    decoder on `device`, with partial traceback under -T 2 (HVite.c live
+    loop).
+
+    The audio 'device' on a headless host is a file-replay source
+    (HAUDIO: AUDIOSOURCE = <file>; io/audio.py): a microphone backend
+    would slot into open_audio_input without changing this loop.
+    """
+    src = open_audio_input(cfg)
+    fcfg = FrontendConfig.from_config(cfg, samp_period=src.samp_period)
+    sf = StreamingFrontend(fcfg, device=device)
+    sd = StreamingDecoder(net, comp, lm_scale=lm_scale, word_pen=word_pen,
+                          device=device)
+
+    src.start()
+    read_n = max(1, int(2500000 / src.samp_period))  # 0.25 s per read
+    while (chunk := src.read(read_n)) is not None:
+        feats = sf.feed(chunk.astype(np.float32))
+        if feats.size:
+            sd.feed(feats)
+        if ta.trace > 1:
+            part = sd.partial_result()
+            if part is not None:
+                print(f"live [{sd.frames_processed:5d}]: "
+                      f"{' '.join(part.words)}")
+    tail = sf.flush()
+    if tail.size:
+        sd.feed(tail)
+    res = sd.flush()
+    src.stop()
+
+    logical = cfg.str_("AUDIOSOURCE", "liveaudio", module="HAUDIO") \
+        or "liveaudio"
+    tr = Transcription(alternatives=[[]])
+    if res is None:
+        HRError(8522, "HVite: no tokens survived (live)")
+    else:
+        for w, (t0, t1) in zip(res.words, res.times):
+            tr.alternatives[0].append(
+                Label(name=w, start=t0 * period, end=(t1 + 1) * period))
+        if ta.trace:
+            print(f"live: {' '.join(res.words)}  [{res.score:.2f}]")
+    _emit(tr, logical, out_mlf, out_dir, out_ext)
+    if out_mlf is not None:
+        out_mlf.save(out_mlf_path, with_times=True, with_scores=False,
+                     cfg=ta.config)
+        if ta.trace:
+            print(f"HVite: wrote {out_mlf_path}")
+    return 0
 
 
 def _emit(tr, logical, out_mlf, out_dir, out_ext):

@@ -18,21 +18,21 @@ list; words outside it still count (closed-vocab filtering is LSubset's
 job, kept simple here).
 
 Copied from `htk_tpu/tools/lbuild.py` into the PyTorch port: host code,
-behaviour unchanged. The gram-file reader it uses (`is_gram_file`,
-`read_gram`) is copied beside it from `htk_tpu/tools/lgram.py`. The port
-cannot use htk_tpu, whose utils package pulls in JAX.
+behaviour unchanged. Gram files (LGPrep/LGCopy output) read through the
+port's `tools/lgram.py`, as in htk_tpu. The port cannot use htk_tpu,
+whose utils package pulls in JAX.
 """
 
 from __future__ import annotations
 
 import math
 from collections import Counter
-from typing import List, Tuple
+from typing import List
 
 from ..io.lm import LN10, NGramLM, save_lm
 from ..io.mlf import MLF
 from ..utils.cli import Option, parse_args, tool_main
-from ..utils.errors import HError, contained
+from ..utils.errors import HError
 
 USAGE = "Usage: LBuild [options] wordMap outLM trainFiles..."
 
@@ -185,29 +185,6 @@ def build_lm_from_counts(uni, bi, tri, four, order=2, cutoff=1,
     return lm
 
 
-def is_gram_file(path: str) -> bool:
-    try:
-        with open(path) as f:
-            return f.readline().startswith("!Ngram")
-    except OSError:
-        return False
-
-
-def read_gram(path: str) -> Tuple[int, Counter]:
-    with open(path, errors="replace") as f:
-        head = f.readline()
-        if not head.startswith("!Ngram"):
-            HError(16110, "read_gram: %s is not a gram file", path)
-        with contained(16111, "read_gram", path):
-            order = int(head.split("=", 1)[1])
-            counts: Counter = Counter()
-            for ln in f:
-                parts = ln.split()
-                if len(parts) == order + 1:
-                    counts[tuple(parts[:order])] += int(parts[order])
-    return order, counts
-
-
 def run(argv: List[str]) -> int:
     ta = parse_args("LBuild", argv, OPTS, min_args=2, usage=USAGE)
     out_lm = ta.args[1]
@@ -219,6 +196,8 @@ def run(argv: List[str]) -> int:
               scheme=(ta.get("d", "ABS") or "ABS").upper(),
               disc=float(ta.get("a", 0.5) or 0.5),
               ufloor=float(ta.get("u", 1.0) or 1.0))
+    from .lgram import is_gram_file, read_gram
+
     n_in = "?"
     if all(is_gram_file(f) for f in files):
         # LGPrep/LGCopy gram-file inputs: merge count tables by order

@@ -6,6 +6,10 @@ feature data) are compared field by field with a stated tolerance, and
 everything else byte for byte.
 """
 
+import importlib
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -72,3 +76,51 @@ def assert_scaled_close(got: np.ndarray, ref: np.ndarray,
     s = float(np.abs(np.asarray(ref, np.float64)).max())
     assert_features_close(np.asarray(got, np.float64) / s,
                           np.asarray(ref, np.float64) / s, max_tol, mean_tol)
+
+
+def _snapshot(root):
+    out = {}
+    for d, _dirs, files in os.walk(root):
+        for f in files:
+            p = os.path.join(d, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, root)] = fh.read()
+    return out
+
+
+def run_both(tmp_path, monkeypatch, capsys, tool, argv, inputs,
+             entry="main"):
+    """Run `tool` of both packages (its function `entry`) on copies of the
+    `inputs` directory; returns ({file: bytes} written by the port, the
+    same for htk_tpu, (port stdout, htk_tpu stdout), (port stderr,
+    htk_tpu stderr), (port rc, htk_tpu rc))."""
+    out = []
+    for pkg in ("htk_tpu_torch", "htk_tpu"):
+        d = tmp_path / pkg
+        shutil.copytree(inputs, d)
+        before = _snapshot(d)
+        monkeypatch.chdir(d)
+        capsys.readouterr()
+        mod = importlib.import_module(f"{pkg}.tools.{tool}")
+        rc = getattr(mod, entry)(list(argv))
+        cap = capsys.readouterr()
+        after = _snapshot(d)
+        out.append(({r: b for r, b in after.items() if before.get(r) != b},
+                    cap.out, cap.err, rc))
+    (fp, op, ep, rp), (fj, oj, ej, rj) = out
+    return fp, fj, (op, oj), (ep, ej), (rp, rj)
+
+
+def assert_same(tmp_path, monkeypatch, capsys, tool, argv, inputs,
+                stdout=True, entry="main"):
+    """Both packages' `tool` exit 0 and write the same files, byte for
+    byte (and print the same stdout, unless `stdout` is False)."""
+    fp, fj, (op, oj), _err, (rp, rj) = run_both(
+        tmp_path, monkeypatch, capsys, tool, argv, inputs, entry)
+    assert rp == rj == 0
+    assert sorted(fp) == sorted(fj) and fp, (sorted(fp), sorted(fj))
+    for rel in fp:
+        assert fp[rel] == fj[rel], rel
+    if stdout:
+        assert op == oj
+    return fp

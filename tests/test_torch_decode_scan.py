@@ -21,6 +21,8 @@ from htk_tpu_torch.ops import decode_scan as ds
 from htk_tpu_torch.synth import random_decode_net
 from htk_tpu_torch.utils.logmath import LZERO
 
+from _torch_compare import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def _cpu(monkeypatch):

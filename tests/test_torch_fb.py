@@ -47,6 +47,7 @@ from htk_tpu_torch.ops import fb_scans as fbs
 from htk_tpu_torch.synth import random_fb_operands
 from htk_tpu_torch.utils.logmath import LZERO
 
+from _torch_compare import one_torch_thread  # noqa: F401
 from test_composite_device import tee_set
 from test_fb import small_set
 

@@ -28,6 +28,7 @@ from htk_tpu_torch.models.hmmset import compile_hmmset
 from htk_tpu_torch.synth import write_system
 from htk_tpu_torch.tools import herest as torch_herest
 
+from _torch_compare import one_torch_thread  # noqa: F401
 from test_discrete import discrete_set
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -277,6 +278,7 @@ def test_no_card_and_no_cpu_request_exits_numbered(system, tool):
     env = {k: v for k, v in os.environ.items() if k != "HTK_TPU_TORCH_DEVICE"}
     env["CUDA_VISIBLE_DEVICES"] = ""
     env["PYTHONPATH"] = REPO
+    env["OMP_NUM_THREADS"] = "1"
     if tool == "herest":
         args = ["-H", s.hmmdefs, "-M", s.root, "-S", s.train_scp, "-I",
                 s.train_mlf, s.hmmlist]

@@ -10,9 +10,7 @@ tolerance (tests/_torch_compare.py). HHEd's RC (the base-class file
 too) and XF (the MMF's ~a macro) are byte-identical as well.
 """
 
-import importlib
 import os
-import shutil
 
 import numpy as np
 import pytest
@@ -23,57 +21,13 @@ from htk_tpu_torch.io.wavefile import Waveform, read_wave, write_wave
 from htk_tpu_torch.models.proto import clone_proto, make_proto
 from htk_tpu_torch.recipes.speech import synth_words
 
-from _torch_compare import (assert_features_close, assert_scaled_close,  # noqa: F401
-                            one_torch_thread)
+from _torch_compare import (assert_features_close, assert_same,  # noqa: F401
+                            assert_scaled_close, one_torch_thread, run_both)
 
 
 @pytest.fixture(autouse=True)
 def _cpu(monkeypatch):
     monkeypatch.setenv("HTK_TPU_TORCH_DEVICE", "cpu")
-
-
-def _snapshot(root):
-    out = {}
-    for d, _dirs, files in os.walk(root):
-        for f in files:
-            p = os.path.join(d, f)
-            with open(p, "rb") as fh:
-                out[os.path.relpath(p, root)] = fh.read()
-    return out
-
-
-def run_both(tmp_path, monkeypatch, capsys, tool, argv, inputs):
-    """Run `tool` of both packages on copies of the `inputs` directory;
-    returns ({file: bytes} written by the port, the same for htk_tpu,
-    (port stdout, htk_tpu stdout), (port rc, htk_tpu rc))."""
-    out = []
-    for pkg in ("htk_tpu_torch", "htk_tpu"):
-        d = tmp_path / pkg
-        shutil.copytree(inputs, d)
-        before = _snapshot(d)
-        monkeypatch.chdir(d)
-        capsys.readouterr()
-        mod = importlib.import_module(f"{pkg}.tools.{tool}")
-        rc = mod.main(list(argv))
-        cap = capsys.readouterr()
-        after = _snapshot(d)
-        out.append(({r: b for r, b in after.items() if before.get(r) != b},
-                    cap.out, cap.err, rc))
-    (fp, op, ep, rp), (fj, oj, ej, rj) = out
-    return fp, fj, (op, oj), (ep, ej), (rp, rj)
-
-
-def assert_same(tmp_path, monkeypatch, capsys, tool, argv, inputs,
-                stdout=True):
-    fp, fj, (op, oj), _err, (rp, rj) = run_both(
-        tmp_path, monkeypatch, capsys, tool, argv, inputs)
-    assert rp == rj == 0
-    assert sorted(fp) == sorted(fj) and fp, (sorted(fp), sorted(fj))
-    for rel in fp:
-        assert fp[rel] == fj[rel], rel
-    if stdout:
-        assert op == oj
-    return fp
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ from htk_tpu.tools import hvite as jax_hvite
 from htk_tpu_torch.synth import word_accuracy, write_system
 from htk_tpu_torch.tools import hvite as torch_hvite
 
+from _torch_compare import one_torch_thread  # noqa: F401
 from test_discrete import discrete_set
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -245,12 +246,19 @@ def test_port_imports_no_jax_and_no_htk_tpu():
             "'htk_tpu_torch.algo.viterbi', 'htk_tpu_torch.tools.hinit', "
             "'htk_tpu_torch.tools.hrest', 'htk_tpu_torch.tools.hdecode', "
             "'htk_tpu_torch.tools.lbuild', 'htk_tpu_torch.tools.hlrescore', "
-            "'htk_tpu_torch.recipes.demo', 'htk_tpu_torch.recipes.speech'}\n"
+            "'htk_tpu_torch.recipes.demo', 'htk_tpu_torch.recipes.speech', "
+            "'htk_tpu_torch.io.audio', 'htk_tpu_torch.ops.stream', "
+            "'htk_tpu_torch.algo.stream_decode', 'htk_tpu_torch.utils.graf', "
+            + ", ".join(f"'htk_tpu_torch.tools.{t}'" for t in (
+                "hlist", "hlstats", "hdman", "hsgen", "hsmooth", "hparse",
+                "hlmcopy", "lgram", "lmerge", "lplex", "lsubset", "cluster",
+                "hslab")) + "}\n"
             "assert need <= set(mods), need - set(mods)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'htk_tpu' or "
             "m.startswith('htk_tpu.')]\n"
             "print(len(mods), bad)\nsys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

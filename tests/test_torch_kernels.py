@@ -53,6 +53,8 @@ from htk_tpu_torch.synth import (random_decode_net, random_fb_operands,
 from htk_tpu_torch.utils.errors import HTKError
 from htk_tpu_torch.utils.logmath import LZERO
 
+from _torch_compare import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def _cpu(monkeypatch):
@@ -248,6 +250,33 @@ def test_kernel_takes_utterances_in_chunks_on_card(Ns, Nn, G, B, in_smem):
     ref = ds.decode_scan_plain(*args)
     torch.cuda.synchronize()
     assert_same(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 3, None])
+@pytest.mark.parametrize("cuts", [[1], [23], [8, 9, 16], list(range(1, 24))])
+def test_kernel_carry_matches_plain_on_card(G, cuts):
+    """A run cut into chunks, the state carried from each to the next
+    (`init`, `t0`): the kernel's records and finals equal the plain
+    version's over the same chunks and one unsplit launch's, bit for
+    bit."""
+    need_card()
+    for seed, ties in ((len(cuts), True), (len(cuts) + 1, False)):
+        args = operands(random_decode_net(seed, Ns=600, Nn=40, K=3, B=3,
+                                          T=24, ties=ties), "cuda")
+        runs = []
+        for launch in (lambda *a, **k: ds.decode_scan_cuda(*a, grid=G, **k),
+                       ds.decode_scan_plain):
+            carry, recs = None, []
+            for a, b in zip([0] + cuts, cuts + [24]):
+                carry, r = launch(args[0][:, a:b].contiguous(), *args[1:],
+                                  init=carry, t0=a)
+                recs.append(r)
+            runs.append(list(carry) + [torch.cat(p, 1) for p in zip(*recs)])
+        whole = ds.decode_scan_cuda(*args, grid=G)
+        torch.cuda.synchronize()
+        for x, y, z in zip(runs[0], runs[1], list(whole[0]) + list(whole[1])):
+            assert torch.equal(x, y) and torch.equal(x, z)
 
 
 @pytest.mark.cuda

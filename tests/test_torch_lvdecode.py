@@ -43,6 +43,7 @@ from htk_tpu_torch.io.lm import read_arpa as p_read_arpa
 from htk_tpu_torch.utils.errors import HTKError
 from htk_tpu_torch.utils.logmath import LZERO
 
+from _torch_compare import one_torch_thread  # noqa: F401
 from test_decode import emit_frames, separable_set
 from test_lvdecode import make_lm
 from test_trigram_guide import make_trilm

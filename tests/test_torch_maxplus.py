@@ -38,6 +38,9 @@ from htk_tpu_torch.ops import tropical as trop
 from htk_tpu_torch.synth import random_maxplus_operands
 from htk_tpu_torch.utils.logmath import LZERO
 
+from _torch_compare import one_torch_thread  # noqa: F401
+
+
 MODES = {"normal": {}, "ties": {"ties": True}, "dead": {"dead_rows": 1}}
 
 

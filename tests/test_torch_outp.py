@@ -20,6 +20,8 @@ from htk_tpu.ops import outp as jax_outp
 from htk_tpu_torch.ops import outp as torch_outp
 from htk_tpu_torch.utils.logmath import LZERO
 
+from _torch_compare import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def _cpu(monkeypatch):

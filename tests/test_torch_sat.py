@@ -454,7 +454,8 @@ def test_full_corpus_writer_byte_identical(tmp_path):
     ref = tmp_path / "ref"
     ref.mkdir()
     env = {k: v for k, v in os.environ.items()}
-    env.update(sizes, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+    env.update(sizes, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+               OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, os.path.join(
         REPO, "recipes", "full", "make_corpus.py")], cwd=ref, env=env,
         capture_output=True, text=True, timeout=300)

@@ -42,6 +42,7 @@ from htk_tpu_torch.ops import xw_route, xw_window
 from htk_tpu_torch.synth import random_xw_operands
 from htk_tpu_torch.utils.logmath import LZERO
 
+from _torch_compare import one_torch_thread  # noqa: F401
 from test_torch_lvdecode import BIG, TIED, nets
 from test_xw_route import rand_graph
 
