@@ -267,6 +267,33 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      (informational), the wall a second of audio; (d) HCopy live capture
      (SOURCEKIND = HAUDIO) of 4 test utterances, card vs CPU within the
      frontend tolerances
+ 31. multi-device: (a) in one process, a one-rank NCCL group (a file://
+     rendezvous) and its mesh; ShardedTrainer and Trainer over the 16
+     utterances with host composites (HERest's DEVICECOMPOSITE = F
+     path), in turns, under torch's deterministic algorithms: the
+     accumulators equal bit for bit, one fb_scans launch a FB batch (2),
+     the walls; (b) fb_scans on a padded shard (5 utterances and 3 rows
+     at t_real = 0, as pad_batch(pad_to=) makes them on a rank): kernel
+     == plain, the padding rows' logP LZERO and xi 0, the accumulators
+     through the kernel against the plain scans'; (c) fb_time_sharded on
+     a one-rank mesh against the port's serial scans, on the longest
+     utterance cut to 504 frames and on the first four utterances joined
+     (transcripts and features, about 1,900-2,000 frames), at
+     tests/test_timeshard.py's tolerances: the walls of the call, of its
+     block operator and its rescans, of the serial scans, and the peak
+     device memory; (d) two gloo ranks on the one card, when gloo takes
+     CUDA tensors (else a line with its error): ShardedTrainer at 4
+     utterances a rank against (a)'s Trainer within rtol/atol 5e-5, and
+     fb_time_sharded at D = 2 on (c)'s long utterance against the serial
+     scans in float64: alphas, betas and logP each no further off than
+     twice the float32 serial scans' own gap plus the test's tolerance
+     (at |logP| ~1e5 a float32 step is 8e-3, so the float32 serial scans
+     part from exact values by more than the test's 2e-3), and xi against
+     xi_scan of its own gathered alphas, betas and logP at the test's
+     tolerances (at this length xi carries each float32 result's drift
+     of LSE(alpha_t + beta_t) from logP, the serial scans' too); then
+     `dryrun_multichip(1)` in the one-rank group (fb_scans and
+     decode_scan launches)
  20. one JSON line of kernels, then the device line last
 
 Phase 19 also runs the demo's trigram HDecode stage (LBuild, HDecode
@@ -314,9 +341,11 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import datetime
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -329,6 +358,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from htk_tpu_torch.algo import decode as dec
 from htk_tpu_torch.algo.decode import (_final_records, _finalize,
@@ -336,12 +366,13 @@ from htk_tpu_torch.algo.decode import (_final_records, _finalize,
 from htk_tpu_torch.algo import adapt, fb_discrete, fullcov_train, nnet, viterbi
 from htk_tpu_torch.algo.composite import build_composite
 from htk_tpu_torch.algo.stream_decode import StreamingDecoder
-from htk_tpu_torch.algo.fb import _fb_outp
+from htk_tpu_torch.algo.fb import (_fb_outp, backward_scan, forward_scan,
+                                   xi_scan)
 from htk_tpu_torch.algo.lvnet import compile_lv_loop
 from htk_tpu_torch.algo.net import compile_network, word_internal_phone_map
 from htk_tpu_torch.algo.trainer import (DeviceCompositeTrainer, Trainer,
-                                        _bucket, make_batches, pad_batch,
-                                        prepare_utterance,
+                                        UttData, _bucket, make_batches,
+                                        pad_batch, prepare_utterance,
                                         prepare_utterance_ids)
 from htk_tpu_torch.io.dictionary import read_dict
 from htk_tpu_torch.io import parmkind as pk
@@ -362,6 +393,10 @@ from htk_tpu_torch.ops import xw_gather as xg
 from htk_tpu_torch.ops import xw_route, xw_window
 from htk_tpu_torch.ops.dsp import (FrontendConfig, compute_features,
                                    compute_features_batch, num_frames)
+from htk_tpu_torch.parallel import timeshard as tsh
+from htk_tpu_torch.parallel.dryrun import dryrun_multichip, spawn_ranks
+from htk_tpu_torch.parallel.mesh import (ShardedTrainer, init_distributed,
+                                         make_mesh)
 from htk_tpu_torch.recipes import demo, full
 from htk_tpu_torch.recipes.speech import utterance_set, write_wav
 from htk_tpu_torch.synth import (PARM_KIND, lv_system, random_decode_net,
@@ -374,7 +409,7 @@ from htk_tpu_torch.tools import (hcopy, hdecode, herest, hhed, hinit,
 from htk_tpu_torch.tools._common import DEVICE_ENV
 from htk_tpu_torch.tools._xfcli import (chain_model_params,
                                         load_input_transforms)
-from htk_tpu_torch.utils.logmath import LZERO
+from htk_tpu_torch.utils.logmath import LZERO, ladd_reduce
 
 ATOL = 1e-5
 DECODEBATCH = 8
@@ -4102,6 +4137,402 @@ def phase_live(sysm, hyps, net, comp, feats, work, card, dev):
     return {"stream": n_stream, "HVite live": n_hvite}, err, times, bnd
 
 
+MD_T = 504  # phase 31(c): frames of the config-#4 utterance
+MD_LONG = 4  # phase 31(c): transcripts joined into the long utterance
+MD_SHARD = (5, 8)  # phase 31(b): a padded shard's real rows, and its rows
+MD_RANK_BATCH = 4  # phase 31(d): utterances a rank a batch
+MD_TIMEOUT = 180.0  # phase 31(d): the two-rank group's wall, start-up included
+MD_ACC_TOL = 5e-5  # phase 31(d): tests/test_parallel.py's rtol and atol
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms inside (index_add_ on the card
+    then sums in a fixed order, so that two runs of one computation are
+    equal bit for bit); matmuls keep their own, deterministic, kernels."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def md_world1(comp, utts, card, dev):
+    """Phase 31(a): ShardedTrainer on a one-rank NCCL mesh and Trainer
+    over the 16 utterances (host composites, HERest's DEVICECOMPOSITE = F
+    path), in turns Trainer, ShardedTrainer, ShardedTrainer, Trainer:
+    every pass's accumulators equal bit for bit, fb_scans launched once a
+    FB batch. Returns (Trainer's accumulators, ShardedTrainer's fb_scans
+    launches in its first pass)."""
+    mesh = make_mesh(1)
+    want = len(make_batches(utts, HEREST_BATCH))
+    runs = []
+    with deterministic():
+        for name in ("Trainer", "ShardedTrainer", "ShardedTrainer",
+                     "Trainer"):
+            tr = (Trainer(comp, device=dev) if name == "Trainer"
+                  else ShardedTrainer(comp, mesh, device=dev))
+            reset_counts()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            accs = tr.accumulate(utts, batch_size=HEREST_BATCH)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            n = fbs.KERNEL.launches
+            if n != want:
+                raise AssertionError(f"31(a) {name}: fb_scans launched {n} "
+                                     f"times, expected {want}")
+            runs.append((name, accs, wall, n))
+    ref = runs[0][1]
+    for name, accs, _w, _n in runs[1:]:
+        for f in ref._fields:
+            a, b = getattr(accs, f), getattr(ref, f)
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"31(a) {name}: {f} differs from Trainer's at "
+                    f"{int((a != b).sum())} places (max |d| "
+                    f"{float((a - b).abs().max()):.3g})")
+    log(f"31(a) world 1 on {dist.get_backend()}, {card}: "
+        f"ShardedTrainer == Trainer bit for bit over {len(utts)} "
+        f"utterances ({want} FB batches of {HEREST_BATCH}, "
+        f"{comp.n_states} tied states, {comp.n_mix} Gaussians); walls "
+        + ", ".join(f"{name} {w:.3f} s" for name, _a, w, _n in runs)
+        + "; fb_scans launches " + ", ".join(str(n) for *_x, n in runs))
+    return ref, runs[1][3]
+
+
+def md_padded_shard(comp, utts, dev):
+    """Phase 31(b): one fb_batch call on a shard with trailing padding
+    rows (t_real = 0), as pad_batch(pad_to=) makes them on a rank: the
+    kernel against the plain version on the same outp, the padding rows'
+    logP LZERO and xi zero, and the accumulators of the call through the
+    kernel against the plain scans'. Returns the scans' max |d|."""
+    real, rows = MD_SHARD
+    tr = Trainer(comp, device=dev)
+    params = tr.params()
+    batch = max(make_batches(utts, HEREST_BATCH), key=len)[:real]
+    arrs = {k: torch.as_tensor(v, device=dev) for k, v in pad_batch(
+        batch, comp.n_states, pad_to=rows).items()}
+    outp = _fb_outp(arrs["feats"], arrs["comp_state"], arrs["q_mask"],
+                    **params, slot_blocks=tuple(comp.slot_blocks) or None)[0]
+    ops = (outp, arrs["logA"], arrs["a0"], arrs["aE"], arrs["t_real"])
+    k = fbs.fb_scans_cuda(*ops)
+    p = fbs.fb_scans_plain(*ops)
+    torch.cuda.synchronize(dev)
+    err = compare_scans(k, p, ops[4], "31(b) padded shard")
+    if not bool((k[2][real:] <= LZERO / 2).all()) or bool(k[3][real:].any()):
+        raise AssertionError("31(b): a padding row has a logP or an xi")
+    _lk, acc_k = tr._fb(params, arrs, None)
+    with plain_scans():
+        _lp, acc_p = tr._fb(params, arrs, None)
+    torch.cuda.synchronize(dev)
+    if float(acc_k.n_utts) != real:
+        raise AssertionError(f"31(b): {float(acc_k.n_utts)} utterances "
+                             f"accumulated, not {real}")
+    worst = {}
+    for f in ("occ", "sum_x", "sum_xx", "wt_occ", "tr"):
+        g, r = getattr(acc_k, f), getattr(acc_p, f)
+        worst[f] = float((g - r).abs().max() / r.abs().max())
+        if worst[f] > ACC_TOL:
+            raise AssertionError(f"31(b) accumulators: {f} differs by "
+                                 f"{worst[f]:.3g} of its scale")
+    B, T, Q = outp.shape
+    log(f"31(b) fb_scans on a padded shard (B={B}: {real} utterances and "
+        f"{rows - real} rows at t_real = 0, T={T}, Q={Q}): kernel == plain "
+        f"(max |d| {err:.3g}), padding rows' logP LZERO and xi 0; "
+        "accumulators through the kernel == plain scans' (max |diff| / "
+        "scale: " + ", ".join(f"{f} {v:.2e}" for f, v in worst.items())
+        + ")")
+    return err
+
+
+def md_long_utterance(comp, sysm):
+    """The first MD_LONG transcripts joined and their features
+    concatenated, cut to a multiple of 8 frames."""
+    mlf = MLF.load(sysm.train_mlf)
+    feats, names = [], []
+    for path in sysm.feats[:MD_LONG]:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        feats.append(read_htk_file(path).data)
+        names += mlf.lookup(f"*/{stem}.lab").names()
+    x = np.concatenate(feats)
+    return prepare_utterance(comp, "long", x[:len(x) - len(x) % 8], names)
+
+
+def md_operands(comp, u, dev):
+    """Utterance u's outp (T, Q) on the card at its real Q, and its logA,
+    a0 and aE."""
+    params = Trainer(comp, device=dev).params()
+    arrs = {k: torch.as_tensor(v, device=dev)
+            for k, v in pad_batch([u], comp.n_states).items()}
+    outp = _fb_outp(arrs["feats"], arrs["comp_state"], arrs["q_mask"],
+                    **params, slot_blocks=tuple(comp.slot_blocks) or None)[0]
+    T, Q = u.feats.shape[0], u.hmm.n_states
+    return [outp[0, :T, :Q].contiguous()] + [
+        torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        for a in (u.hmm.logA, u.hmm.a0, u.hmm.aE)]
+
+
+def serial_fb(outp, logA, a0, aE):
+    """The port's serial scans of one utterance: alphas, betas, logP and
+    xi."""
+    T = outp.shape[0]
+    o, A = outp[None], logA[None]
+    t_real = torch.tensor([T], dtype=torch.int32, device=outp.device)
+    al = forward_scan(o, A, a0[None], t_real)
+    be = backward_scan(o, A, aE[None], t_real)
+    lp = ladd_reduce(al[:, 0] + be[:, 0], dim=-1)
+    xi = xi_scan(al, be, o, A, lp, t_real)
+    return al[0], be[0], lp[0], xi[0]
+
+
+def timeshard_close(got, ref, what, xi_rtol=5e-4):
+    """tests/test_timeshard.py's tolerances: alphas and betas where the
+    serial value is above -1e9 within 2e-3 + 1e-5 |ref|, xi within
+    atol 5e-3, rtol `xi_rtol`; logP within 2e-3 + 1e-5 |ref| too (the
+    test's logP, about -400, is held at 2e-3 absolute; a config-#4 logP
+    is about -6e4, where one float32 step is 4e-3). Returns the max |d|
+    of alphas and betas, of logP and of xi."""
+    al, be, lp, xi = got
+    al_r, be_r, lp_r, xi_r = ref
+    d_ab = 0.0
+    for g, r, name in ((al, al_r, "alpha"), (be, be_r, "beta")):
+        live = r > -1e9
+        d = (g[live] - r[live]).abs()
+        if not bool((d <= 2e-3 + 1e-5 * r[live].abs()).all()):
+            raise AssertionError(f"{what}: {name} max |d| {float(d.max())}")
+        d_ab = max(d_ab, float(d.max()))
+    d_lp = abs(float(lp) - float(lp_r))
+    if d_lp > 2e-3 + 1e-5 * abs(float(lp_r)):
+        raise AssertionError(f"{what}: logP {float(lp)} != {float(lp_r)}")
+    if not torch.allclose(xi, xi_r, rtol=xi_rtol, atol=5e-3):
+        raise AssertionError(f"{what}: xi differs by "
+                             f"{float((xi - xi_r).abs().max())} (largest "
+                             f"{float(xi_r.abs().max())})")
+    return d_ab, d_lp, float((xi - xi_r).abs().max())
+
+
+def fb_gaps(got, ref):
+    """{alpha, beta, logP, xi, LSE spread}: max |got - ref| of each (alphas
+    and betas on the same live cells, above -1e9), and the largest
+    |LSE_i(alpha_t + beta_t) - logP| over t of `got`."""
+    out = {}
+    for g, r, name in zip(got[:2], ref[:2], ("alpha", "beta")):
+        live = r > -1e9
+        if not torch.equal(live, g > -1e9):
+            raise AssertionError(f"31(d): live {name} cells differ")
+        out[name] = float((g[live].double() - r[live]).abs().max())
+    out["logP"] = abs(float(got[2]) - float(ref[2]))
+    out["xi"] = float((got[3].double() - ref[3]).abs().max())
+    out["LSE spread"] = float((ladd_reduce(got[0] + got[1], dim=-1)
+                               - got[2]).abs().max())
+    return out
+
+
+def synced_ms(fn, dev):
+    """fn()'s result and its wall in ms, ending in a synchronise."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def md_timeshard(comp, sysm, utts, card, dev):
+    """Phase 31(c): fb_time_sharded on a one-rank mesh on the card against
+    the port's serial scans, on the longest config-#4 utterance cut to
+    MD_T frames and on the long utterance (`md_long_utterance`): the
+    walls of the call, of its phase 1 (the block operator) and phase 3
+    (the rescans) and of the serial scans, and the call's peak device
+    memory. Returns the long utterance's operands and serial result."""
+    mesh = make_mesh(1, axis="t")
+    longest = max(utts, key=lambda u: u.feats.shape[0])
+    cut = UttData("cut", longest.feats[:MD_T], longest.hmm)
+    out = None
+    for what, u in (("the longest utterance, cut", cut),
+                    (f"{MD_LONG} utterances joined", md_long_utterance(
+                        comp, sysm))):
+        ops = md_operands(comp, u, dev)
+        T, Q = ops[0].shape
+        ref, serial_ms = synced_ms(lambda: serial_fb(*ops), dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        got, ts_ms = synced_ms(lambda: tsh.fb_time_sharded(*ops, mesh), dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        errs = timeshard_close(got, ref, f"31(c) {what}")
+        K = tsh._band_of(ops[1].cpu().numpy())
+        O, p1_ms = synced_ms(lambda: tsh._block_operator(
+            ops[0][None], ops[1], ops[2], K, 0), dev)
+        seeds = tsh._boundaries(O[None], 0, ops[3])
+        _ab, p3_ms = synced_ms(lambda: tsh._rescan(
+            ops[0][None], ops[1], ops[2], *seeds, 0), dev)
+        log(f"31(c) fb_time_sharded at D = 1 on {card}, {what} (T={T}, "
+            f"Q={Q}, band K={K}, logP {float(ref[2]):.2f}): == serial scans "
+            f"(max |d| alpha/beta {errs[0]:.3g}, logP {errs[1]:.3g}, xi "
+            f"{errs[2]:.3g}); wall {ts_ms:.1f} ms (phase 1, the block "
+            f"operator, {p1_ms:.1f} ms; phase 3, the rescans, {p3_ms:.1f} "
+            f"ms), serial scans {serial_ms:.1f} ms; peak device memory "
+            f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held "
+            f"(xi's (T, Q, Q) terms: {4 * T * Q * Q / 2**20:.1f} MiB)")
+        out = (ops, ref)
+    return out
+
+
+def md_rank(init, data, out, device):
+    """Phase 31(d)'s rank: one of two gloo ranks on the same `device`
+    (the card, cuda:0). First
+    whether gloo takes CUDA tensors (all_reduce, all_gather_into_tensor):
+    if not, rank 0 saves the error and both stop. Then ShardedTrainer at
+    MD_RANK_BATCH utterances a rank over the pickled corpus and
+    fb_time_sharded of the pickled long utterance over the two ranks;
+    rank 0 saves the accumulators, the gathered alphas and betas, logP,
+    xi, and each rank prints its launches, walls and peak memory."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init,
+                            world_size=int(os.environ["WORLD_SIZE"]),
+                            rank=int(os.environ["RANK"]),
+                            timeout=datetime.timedelta(seconds=120))
+    rank = dist.get_rank()
+    try:
+        try:
+            x = torch.ones(4, device=dev)
+            dist.all_reduce(x)
+            g = x.new_empty(8)
+            dist.all_gather_into_tensor(g, x)
+        except RuntimeError as e:
+            if rank == 0:
+                np.savez(out, gloo_error=np.array(str(e)))
+            return
+        with open(data, "rb") as f:
+            comp, utts, long_ops = pickle.load(f)
+        mesh = make_mesh(2, device_type=dev.type)
+        reset_counts()
+        accs, tr_ms = synced_ms(lambda: ShardedTrainer(
+            comp, mesh, device=dev).accumulate(utts,
+                                               batch_size=MD_RANK_BATCH), dev)
+        n_fb = fbs.KERNEL.launches
+        mesh_t = make_mesh(2, axis="t", device_type=dev.type)
+        ops = [torch.as_tensor(a, device=dev) for a in long_ops]
+        torch.cuda.reset_peak_memory_stats(dev)
+        res, ts_ms = synced_ms(lambda: tsh.fb_time_sharded(*ops, mesh_t),
+                               dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        whole = [tsh.gather_blocks(res[0], mesh_t),
+                 tsh.gather_blocks(res[1], mesh_t), res[2], res[3]]
+        print(f"rank {rank}: ShardedTrainer {tr_ms:.1f} ms, fb_scans "
+              f"launches {n_fb}; fb_time_sharded over T={ops[0].shape[0]} "
+              f"(this rank's {res[0].shape[0]} frames) {ts_ms:.1f} ms, "
+              f"peak device memory {peak / 2**20:.1f} MiB", flush=True)
+        if rank == 0:
+            np.savez(out, **{f: getattr(accs, f).cpu().numpy()
+                             for f in accs._fields},
+                     **{f"ts_{n}": t.cpu().numpy() for n, t in zip(
+                         ("alphas", "betas", "logp", "xi"), whole)})
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def md_world2(comp, utts, ref, long_case, root, card, dev):
+    """Phase 31(d): two gloo ranks on the one card (`md_rank`), when
+    gloo takes CUDA tensors: ShardedTrainer at MD_RANK_BATCH a rank
+    against 31(a)'s Trainer within MD_ACC_TOL, and fb_time_sharded at
+    D = 2 on the long utterance against the serial scans (below)."""
+    (ops, serial) = long_case
+    data = os.path.join(root, "md31.pkl")
+    out = os.path.join(root, "md31.npz")
+    with open(data, "wb") as f:
+        pickle.dump((comp, utts, [a.cpu().numpy() for a in ops]), f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    where = "cuda:0" if dev.type == "cuda" else "cpu"
+    outs = spawn_ranks(2, "chip_smoke:md_rank",
+                       {"data": data, "out": out, "device": where},
+                       device=dev.type, env={"LOCAL_RANK": "0"},
+                       timeout=MD_TIMEOUT, path=[here])
+    wall = time.perf_counter() - t0
+    z = np.load(out)
+    if "gloo_error" in z.files:
+        log(f"31(d) left out: gloo on torch {torch.__version__} does not "
+            f"take CUDA tensors: {z['gloo_error']}")
+        return
+    for f in ref._fields:
+        g, r = z[f], getattr(ref, f).cpu().numpy()
+        if not np.allclose(g, r, rtol=MD_ACC_TOL, atol=MD_ACC_TOL):
+            raise AssertionError(f"31(d): {f} differs from Trainer's by "
+                                 f"{float(np.abs(g - r).max()):.3g}")
+    got = [torch.as_tensor(z[f"ts_{n}"], device=dev)
+           for n in ("alphas", "betas", "logp", "xi")]
+    # at |logP| ~1e5 one float32 step is 8e-3 and a scan rounds T times,
+    # so the float32 serial scans part from exact values by far more than
+    # tests/test_timeshard.py's 2e-3 (its logP is -400): alphas, betas
+    # and logP are held against the serial scans in float64, no further
+    # off than twice the float32 serial scans plus the test's tolerance.
+    # xi at this length carries each result's drift of LSE(alpha_t +
+    # beta_t) from logP (float32 serial: e^2.6 on the card), so it is held
+    # to xi_scan of its own gathered alphas, betas and logP at the test's
+    # tolerances: the block-boundary exchange and the sum across ranks
+    exact = serial_fb(*[a.double() for a in ops])
+    e32, ets = fb_gaps(serial, exact), fb_gaps(got, exact)
+    t_real = torch.tensor([ops[0].shape[0]], dtype=torch.int32, device=dev)
+    xi_own = xi_scan(got[0][None], got[1][None], ops[0][None], ops[1][None],
+                     got[2].reshape(1), t_real)[0]
+    xi_d = float((got[3] - xi_own).abs().max())
+    log(f"31(d) world 2 on one card (gloo, CUDA tensors), {card}: "
+        f"ShardedTrainer at {MD_RANK_BATCH} a rank == 31(a)'s Trainer "
+        f"within {MD_ACC_TOL}; fb_time_sharded at D = 2 on the long "
+        f"utterance, max |d| from the float64 serial scans (the float32 "
+        f"serial scans' beside): "
+        + ", ".join(f"{k} {ets[k]:.4g} ({e32[k]:.4g})" for k in ets)
+        + f"; xi from xi_scan of its own alphas, betas and logP {xi_d:.4g} "
+        f"(largest {float(xi_own.abs().max()):.4g}); group wall "
+        f"{wall:.1f} s, start-up included")
+    for k, floor in (("alpha", 2e-3), ("beta", 2e-3), ("logP", 2e-3)):
+        if ets[k] > 2 * e32[k] + floor:
+            raise AssertionError(f"31(d) D = 2: {k} {ets[k]:.4g} from the "
+                                 f"float64 scans, the float32 serial scans "
+                                 f"{e32[k]:.4g}")
+    if not torch.allclose(got[3], xi_own, rtol=5e-4, atol=5e-3):
+        raise AssertionError(f"31(d) D = 2: xi {xi_d:.4g} from xi_scan of "
+                             f"its own alphas, betas and logP")
+    for o in outs:
+        for line in o.splitlines():
+            log(f"  {line}")
+
+
+def phase_multidevice(sysm, root, card, dev):
+    """Phase 31: multi-device training (parallel/mesh.py) and time-sharded
+    forward-backward (parallel/timeshard.py) on the card at config-#4
+    width, (a)-(d) above, then the multi-rank dry run at one rank.
+    Returns (fb_scans launches under 31(a)'s first ShardedTrainer pass,
+    under the dry run; decode_scan launches under the dry run; 31(b)'s
+    max |d|)."""
+    comp = compile_hmmset(load_mmf([sysm.hmmdefs]))
+    utts = _train_utts(comp, sysm)
+    init_distributed(coordinator="file://" + os.path.join(root, "rv31"),
+                     num_processes=1, process_id=0, device=dev)
+    try:
+        ref, n_a = md_world1(comp, utts, card, dev)
+        err = md_padded_shard(comp, utts, dev)
+        long_case = md_timeshard(comp, sysm, utts, card, dev)
+        md_world2(comp, utts, ref, long_case, root, card, dev)
+        reset_counts()
+        _r, dry_ms = synced_ms(lambda: dryrun_multichip(1), dev)
+        n_dry = (fbs.KERNEL.launches, ds.KERNEL.launches)
+        if min(n_dry) < 1:
+            raise AssertionError(f"dry run: launches fb_scans, decode_scan "
+                                 f"{n_dry}")
+        log(f"dryrun_multichip(1) on {card}: {dry_ms:.1f} ms, fb_scans "
+            f"launches {n_dry[0]}, decode_scan launches {n_dry[1]}")
+    finally:
+        dist.destroy_process_group()
+    return n_a, n_dry, err
+
+
 def kernel_entry(name, source, replaces, launches, err, times, bnd,
                  library_ms=None):
     return {"name": name, "route": "cuda", "source": source,
@@ -4199,6 +4630,9 @@ def main() -> int:
         lv_launches, lv_err, lv_times, lv_bound = phase_live(
             sysm, hyps, net, comp, feats, work, card, dev)
         done("live mode")
+        md_launches, md_dry, md_err = phase_multidevice(sysm, root, card,
+                                                        dev)
+        done("multi-device")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     dbound = decode_bound(TIMING_B, TIMING_T, net.n_states, net.n_nodes,
@@ -4236,6 +4670,11 @@ def main() -> int:
         f"(B=1, T={LIVE_CHUNK}) {lv_times[0]:.6f} ms a launch (plain "
         f"{lv_times[1]:.3f}, bound {lv_bound[0]:.6f} by {lv_bound[1]}); "
         f"kernel against plain with a carry: max |d| {lv_err:.3g}")
+    log(f"multi-device paths on {card}: fb_scans launches under phase "
+        f"31(a)'s ShardedTrainer {md_launches}, under the dry run "
+        f"{md_dry[0]}; decode_scan launches under the dry run {md_dry[1]}; "
+        f"fb_scans kernel against plain on a padded shard: max |d| "
+        f"{md_err:.3g}")
     log(f"chip_smoke: {time.perf_counter() - t_all:.1f} s in all")
     log(card)
     xs = "htk_tpu_torch/csrc/xw_gather.cu"
@@ -4250,7 +4689,8 @@ def main() -> int:
         kernel_entry("fb_scans", "htk_tpu_torch/csrc/fb_scans.cu",
                      "htk_tpu/ops/fb_pallas.py:127", fb_launches,
                      max(fb_err, fb_err2, mmi_err, dnn_ferr,
-                         demo_launches[6], ad_ferr, sk_ferr), (fkms, fpms),
+                         demo_launches[6], ad_ferr, sk_ferr, md_err),
+                     (fkms, fpms),
                      fbound),
         kernel_entry("maxplus", "htk_tpu_torch/csrc/maxplus.cu",
                      "htk_tpu/ops/maxplus_pallas.py:67", mp_launches,

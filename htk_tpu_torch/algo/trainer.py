@@ -12,8 +12,8 @@ device works on the current one.
 assembles the composites on the device (algo/composite_device.py).
 Single-pass retraining (HERest -r) gives each utterance a second channel
 (`UttData.feats2`), padded with the first to one T, and the Trainer
-accumulates its moments at `retrain_dim`. Not ported yet: the
-multi-device trainer.
+accumulates its moments at `retrain_dim`. The multi-rank trainer,
+`ShardedTrainer`, is in parallel/mesh.py.
 """
 
 from __future__ import annotations
@@ -74,11 +74,15 @@ def make_batches(utts: Sequence[UttData],
     return batches
 
 
-def pad_batch(batch: Sequence[UttData], n_states_phys: int):
+def pad_batch(batch: Sequence[UttData], n_states_phys: int,
+              pad_to: Optional[int] = None):
     """Pad a batch to common (B, T, Q) numpy arrays for fb_batch; a
     second channel, where the utterances carry one, pads to the same T
-    as `feats2`."""
-    B = len(batch)
+    as `feats2`. `pad_to` rows in all (at least len(batch)): the rows
+    past the batch are all padding, t_real = 0, and add nothing to the
+    accumulators (parallel/mesh.py pads a global batch to a multiple of
+    the ranks)."""
+    B = pad_to or len(batch)
     T = _bucket(max(u.feats.shape[0] for u in batch))
     Q = _bucket(max(u.hmm.n_states for u in batch), 16)
     D = batch[0].feats.shape[1]

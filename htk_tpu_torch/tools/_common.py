@@ -49,8 +49,11 @@ DEVICE_ENV = "HTK_TPU_TORCH_DEVICE"
 
 def default_device() -> torch.device:
     """The tool's device: `cuda`, or `cpu` when the caller asks for it with
-    HTK_TPU_TORCH_DEVICE=cpu. Raises HError 1090 when no card is visible
-    and the CPU was not asked for, and 1019 on another value."""
+    HTK_TPU_TORCH_DEVICE=cpu. In a multi-rank run (WORLD_SIZE above 1, as
+    torchrun sets it) each rank owns the card `cuda:LOCAL_RANK`. Raises
+    HError 1090 when no card is visible and the CPU was not asked for,
+    1091 when LOCAL_RANK names a card that is not there (NCCL refuses two
+    ranks on one card), and 1019 on another value."""
     want = (os.environ.get(DEVICE_ENV) or "cuda").strip().lower()
     if want == "cpu":
         return torch.device("cpu")
@@ -59,7 +62,14 @@ def default_device() -> torch.device:
     if not torch.cuda.is_available():
         HError(1090, "no CUDA card is visible; set %s=cpu to run on the "
                      "CPU", DEVICE_ENV)
-    return torch.device("cuda")
+    local = os.environ.get("LOCAL_RANK", "").strip()
+    if not local or int(os.environ.get("WORLD_SIZE") or 1) <= 1:
+        return torch.device("cuda")
+    n = torch.cuda.device_count()
+    if int(local) >= n:
+        HError(1091, "LOCAL_RANK %s has no card of its own: %d visible",
+               local, n)
+    return torch.device("cuda", int(local))
 
 
 def channel_config(cfg: Config, n: int) -> Config:

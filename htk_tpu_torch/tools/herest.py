@@ -10,6 +10,18 @@ accumulate, update, save. Parallel modes:
   -p 0         load accumulator files given after the HMM list, update
   (default)    accumulate + update in one process, on one device
 
+Across ranks (HTK's -p N jobs as one program): run one process a rank
+under torchrun (`python -m torch.distributed.run --nproc_per_node N -m
+htk_tpu_torch.tools.herest ...`), or give every process WORLD_SIZE and
+RANK and `HTKTPU: COORDINATOR = tcp://host:port` (or `file://path`).
+Every rank reads the script; with host-built composites (HTKTPU:
+DEVICECOMPOSITE = F, or -K) and HTKTPU: USESHARDING true (the default),
+each FB batch is sharded across the ranks and its accumulators summed by
+one all_reduce (parallel/mesh.py ShardedTrainer); each rank runs on its
+own card (LOCAL_RANK). Every rank updates from the same sums; only rank 0
+prints the trace and writes the MMF, -s statistics, .acc files, TMFs and
+metrics, and the ranks meet at a barrier before they exit.
+
 Usage: python -m htk_tpu_torch.tools.herest [options] hmmList [accFiles...]
 
   -H mmf   load HMM macro file (repeatable)     -M dir  output directory
@@ -42,9 +54,10 @@ Usage: python -m htk_tpu_torch.tools.herest [options] hmmList [accFiles...]
 
 Config: HTKTPU: DEVICECOMPOSITE (default T: composites assembled on the
 device from model ids; F: built on the host), HTKTPU: PRECISION,
-HTKTPU: METRICS, HTKTPU: PROFILE, HMAP: MAPTAU (> 0: MAP mean update,
-algo/adapt.map_update). The device is the CUDA card, or the CPU when
-HTK_TPU_TORCH_DEVICE=cpu asks for it (tools/_common.py).
+HTKTPU: METRICS, HTKTPU: PROFILE, HTKTPU: COORDINATOR and USESHARDING
+(above), HMAP: MAPTAU (> 0: MAP mean update, algo/adapt.map_update).
+The device is the CUDA card, or the CPU when HTK_TPU_TORCH_DEVICE=cpu
+asks for it (tools/_common.py).
 
 Transform estimation (-K) takes host-built composites: CMLLR and MLLRCOV
 read each utterance's Gaussian posteriors (algo/fb.
@@ -72,6 +85,7 @@ from typing import Any, List, NamedTuple, Optional
 import numpy as np
 
 import torch
+import torch.distributed as dist
 
 from ..algo import adapt
 from ..algo.fb import mix_posteriors_utterance
@@ -86,6 +100,7 @@ from ..io.mmf import load_hmm_list, load_mmf, save_mmf
 from ..models.hmmset import (compile_hmmset, write_back,
                              write_back_discrete, write_back_retrained)
 from ..parallel.acc_files import dump_accs, load_accs, sum_accs
+from ..parallel.mesh import ShardedTrainer, init_distributed, make_mesh
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
 from ..utils.metrics import emit_metric, maybe_profile
@@ -115,6 +130,12 @@ OPTS = {
     "h": Option("h", 1, "speaker mask"),
     "r": Option("r", 0, "single-pass retraining (paired script)"),
 }
+
+def _writer() -> bool:
+    """Whether this process writes the tool's files: a single process, or
+    rank 0 of a group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
 
 def write_stats_file(path: str, comp, accs) -> None:
     """HERest -s stats file: per-HMM per-state occupancies (HHEd RO input).
@@ -253,9 +274,17 @@ def _accumulate(ta, comp, prune, files, batch_size) -> Pass:
     elif retrain:
         trainer = Trainer(comp, precision=prec, prune=prune, device=device,
                           retrain_dim=int(d2_probe.shape[1]))
+    elif use_dev_comp:
+        trainer = DeviceCompositeTrainer(comp, precision=prec, prune=prune,
+                                         device=device)
     else:
-        cls = DeviceCompositeTrainer if use_dev_comp else Trainer
-        trainer = cls(comp, precision=prec, prune=prune, device=device)
+        trainer = _make_trainer(comp, cfg, prune, device)
+    if (ta.trace and dist.is_initialized() and dist.get_world_size() > 1
+            and not isinstance(trainer, ShardedTrainer)):
+        print(f"HERest: {dist.get_world_size()} ranks, each accumulating "
+              f"every utterance (sharding takes HTKTPU: DEVICECOMPOSITE = "
+              f"F and USESHARDING = T, and a continuous-density set "
+              f"without -r)")
     prep = prepare_utterance_ids if use_dev_comp else prepare_utterance
     in_xfs = _input_transforms(ta, comp)
     spk_mask = ta.get("h")
@@ -377,7 +406,9 @@ def _estimate_transforms(ta, hset, comp, trainer, utts, accs, batch_size):
     # features keeps statics/deltas/accelerations separate)
     n_blocks = int(cfg.flt_("BLOCKS", 1.0, module="HADAPT"))
     out_xf_dir = ta.get("K")
-    os.makedirs(out_xf_dir, exist_ok=True)
+    write = _writer()
+    if write:
+        os.makedirs(out_xf_dir, exist_ok=True)
     mask = ta.get("h")
     groups = {}
     for u in utts:
@@ -445,7 +476,8 @@ def _estimate_transforms(ta, hset, comp, trainer, utts, accs, batch_size):
                                else adapt.build_regression_classes(
                                    comp, n_reg))
                     xfs, c2x = adapt.estimate_mllr_classes(comp, sa, classes)
-                adapt.save_tmf_classes(tmf_path, spk, xfs, c2x, classes)
+                if write:
+                    adapt.save_tmf_classes(tmf_path, spk, xfs, c2x, classes)
                 if ta.trace:
                     print(f"HERest: {len(xfs)} regression-class "
                           f"transforms for {spk} -> {tmf_path}")
@@ -474,8 +506,9 @@ def _estimate_transforms(ta, hset, comp, trainer, utts, accs, batch_size):
                                 fx, gm, comp.means, comp.variances))
                 xfs, c2x = adapt.estimate_cmllr_classes(
                     c_stats, g_stats, occ_thresh=occ_thresh)
-                adapt.save_tmf_classes(tmf_path, spk, xfs, c2x, classes,
-                                       kind="CMLLRCLASSES")
+                if write:
+                    adapt.save_tmf_classes(tmf_path, spk, xfs, c2x, classes,
+                                           kind="CMLLRCLASSES")
                 if ta.trace:
                     print(f"HERest: {len(xfs)} base-class CMLLR "
                           f"transforms for {spk} -> {tmf_path}")
@@ -485,7 +518,8 @@ def _estimate_transforms(ta, hset, comp, trainer, utts, accs, batch_size):
             xf = mllrcov_from(uset)
         else:
             HError(7450, "HERest: unsupported TRANSKIND %s", kind)
-        adapt.save_tmf(tmf_path, spk, xf)
+        if write:
+            adapt.save_tmf(tmf_path, spk, xf)
         if ta.trace:
             print(f"HERest: estimated {kind} transform for {spk} "
                   f"({len(uset)} utts) -> {tmf_path}")
@@ -505,6 +539,8 @@ def _retrain_kind(ta, kind2) -> int:
 
 
 def _save(ta, hset, out_dir, mmfs, what=""):
+    if not _writer():
+        return
     os.makedirs(out_dir, exist_ok=True)
     out_mmf = os.path.join(out_dir, os.path.basename(mmfs[0]))
     save_mmf(hset, out_mmf, binary=ta.binary)
@@ -513,7 +549,25 @@ def _save(ta, hset, out_dir, mmfs, what=""):
 
 
 def run(argv: List[str]) -> int:
+    """HERest on this process, which joins its ranks' group first when one
+    is configured (torchrun's variables, or HTKTPU: COORDINATOR)."""
     ta = parse_args("HERest", argv, OPTS, min_args=1, usage=USAGE)
+    joined = dist.is_initialized()
+    init_distributed(coordinator=ta.config.str_("COORDINATOR", None,
+                                                module="HTKTPU"))
+    try:
+        if not _writer():
+            ta.trace = 0
+        rc = _herest(ta)
+        if dist.is_initialized():
+            dist.barrier()  # rank 0's files are written
+        return rc
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _herest(ta) -> int:
     prune = _prune_setting(ta)
     cfg = ta.config
     hmm_list_file = ta.args[0]
@@ -560,6 +614,8 @@ def run(argv: List[str]) -> int:
         ps = _accumulate(ta, comp, prune, files, batch_size)
         accs, fc_xxT, kind2 = ps.accs, ps.fc_xxT, ps.kind2
         if p_mode > 0:
+            if not _writer():
+                return 0
             os.makedirs(out_dir, exist_ok=True)
             acc_path = os.path.join(out_dir, f"HER{p_mode}.acc")
             dump_accs(accs, acc_path)
@@ -576,8 +632,9 @@ def run(argv: List[str]) -> int:
     if ta.trace:
         print(f"Reestimation complete - average log prob per frame = "
               f"{tl / max(tf, 1.0):.5f} ({nu} utterances, {int(tf)} frames)")
-    emit_metric(cfg, "HERest", logp_per_frame=tl / max(tf, 1.0),
-                frames=int(tf), utterances=nu)
+    if _writer():
+        emit_metric(cfg, "HERest", logp_per_frame=tl / max(tf, 1.0),
+                    frames=int(tf), utterances=nu)
 
     if ta.has("K"):
         _estimate_transforms(ta, hset, comp, ps.trainer, ps.utts, accs,
@@ -614,10 +671,22 @@ def run(argv: List[str]) -> int:
         m, v, w, t = reestimate(comp, accs, flags, var_floor=var_floor,
                                 min_var=min_var)
         write_back(comp, means=m, variances=v, weights=w, transps=t)
-    if ta.has("s"):
+    if ta.has("s") and _writer():
         write_stats_file(ta.get("s"), comp, accs)
     _save(ta, hset, out_dir, mmfs)
     return 0
+
+
+def _make_trainer(comp, cfg, prune, device) -> Trainer:
+    """The host-composite trainer: ShardedTrainer over every rank when the
+    process is one of a group of more than one and HTKTPU: USESHARDING is
+    true (its default), the one-device Trainer otherwise."""
+    prec = outp_precision(cfg)
+    if (dist.is_initialized() and dist.get_world_size() > 1
+            and cfg.bool_("USESHARDING", True, module="HTKTPU")):
+        return ShardedTrainer(comp, make_mesh(device_type=device.type),
+                              precision=prec, prune=prune, device=device)
+    return Trainer(comp, precision=prec, prune=prune, device=device)
 
 
 main = tool_main(run)

@@ -249,6 +249,8 @@ def test_port_imports_no_jax_and_no_htk_tpu():
             "'htk_tpu_torch.recipes.demo', 'htk_tpu_torch.recipes.speech', "
             "'htk_tpu_torch.io.audio', 'htk_tpu_torch.ops.stream', "
             "'htk_tpu_torch.algo.stream_decode', 'htk_tpu_torch.utils.graf', "
+            "'htk_tpu_torch.parallel.mesh', 'htk_tpu_torch.parallel.timeshard', "
+            "'htk_tpu_torch.parallel.dryrun', "
             + ", ".join(f"'htk_tpu_torch.tools.{t}'" for t in (
                 "hlist", "hlstats", "hdman", "hsgen", "hsmooth", "hparse",
                 "hlmcopy", "lgram", "lmerge", "lplex", "lsubset", "cluster",
