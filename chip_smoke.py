@@ -40,7 +40,8 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      Q = 250 and 1,100, whose live-cell lists do not fit shared memory;
      rows with t_real < T and t_real = 0; no beam (the two scans in
      separate blocks), a loose beam, one that kills some rows and one
-     that kills all); xi exactly 0 on every dead cell
+     that kills all), each on both designs (path="narrow" and "wide");
+     xi exactly 0 on every dead cell
   4. the config-#4 system written with the port's own writers
   5. HVite on the card: exit 0, one decode launch per bucket, a transcript
      for every utterance; for one bucket the kernel and the plain version
@@ -196,11 +197,19 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      utterances, one decode_scan launch each, rec.mlf equal to the CPU
      run's on the same ANN file, -T 1 scores within 1e-4 relative;
      decode_scan kernel == plain on one utterance's ANN scores; the
-     sequence criterion (CRITERION = MMI) on one utterance: the phone
-     loop's Q (every emitting state of the set), fb_scans kernel ==
-     plain at that Q, fb_scans launches and the objective before and
-     after one iteration (two iterations run: the second's E step
-     scores the first's update)
+     phone loop (every emitting state of the set: B = 1, Q = 10,332, T
+     of utterance 0) through fb_scans' wide design (fb_plan's choice)
+     and, once, its narrow design forced by path=, each == plain (xi
+     too); the wide launch's time without xi (CUDA events around 10
+     launches, 3 samples), its tables, scan and xi device times (CUDA
+     events between its parts), the narrow and plain times, beside
+     fb_bound without xi (the timed launch's work) and with it; a random
+     sparse composite at Q = 20,480 (B = 1, T = 64, past the narrow
+     design's limit) through fb_scans, == plain; the sequence criterion
+     (CRITERION = MMI) on 4 utterances: 16 fb_scans launches (numerator
+     and denominator an utterance, two iterations: the second's E step
+     scores the first's update) and the objective before and after one
+     iteration
  27. speaker adaptation on the config-4 system at full width, the 16
      utterances as two speakers (-h 'utt0%*': 10 and 6): HERest -K CMLLR
      (HADAPT: BLOCKS = 3) on the card and on the CPU path, the TMFs'
@@ -401,6 +410,7 @@ from htk_tpu_torch.recipes import demo, full
 from htk_tpu_torch.recipes.speech import utterance_set, write_wav
 from htk_tpu_torch.synth import (PARM_KIND, lv_system, random_decode_net,
                                  random_fb_operands, random_maxplus_operands,
+                                 random_sparse_fb_operands,
                                  random_xw_operands, word_accuracy,
                                  write_system, write_word_mlf)
 from htk_tpu_torch.tools import (hcopy, hdecode, herest, hhed, hinit,
@@ -481,7 +491,10 @@ DNN_EPOCHS = 3
 TRAIN_ATOL = 1e-5  # tests/test_torch_nnet.py's bound on trained ANNs
 POS_ATOL = 1e-4  # HNForward's .pos, card against the CPU path
 HYBRID_RTOL = 1e-4  # HVite -N scores, card against the CPU path
-SEQ_UTTS = 1  # the sequence criterion's utterance
+SEQ_UTTS = 4  # the sequence criterion's utterances
+PHONE_LOOP_LAUNCHES = 10  # phase 26: wide launches a timed phone-loop sample
+WIDE_SPARSE_Q = 20480  # phase 26: a composite past the narrow design's limit
+WIDE_SPARSE_SEED = 26
 
 
 def log(msg: str) -> None:
@@ -589,16 +602,17 @@ def decode_bound(B, T, Ns, Nn, K):
     return bound("decode_scan", nbytes, ops)
 
 
-def fb_bound(outp, logA, t_real):
-    """fb_scans: outp, logA, a0, aE, t_real in; alphas, betas, logP, xi
-    out. Each live cell of logA costs about five operations (add, max,
-    subtract, exp, add) per step of each scan (T steps) and of xi
-    (t_real - 1 steps); each output of a reduction a log and an add."""
+def fb_bound(outp, logA, t_real, xi=True):
+    """fb_scans: outp, logA, a0, aE, t_real in; alphas, betas, logP and
+    (where xi) xi out. Each live cell of logA costs about five operations
+    (add, max, subtract, exp, add) per step of each scan (T steps) and,
+    where xi, of xi (t_real - 1 steps); each output of a reduction a log
+    and an add."""
     B, T, Q = outp.shape
     nnz = (logA > LZERO / 2).sum(dim=(1, 2)).double()
-    steps = 2 * T + (t_real.double() - 1).clamp(min=0)
+    steps = 2 * T + (t_real.double() - 1).clamp(min=0) * xi
     ops = float(5 * (steps * nnz).sum()) + 4 * B * T * Q
-    nbytes = 4 * (3 * B * T * Q + 2 * B * Q * Q + 2 * B * Q + 2 * B)
+    nbytes = 4 * (3 * B * T * Q + (1 + xi) * B * Q * Q + 2 * B * Q + 2 * B)
     return bound("fb_scans", nbytes, ops)
 
 
@@ -798,21 +812,28 @@ def phase_random_fb(dev) -> float:
         for seed in range(2):
             args = fb_operands(seed, Q, layout, dev)
             for beam in FB_BEAMS:
-                what = f"random FB Q={Q} {layout} seed={seed} beam={beam}"
-                k = fbs.fb_scans_cuda(*args, beam=beam)
                 p = fbs.fb_scans_plain(*args, beam=beam)
-                torch.cuda.synchronize(dev)
-                e = compare_scans(k, p, args[4], what)
-                if not bool((k[3][args[1] <= LZERO / 2] == 0).all()):
-                    raise AssertionError(f"{what}: xi not 0 on a dead cell")
-                dead = int((p[2] <= LZERO / 2).sum())
-                nnz = int((args[1] > LZERO / 2).sum(dim=(1, 2)).max())
-                in_smem = fbs.lists_in_smem(args[1], beam is not None)
-                log(f"{what} ({nnz} live cells, lists in "
-                    f"{'shared' if in_smem else 'global'} memory): "
-                    f"agree (max |d| {e:.3g}; {dead} of {len(p[2])} rows "
-                    f"without a path)")
-                err = max(err, e)
+                plan = fbs.fb_plan(*args[0].shape, beam)
+                for path in ("narrow", "wide"):
+                    what = (f"random FB Q={Q} {layout} seed={seed} "
+                            f"beam={beam} {path}")
+                    k = fbs.fb_scans_cuda(*args, beam=beam, path=path)
+                    torch.cuda.synchronize(dev)
+                    e = compare_scans(k, p, args[4], what)
+                    if not bool((k[3][args[1] <= LZERO / 2] == 0).all()):
+                        raise AssertionError(f"{what}: xi not 0 on a dead "
+                                             "cell")
+                    dead = int((p[2] <= LZERO / 2).sum())
+                    nnz = int((args[1] > LZERO / 2).sum(dim=(1, 2)).max())
+                    where = ("" if path == "wide" else ", lists in " + (
+                        "shared" if fbs.lists_in_smem(args[1], beam is not
+                                                      None) else "global")
+                        + " memory")
+                    log(f"{what}{' (fb_plan)' if path == plan else ''} "
+                        f"({nnz} live cells{where}): agree (max |d| "
+                        f"{e:.3g}; {dead} of {len(p[2])} rows without a "
+                        f"path)")
+                    err = max(err, e)
     return err
 
 
@@ -2892,6 +2913,110 @@ def comp_width(sysm) -> str:
             f"states, {c.n_models:,} models")
 
 
+def wide_phases(ops, dev, xi=True):
+    """One wide launch with CUDA events between its parts: device ms of
+    the tables (count, offsets, fill), the scan grid and xi
+    (its clear and kernel)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    fbs.fb_scans_cuda(*ops, xi=xi, path="wide", events=ev)
+    torch.cuda.synchronize(dev)
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def phase_phone_loop(lops, card, dev) -> float:
+    """fb_scans on the phone loop (B = 1, Q = 10,332 at config #4) on
+    both designs: the wide one (fb_plan's) and, once, the narrow one
+    forced by path=, each held against the plain version (xi too); the
+    wide launch's time without xi (as _gamma_phys launches it; CUDA
+    events around PHONE_LOOP_LAUNCHES launches), its parts' device times
+    from CUDA events, the narrow launch's time and the plain version's,
+    beside fb_bound. Returns the largest kernel error."""
+    B, T, Q = lops[0].shape
+    nnz = int((lops[1] > LZERO / 2).sum())
+    plan = fbs.fb_plan(B, T, Q, None)
+    if plan != "wide":
+        raise AssertionError(f"phone loop: fb_plan chose {plan}")
+    t0 = time.perf_counter()
+    p = fbs.fb_scans_plain(*lops)
+    torch.cuda.synchronize(dev)
+    p_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p3 = fbs.fb_scans_plain(*lops, xi=False)
+    torch.cuda.synchronize(dev)
+    p3_s = time.perf_counter() - t0
+    k = fbs.fb_scans_cuda(*lops)
+    torch.cuda.synchronize(dev)
+    err = compare_scans(k, p, lops[4], "phone-loop FB, wide design")
+    del k
+    ks = time_launches(lambda: fbs.fb_scans_cuda(*lops, xi=False), dev,
+                       n=PHONE_LOOP_LAUNCHES)
+    kms = statistics.median(ks)
+    parts = [wide_phases(lops, dev) for _ in range(3)]
+    tab, scan, xim = (statistics.median(x) for x in zip(*parts))
+    t0 = time.perf_counter()
+    n = fbs.fb_scans_cuda(*lops, path="narrow")
+    torch.cuda.synchronize(dev)
+    n_s = time.perf_counter() - t0
+    err = max(err, compare_scans(n, p, lops[4],
+                                 "phone-loop FB, narrow design"))
+    del n, p, p3
+    bms, by = fb_bound(*lops[:2], lops[4], xi=False)
+    xbms, xby = fb_bound(*lops[:2], lops[4])
+    log(f"phone loop on {card}: B = {B}, T = {T}, Q = {Q:,}, {nnz:,} live "
+        f"cells; logA {4 * Q * Q / 2**20:.0f} MiB, the lists "
+        f"{16 * Q * Q / 2**20:.0f} MiB and xi {4 * Q * Q / 2**20:.0f} MiB a "
+        f"launch; fb_plan: {plan}; kernel == plain on both designs (max |d| "
+        f"{err:.3g})")
+    log(f"  wide design, no xi (as _gamma_phys): {kms:.3f} ms a launch "
+        f"(CUDA events around {PHONE_LOOP_LAUNCHES} launches, median of 3: "
+        + " ".join(f"{x:.3f}" for x in ks) + f"); with xi, device ms "
+        f"tables {tab:.3f}, scan {scan:.3f}, xi "
+        f"{xim:.3f} (median of 3; samples "
+        + "; ".join("/".join(f"{x:.3f}" for x in ps) for ps in parts) + ")")
+    log(f"  narrow design forced (path='narrow', with xi, one synchronised "
+        f"call): {n_s * 1e3:.1f} ms; plain {p_s * 1e3:.1f} ms with xi, "
+        f"{p3_s * 1e3:.1f} ms without (one call each); bound without xi "
+        f"{bms:.6f} ms by {by} (with xi {xbms:.6f} ms by {xby}); the wide "
+        f"launch without xi {kms / bms:.1f}x its bound, "
+        f"{p3_s * 1e3 / kms:.1f}x faster than the plain version without "
+        f"xi, {n_s * 1e3 / kms:.1f}x than the narrow design")
+    return err
+
+
+def phase_wide_sparse(dev) -> float:
+    """A random sparse composite past the narrow design's limit (B = 1,
+    T = 64, Q = 20,480, hub lists of about Q / 2), where the parent
+    raised: fb_scans launches the wide design, held against plain."""
+    B, T, Q = 1, 64, WIDE_SPARSE_Q
+    outp, (b, i, j, v), a0, aE, tr = random_sparse_fb_operands(
+        WIDE_SPARSE_SEED, B=B, T=T, Q=Q)
+    logA = torch.full((B, Q, Q), LZERO, device=dev)
+    logA[tuple(torch.as_tensor(x, device=dev) for x in (b, i, j))] = \
+        torch.as_tensor(v, device=dev)
+    ops = [torch.as_tensor(outp, device=dev), logA,
+           *(torch.as_tensor(x, device=dev) for x in (a0, aE, tr))]
+    if fbs.smem_bytes(Q, 1, 0) <= fbs.SMEM_MAX:
+        raise AssertionError(f"Q = {Q} fits the narrow design")
+    n0 = fbs.KERNEL.launches
+    t0 = time.perf_counter()
+    k = fbs.fb_scans(*ops)
+    torch.cuda.synchronize(dev)
+    k_s = time.perf_counter() - t0
+    if fbs.KERNEL.launches != n0 + 1:
+        raise AssertionError("Q = 20,480: fb_scans did not launch the kernel")
+    t0 = time.perf_counter()
+    p = fbs.fb_scans_plain(*ops)
+    torch.cuda.synchronize(dev)
+    p_s = time.perf_counter() - t0
+    err = compare_scans(k, p, ops[4], f"sparse composite Q={Q}")
+    log(f"sparse composite B = {B}, T = {T}, Q = {Q:,} ({len(b):,} live "
+        f"cells; the narrow design refuses Q past 19,359): fb_scans took "
+        f"the {fbs.fb_plan(B, T, Q, None)} design, kernel == plain (max |d| "
+        f"{err:.3g}; kernel {k_s * 1e3:.1f} ms, plain {p_s * 1e3:.1f} ms, "
+        f"one synchronised call each, xi included)")
+    return err
+
+
 def phase_dnn(sysm, root, card, dev):
     """The DNN hybrid on the config-4 system: HNTrainSGD (HIDDENSIZE =
     1024 1024 1024, CONTEXT = 4, -e 3) on the card and on the CPU path,
@@ -2901,10 +3026,11 @@ def phase_dnn(sysm, root, card, dev):
     the 16 utterances, one decode_scan launch each, rec.mlf equal to the
     CPU run's and scores within HYBRID_RTOL; decode_scan's kernel against
     its plain version on one utterance's ANN scores; then the sequence
-    criterion on SEQ_UTTS utterances: the phone loop's Q, fb_scans'
-    kernel against its plain version at that Q, fb_scans launches and
-    the MMI objective before and after one iteration. Returns HVite -N's
-    decode_scan launches and the largest kernel error."""
+    criterion on SEQ_UTTS utterances: fb_scans on the phone loop
+    (`phase_phone_loop`) and past the narrow design's limit
+    (`phase_wide_sparse`), fb_scans launches and the MMI objective before
+    and after one iteration. Returns HVite -N's decode_scan launches and
+    the largest kernel errors."""
     cfg = os.path.join(root, "dnn.cfg")
     with open(cfg, "w") as f:
         f.write(f'HNTRAINSGD: HIDDENSIZE = "{DNN_HIDDEN}"\n'
@@ -3046,33 +3172,15 @@ def phase_dnn(sysm, root, card, dev):
     t0 = time.perf_counter()
     loop = nnet.make_phone_loop(comp)
     loop_s = time.perf_counter() - t0
-    Q = len(loop[0])
     cs = torch.as_tensor(loop[0], device=dev).long()
     lops = (scores[:, cs][None].contiguous(),
             *(torch.as_tensor(a, device=dev)[None].contiguous()
               for a in loop[1:]),
             torch.full((1,), scores.shape[0], dtype=torch.int32, device=dev))
-    t0 = time.perf_counter()
-    lk = fbs.fb_scans_cuda(*lops)
-    torch.cuda.synchronize(dev)
-    k_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    lp = fbs.fb_scans_plain(*lops)
-    torch.cuda.synchronize(dev)
-    p_s = time.perf_counter() - t0
-    f_err = compare_scans(lk, lp, lops[4], "phone-loop FB")
-    del lk, lp
-    nnz = int((lops[1] > LZERO / 2).sum())
-    log(f"phone loop of {comp.n_models:,} models: Q = {Q:,} states, "
-        f"{nnz:,} live cells, built in {loop_s:.2f} s on the host; logA "
-        f"{4 * Q * Q / 2**20:.0f} MiB, the kernel's live-cell lists "
-        f"{16 * Q * Q / 2**20:.0f} MiB and xi {4 * Q * Q / 2**20:.0f} MiB "
-        f"a launch, scan shared memory {fbs.scan_smem(Q, False)} bytes "
-        f"(state vectors and offsets {fbs.smem_bytes(Q, 1, 0)}; lists from "
-        f"global memory); "
-        f"fb_scans kernel == plain on utterance 0 (T={scores.shape[0]}; "
-        f"max |d| {f_err:.3g}; kernel {k_s * 1e3:.1f} ms, plain "
-        f"{p_s * 1e3:.1f} ms, one call each, synchronised)")
+    log(f"phone loop of {comp.n_models:,} models built in {loop_s:.2f} s on "
+        f"the host")
+    f_err = phase_phone_loop(lops, card, dev)
+    f_err = max(f_err, phase_wide_sparse(dev))
     reset_counts()
     t0 = time.perf_counter()
     _a, objs = nnet.train_ann_sequence(
@@ -3086,7 +3194,8 @@ def phase_dnn(sysm, root, card, dev):
         raise AssertionError(f"sequence training: {seq_n} fb_scans "
                              f"launches, objectives {objs}")
     log(f"CRITERION = MMI on {SEQ_UTTS} utterance(s) ({card}): _gamma_phys Q "
-        f"= {Q:,}, fb_scans launches {seq_n} (numerator and denominator "
+        f"= {lops[0].shape[2]:,}, fb_scans launches {seq_n} (numerator and "
+        f"denominator "
         f"per utterance, two passes), MMI objective {objs[0]:.2f} before, "
         f"{objs[1]:.2f} after one iteration ({'risen' if objs[1] > objs[0] else 'not risen'}); "
         f"{seq_s:.2f} s")

@@ -354,9 +354,9 @@ def mix_posteriors_utterance(feats, t_real, comp_state, q_mask, logA, a0,
     feats (T, D), t_real (), the composite's comp_state (Q,), q_mask (Q,),
     logA (Q, Q), a0/aE (Q,); the state tables carry the trailing trash
     row. OutP comes from `_fb_outp`, the scans from one `fb_scans` launch
-    (the kernel on the card; no beam, as the reference has none), and the
-    slot posteriors normalise by their own stream's b_js before one
-    `index_add_` scatters them onto the M physical Gaussians. Returns
+    (the kernel on the card; no beam, as the reference has none; no xi),
+    and the slot posteriors normalise by their own stream's b_js before
+    one `index_add_` scatters them onto the M physical Gaussians. Returns
     (logP (), gamma (T, M)); frames at t >= t_real are zero.
     `fc_proj`/`fc_mu` select the full-covariance scorer."""
     T = feats.shape[0]
@@ -372,7 +372,7 @@ def mix_posteriors_utterance(feats, t_real, comp_state, q_mask, logA, a0,
         precision=precision, fc_proj=fc_proj, fc_mu=fc_mu)
     alphas, betas, logp, _xi = _scans.fb_scans(
         outp, logA[None].contiguous(), a0[None].contiguous(),
-        aE[None].contiguous(), t_real.contiguous(), None)
+        aE[None].contiguous(), t_real.contiguous(), None, xi=False)
     cs = comp_state.long()
     st_mix = state_mix[cs]  # (Q, n_slots)
     gamma = (alphas + betas - logp[:, None, None])[0]  # (T, Q)

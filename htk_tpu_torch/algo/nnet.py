@@ -337,9 +337,9 @@ def make_phone_loop(comp, loop_prob: float = None):
 
 def _gamma_phys(scores, comp_state, logA, a0, aE, n_states):
     """FB over an HMM graph with external state scores (T, S_phys) on
-    their device: one fb_scans launch (alphas, betas, logP; xi unused),
-    then the occupancies scattered onto physical states. Returns
-    ((T, S_phys) occupancies, logP tensor)."""
+    their device: one fb_scans launch (alphas, betas, logP; no xi, as the
+    reference computes none), then the occupancies scattered onto
+    physical states. Returns ((T, S_phys) occupancies, logP tensor)."""
     dev = scores.device
     T = scores.shape[0]
     cs = torch.as_tensor(comp_state, device=dev).long()
@@ -351,7 +351,7 @@ def _gamma_phys(scores, comp_state, logA, a0, aE, n_states):
     t_real = torch.full((1,), T, dtype=torch.int32, device=dev)
     alphas, betas, logp, _xi = fb_scans(
         outp, f32(logA)[None].contiguous(), f32(a0)[None].contiguous(),
-        f32(aE)[None].contiguous(), t_real)
+        f32(aE)[None].contiguous(), t_real, xi=False)
     gamma = exp_or_zero(alphas[0] + betas[0] - logp[0])  # (T, Q)
     gp = torch.zeros((T, n_states), dtype=gamma.dtype, device=dev)
     gp.index_add_(1, cs, gamma)

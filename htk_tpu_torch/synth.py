@@ -430,6 +430,44 @@ def random_fb_operands(seed: int = 0, B: int = 3, T: int = 40, Q: int = 50,
     return f(outp), f(logA), f(a0), f(aE), tr
 
 
+def random_sparse_fb_operands(seed: int = 0, B: int = 1, T: int = 64,
+                              Q: int = 20480, t_real: Sequence[int] = (),
+                              links: int = 8, hubs: int = 4):
+    """Random forward-backward operands for a large composite (numpy):
+    outp (B, T, Q), logA as its live cells (b, i, j, value) with (b, i, j)
+    ascending, a0, aE (B, Q) f32 and t_real (B,) int32; every other cell
+    of logA is LZERO (a wide composite is built on its device from these,
+    never as a dense numpy array).
+
+    Each composite has self-loops and links to the next two states,
+    `links` x Q random links, and `hubs` states whose row and column are
+    each live at half their cells (lists of about Q / 2 entries in both
+    directions); it is entered in its first 6 states and left from its
+    last 6. `t_real` defaults to T for every row."""
+    rng = np.random.default_rng(seed)
+    q = np.arange(Q)
+    cells = []
+    for b in range(B):
+        rows = [q, q[:-1], q[:-2], rng.integers(0, Q, links * Q)]
+        cols = [q, q[1:], q[2:], rng.integers(0, Q, links * Q)]
+        for h in rng.choice(Q, min(hubs, Q), replace=False):
+            k = np.flatnonzero(rng.random(Q) < 0.5)
+            rows += [np.full(len(k), h), k]
+            cols += [k, np.full(len(k), h)]
+        lin = np.unique(np.concatenate(rows) * Q + np.concatenate(cols))
+        cells.append((np.full(len(lin), b), lin // Q, lin % Q))
+    bb, ii, jj = (np.concatenate(x).astype(np.int64) for x in zip(*cells))
+    vals = np.log(rng.uniform(0.05, 1.0, len(bb))).astype(np.float32)
+    a0 = np.full((B, Q), LZERO, np.float32)
+    aE = np.full((B, Q), LZERO, np.float32)
+    n = min(6, Q)
+    a0[:, :n] = np.log(rng.uniform(0.05, 1.0, (B, n)))
+    aE[:, Q - n:] = np.log(rng.uniform(0.05, 1.0, (B, n)))
+    outp = (rng.normal(size=(B, T, Q)) * 2 - 4).astype(np.float32)
+    tr = np.asarray(list(t_real) or [T] * B, np.int32)
+    return outp, (bb, ii, jj, vals), a0, aE, tr
+
+
 def random_maxplus_operands(seed: int = 0, B: int = 4, C: int = 50,
                             ties: bool = False, dead_rows: int = 0):
     """Random max-plus operands (numpy float32): WE (B, C) and trans

@@ -284,7 +284,7 @@ class ArcFB:
                 state_sw=p["state_sw"], slot_blocks=blocks, precision=prec,
                 gather_outp=True)
             _a, _b, logp, _xi = fb_scans(outp, c["logA"], c["a0"], c["aE"],
-                                         t_real)
+                                         t_real, xi=False)
             self.launches["score"] += 1
             # materialise after every launch is queued
             pending.append((batch, logp))

@@ -44,8 +44,9 @@ from htk_tpu_torch.algo.trainer import (DeviceCompositeTrainer, Trainer,
                                         prepare_utterance,
                                         prepare_utterance_ids)
 from htk_tpu_torch.ops import fb_scans as fbs
-from htk_tpu_torch.synth import random_fb_operands
-from htk_tpu_torch.utils.logmath import LZERO
+from htk_tpu_torch.ops._cuda import SMEM_MAX
+from htk_tpu_torch.synth import random_fb_operands, random_sparse_fb_operands
+from htk_tpu_torch.utils.logmath import LSMALL, LZERO, MINLOGEXP, ladd_reduce
 
 from _torch_compare import one_torch_thread  # noqa: F401
 from test_composite_device import tee_set
@@ -288,3 +289,173 @@ def test_dead_cells_change_nothing(kind, beam):
         assert (ref[2].numpy() == np.float32(LZERO)).all()
     else:
         assert (ref[2].numpy()[:3] > LZERO / 2).all() and (xi != 0).any()
+
+
+# The two designs of the fb_scans kernel (csrc/fb_scans.cu): which shapes
+# take which, and the wide design's split of the states over warps and its
+# per-warp reduction, modelled here in numpy/torch (the kernel computes the
+# split on the card from the list offsets; split_point mirrors it).
+
+def split_point(off, NW, k, state_cost=fbs.STATE_COST):
+    """csrc/fb_scans.cu split_point: the least q in [0, Q] with (off[q] +
+    state_cost q) NW >= k (off[Q] + state_cost Q)."""
+    Q = len(off) - 1
+    cost = (off.astype(np.int64) + state_cost * np.arange(Q + 1)) * NW
+    return int(np.searchsorted(cost, k * (int(off[Q]) + state_cost * Q),
+                               side="left"))
+
+
+def wide_lists(logA):
+    """The wide tables' lists of one utterance (numpy), as the kernel
+    writes them: direction 0 the successors of each row, direction 1 the
+    predecessors of each column, ascending, with their offsets."""
+    live = logA > LZERO / 2
+    out = []
+    for m in (live, live.T):
+        off = np.concatenate([[0], np.cumsum(m.sum(axis=1))])
+        q, nb = np.nonzero(m)  # row-major: ascending within each row
+        out.append((off, nb))
+    return out
+
+
+def phone_loop_logA(n_models, lp=-2.0):
+    """A 3-state-per-model phone loop's logA (numpy), make_phone_loop's
+    shape: within-model self-loops and next links, every exit to every
+    entry."""
+    Q = 3 * n_models
+    A = np.full((Q, Q), LZERO, np.float32)
+    q = np.arange(Q)
+    A[q, q] = np.log(0.6)
+    nxt = q[q % 3 != 2]
+    A[nxt, nxt + 1] = np.log(0.4)
+    A[np.ix_(q[2::3], q[0::3])] = np.log(0.4) + lp
+    return A
+
+
+def sparse_logA(seed, Q):
+    outp, (b, i, j, v), _a0, _aE, _tr = random_sparse_fb_operands(
+        seed, B=1, T=2, Q=Q, hubs=3)
+    A = np.full((Q, Q), LZERO, np.float32)
+    A[i, j] = v
+    return A
+
+
+@pytest.mark.parametrize("B,T,Q,beam,design", [
+    (8, 512, 192, None, "narrow"),  # HERest's FB batch
+    (8, 512, 192, 10.0, "narrow"),  # HERest -t
+    (256, 32, 16, None, "narrow"),  # HMMIRest's arc buckets
+    (4096, 32, 16, None, "narrow"),  # HMMIRest's widest padded launch
+    (1, 504, 256, None, "narrow"),  # mix_posteriors_utterance, FULLC, -K
+    (8, 512, 895, None, "narrow"),  # below the measured crossover
+    (1, 256, 895, 10.0, "narrow"),
+    (8, 512, 896, None, "wide"),
+    (1, 256, 1024, None, "wide"),
+    (1, 504, 10332, None, "wide"),  # the phone loop (config #4)
+    (1, 64, 19360, None, "wide"),  # past the narrow design's smem
+    (3, 64, 20480, 10.0, "wide"),
+])
+def test_fb_plan_picks_the_design(B, T, Q, beam, design):
+    assert fbs.fb_plan(B, T, Q, beam) == design
+
+
+def test_fb_plan_refuses_nothing_and_sends_every_q_past_smem_wide():
+    """Every Q whose narrow state vectors do not fit shared memory goes
+    to the wide design, with and without a beam; no Q is refused."""
+    for beam in (None, 5.0):
+        dirs = 2 if beam is not None else 1
+        for Q in list(range(1, 40000, 97)) + [10 ** 5, 10 ** 6]:
+            plan = fbs.fb_plan(1, 100, Q, beam)
+            assert plan in ("narrow", "wide")
+            if fbs.smem_bytes(Q, dirs, 0) > SMEM_MAX:
+                assert plan == "wide"
+            if plan == "narrow":
+                fbs.scan_smem(Q, beam is not None)  # fits: no refusal
+
+
+@pytest.mark.parametrize("kind", ["sparse", "phone_loop"])
+@pytest.mark.parametrize("NW", [1, 7, 32, 66 * 32, 5000])
+def test_wide_split_covers_every_live_cell_once(kind, NW):
+    """Each warp of NW owns states [split(k), split(k + 1)); over both
+    directions' lists every live cell of logA is visited exactly once, in
+    its list's ascending order, and each state by one warp; states of
+    LONG_LIST entries or more are whole warps' work."""
+    logA = sparse_logA(4, 700) if kind == "sparse" else phone_loop_logA(150)
+    Q = logA.shape[0]
+    live = logA > LZERO / 2
+    for d, (off, nb) in enumerate(wide_lists(logA)):
+        bounds = [split_point(off, NW, k) for k in range(NW + 1)]
+        assert bounds[0] == 0 and bounds[-1] == Q
+        assert all(a <= b for a, b in zip(bounds, bounds[1:]))
+        seen = np.zeros((Q, Q), np.int64)
+        n_long = 0
+        for k in range(NW):
+            for q in range(bounds[k], bounds[k + 1]):
+                cells = nb[off[q]:off[q + 1]]
+                assert (np.diff(cells) > 0).all()
+                n_long += len(cells) >= fbs.LONG_LIST
+                if d == 0:
+                    seen[q, cells] += 1
+                else:
+                    seen[cells, q] += 1
+        assert (seen == live).all()
+        if kind == "phone_loop":  # every exit (d 0) or entry (d 1) is long
+            assert n_long == 150
+    # shares: no warp holds more than its share plus one state's cost
+    off = wide_lists(logA)[1][0]
+    cost = off + fbs.STATE_COST * np.arange(Q + 1)
+    bounds = [split_point(off, NW, k) for k in range(NW + 1)]
+    share = cost[-1] / NW
+    worst = max(cost[b] - cost[a] for a, b in zip(bounds, bounds[1:]))
+    assert worst <= share + np.diff(cost).max()
+
+
+def warp_ladd_model(x):
+    """csrc/fb_scans.cu warp_ladd on the terms x (float32, list order):
+    lane l takes x[l], x[l + 32], ...; the max; each lane's sum of
+    exp(x - max) over its terms not below minLogExp, last term first (the
+    second pass walks backwards); then the xor-shuffle sum (offsets 16,
+    8, 4, 2, 1)."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    hi = x.max()
+    if hi < LSMALL:
+        return torch.tensor(LZERO)
+    n = len(x)
+    pad = torch.full((-(-n // 32) * 32,), float("-inf"))
+    pad[:n] = x - hi
+    terms = torch.where(pad < MINLOGEXP, torch.zeros(()), torch.exp(pad))
+    lanes = torch.zeros(32)
+    for r in terms.reshape(-1, 32).flip(0):  # each lane's, last first
+        lanes = lanes + r
+    for s in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[torch.arange(32) ^ s]
+    return hi + torch.log(lanes[0])
+
+
+@pytest.mark.parametrize("n", [64, 65, 100, 3444, 20480])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_wide_warp_ladd_equals_ladd_reduce(n, seed):
+    """The long-list reduction (max over the lanes, then each lane's sum
+    of the terms not below minLogExp, then a shuffle sum) equals
+    ladd_reduce within 1e-6 relative: the same terms, another order;
+    also where most terms fall below minLogExp of the max."""
+    rng = np.random.default_rng(seed)
+    for scale in (1.0, 30.0):
+        x = (rng.normal(size=n) * scale - 500.0).astype(np.float32)
+        got = float(warp_ladd_model(x))
+        ref = float(ladd_reduce(torch.as_tensor(x)))
+        assert got == pytest.approx(ref, rel=1e-6)
+    assert float(warp_ladd_model(np.full(n, LZERO, np.float32))) == LZERO
+
+
+@pytest.mark.parametrize("beam", [None, 10.0, 3.0])
+def test_xi_false_leaves_the_scans_unchanged(beam):
+    """xi=False: alphas, betas and logP bit-equal to the full call's, xi
+    None (the tuple keeps its arity), through fb_scans_plain and the
+    dispatcher alike."""
+    ops = [torch.as_tensor(x) for x in composite("banded", seed=5)]
+    full = fbs.fb_scans_plain(*ops, beam=beam)
+    for fn in (fbs.fb_scans_plain, fbs.fb_scans):
+        got = fn(*ops, beam=beam, xi=False)
+        assert len(got) == 4 and got[3] is None
+        for g, r in zip(got[:3], full[:3]):
+            assert torch.equal(g, r)

@@ -19,7 +19,12 @@ live utterances within rtol 1e-4, atol 1e-6; xi exactly 0 on dead
 cells), with and without a beam, on banded and dense composites at
 Q = 50, 192, 250 and 1,100, with the live-cell lists in shared and in
 global memory, and in a 4,096-wide launch of one real row (HMMIRest's
-padding at t_real = 0), and HERest on the card trains the same model as on the
+padding at t_real = 0); its wide design (forced by path=) the same, at
+B = 1 and 3, on banded, dense and sparse composites with hub lists of
+about Q / 2 (a warp each) up to Q = 20,480, where the narrow design
+refuses and the dispatcher takes the wide one; xi=False on both designs
+leaves alphas, betas and logP bit-equal; and HERest on the card trains
+the same model as on the
 CPU; the maxplus kernel equals its plain version exactly (values and
 first-max arguments, both floor contracts, ties and dead rows), at
 forced chunk counts of the source range too, through ops/maxplus and the
@@ -49,7 +54,9 @@ from htk_tpu_torch.ops import tropical as trop
 from htk_tpu_torch.ops import xw_gather as xg
 from htk_tpu_torch.ops._cuda import SMEM_MAX
 from htk_tpu_torch.synth import (random_decode_net, random_fb_operands,
-                                 random_maxplus_operands, random_xw_operands)
+                                 random_maxplus_operands,
+                                 random_sparse_fb_operands,
+                                 random_xw_operands)
 from htk_tpu_torch.utils.errors import HTKError
 from htk_tpu_torch.utils.logmath import LZERO
 
@@ -730,7 +737,9 @@ def test_fb_kernel_matches_plain_on_card(Q, beam, layout):
     global memory (test_fb_list_layouts_cover_shared_and_global); no beam
     runs the two scans in separate blocks;
     beam 5 kills some rows and beam 2 all of them on the banded
-    operands; rows with t_real < T and t_real = 0."""
+    operands; rows with t_real < T and t_real = 0. Through the
+    dispatcher (fb_plan's design: wide at Q = 1,100) and on the narrow
+    design forced by path=."""
     need_card()
     for seed in range(2):
         args = FB_LAYOUTS[layout](seed, "cuda", B=4, T=40, Q=Q,
@@ -738,11 +747,13 @@ def test_fb_kernel_matches_plain_on_card(Q, beam, layout):
         before = fbs.KERNEL.launches
         got = fbs.fb_scans(*args, beam=beam)
         assert fbs.KERNEL.launches == before + 1
+        narrow = fbs.fb_scans_cuda(*args, beam=beam, path="narrow")
         ref = fbs.fb_scans_plain(*args, beam=beam)
         torch.cuda.synchronize()
-        assert_scans_agree(got, ref, args[4])
         dead = args[1] <= LZERO / 2
-        assert bool((got[3][dead] == 0).all())
+        for out in (got, narrow):
+            assert_scans_agree(out, ref, args[4])
+            assert bool((out[3][dead] == 0).all())
 
 
 @pytest.mark.cuda
@@ -762,6 +773,117 @@ def test_fb_kernel_wide_padded_launch_on_card():
     torch.cuda.synchronize()
     assert_scans_agree(got, ref, t_real)
     assert torch.equal(got[2][1:], got[2][1:2].expand(4095))
+
+
+def wide_operands(seed, B, Q, T=40, device="cuda"):
+    """fb_scans operands of a large composite: random_sparse_fb_operands'
+    live cells (self-loops, next links, random links and hub rows and
+    columns of about Q / 2 cells) laid into a dense logA on `device`; rows
+    with t_real = T, T - 7 and 0."""
+    outp, (b, i, j, v), a0, aE, tr = random_sparse_fb_operands(
+        seed, B=B, T=T, Q=Q, t_real=[T, T - 7, 0][:B])
+    logA = torch.full((B, Q, Q), LZERO, device=device)
+    logA[torch.as_tensor(b, device=device), torch.as_tensor(i, device=device),
+         torch.as_tensor(j, device=device)] = torch.as_tensor(v, device=device)
+    return [torch.as_tensor(outp, device=device), logA,
+            *(torch.as_tensor(a, device=device) for a in (a0, aE, tr))]
+
+
+def test_fb_wide_operands_have_long_and_short_lists():
+    """The wide card tests' operands give the wide design both kinds of
+    list in both directions: the hubs' (a warp each) and the rest (a
+    lane each)."""
+    logA = wide_operands(0, 1, 700, T=3, device="cpu")[1][0]
+    live = logA > LZERO / 2
+    for counts in (live.sum(dim=1), live.sum(dim=0)):
+        assert int((counts >= fbs.LONG_LIST).sum()) >= 3
+        assert int((counts < fbs.LONG_LIST).sum()) >= 600
+
+
+WIDE_CASES = [(Q, layout, beam) for Q, layout in (
+    (50, "banded"), (250, "dense"), (700, "sparse"), (3000, "sparse"),
+    (20480, "sparse")) for beam in (None, 10.0, 2.0)
+    if Q < 20480 or beam != 2.0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("Q,layout,beam", WIDE_CASES)
+def test_fb_wide_design_matches_plain_on_card(B, Q, layout, beam):
+    """The wide design forced by path=, against the plain version: small
+    banded and dense composites (a state or a few a warp), sparse ones
+    with hub lists of about Q / 2 (a warp each), up to Q = 20,480, past
+    the narrow design's limit; beams that keep, thin and kill rows (2.0
+    kills all the banded rows); rows with t_real < T and t_real = 0."""
+    need_card()
+    if layout == "sparse":
+        args = wide_operands(0, B, Q)
+    else:
+        args = FB_LAYOUTS[layout](0, "cuda", B=B, T=40, Q=Q,
+                                  t_real=[40, 33, 0][:B])
+    before = fbs.KERNEL.launches
+    got = fbs.fb_scans_cuda(*args, beam=beam, path="wide")
+    assert fbs.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    ref = fbs.fb_scans_plain(*args, beam=beam)
+    torch.cuda.synchronize()
+    assert_scans_agree(got, ref, args[4])
+    assert bool((got[3][args[1] <= LZERO / 2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("Q,beam", [(700, None), (700, 10.0), (3000, None)])
+def test_fb_wide_design_reads_the_state_vector_from_l2_on_card(
+        monkeypatch, B, Q, beam):
+    """The wide scan's variant for Q past 57,856, whose state vector does
+    not fit a block's shared memory and is read from L2: forced at a
+    small Q by a shared-memory allowance of 0 bytes, against the plain
+    version."""
+    need_card()
+    monkeypatch.setattr(fbs, "WIDE_VEC_SMEM", 0)
+    assert fbs.wide_vec_smem(Q) == 0
+    args = wide_operands(2, B, Q)
+    got = fbs.fb_scans_cuda(*args, beam=beam, path="wide")
+    ref = fbs.fb_scans_plain(*args, beam=beam)
+    torch.cuda.synchronize()
+    assert_scans_agree(got, ref, args[4])
+
+
+@pytest.mark.cuda
+def test_fb_dispatch_takes_the_wide_design_past_the_narrow_limit():
+    """fb_scans on a composite of 20,480 states (the narrow design
+    refuses Q past 19,359) launches the kernel once and agrees with the
+    plain version."""
+    need_card()
+    args = wide_operands(1, 1, 20480, T=24)
+    assert fbs.fb_plan(1, 24, 20480, None) == "wide"
+    with pytest.raises(ValueError, match="do not fit"):
+        fbs.fb_scans_cuda(*args, path="narrow")
+    before = fbs.KERNEL.launches
+    got = fbs.fb_scans(*args)
+    assert fbs.KERNEL.launches == before + 1
+    ref = fbs.fb_scans_plain(*args)
+    torch.cuda.synchronize()
+    assert_scans_agree(got, ref, args[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["narrow", "wide"])
+@pytest.mark.parametrize("beam", [None, 5.0])
+def test_fb_xi_false_on_card(path, beam):
+    """xi=False on either design: xi None, alphas, betas and logP
+    bit-equal to the same design's full launch; one launch counted."""
+    need_card()
+    args = fb_operands(2, "cuda", B=3, T=40, Q=250, t_real=[40, 21, 0])
+    full = fbs.fb_scans_cuda(*args, beam=beam, path=path)
+    before = fbs.KERNEL.launches
+    got = fbs.fb_scans_cuda(*args, beam=beam, path=path, xi=False)
+    assert fbs.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    assert got[3] is None
+    for g, r in zip(got[:3], full[:3]):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.cuda

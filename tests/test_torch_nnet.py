@@ -21,7 +21,9 @@ The same numpy-seeded inputs go through both packages:
     constant and parts from it once lr changes (so it is not to be
     "simplified" into torch.optim);
   - `make_phone_loop`: byte-identical arrays; config #4's loop (Q =
-    10,332) fits the fb_scans kernel, and one past its limit is refused; `mmi_frame_targets` soft
+    10,332) and any past the narrow design's shared memory go to the
+    fb_scans kernel's wide design; `_gamma_phys` occupancies within 5e-5
+    and logP within 1e-5 relative; `mmi_frame_targets` soft
     targets within atol 5e-5 and the objective within 1e-5 relative. Why
     5e-5: each target is a difference of two posteriors exp(alpha + beta
     - logP), whose float32 sums reach a few hundred in magnitude here
@@ -272,14 +274,38 @@ def test_make_phone_loop_byte_equal(sets, chain_comps):
 
 def test_phone_loop_fits_the_scan_kernel():
     """config #4's phone loop (3,444 models of 3 emitting states: Q =
-    10,332) fits the scan kernel's shared memory, its live-cell lists read
-    from global memory; past 19,359 states (12 Q + 132 bytes over 227
-    KB) the kernel refuses with a message, never the plain version."""
+    10,332) runs on the fb_scans kernel's wide design, and so does a loop
+    past 19,359 states, where the narrow design's shared memory ends (12 Q
+    + 132 bytes over 227 KB). The narrow design, forced, still takes the
+    phone loop (its lists read from global memory) and refuses such a Q
+    with a message; the dispatch never sends it there, nor to the plain
+    version."""
+    assert fbs.fb_plan(1, 504, 10332, None) == "wide"
     assert fbs.smem_bytes(10332, 1, 0) <= SMEM_MAX
     assert fbs.scan_smem(10332, False) == SMEM_MAX
     fbs.scan_smem(19359, False)
     with pytest.raises(ValueError, match="do not fit"):
         fbs.scan_smem(19360, False)
+    for Q in (19360, 3 * 6451, 60000):
+        assert fbs.fb_plan(1, 504, Q, None) == "wide"
+
+
+def test_gamma_phys_matches_jax(chain_comps):
+    """The port's _gamma_phys (one fb_scans call, xi=False) against
+    htk_tpu's (forward_scan and backward_scan) on the chain set's phone
+    loop with random scores: occupancies within 5e-5, logP within 1e-5
+    relative (the module docstring's tolerances)."""
+    jc, tc, utts = chain_comps
+    loop_j, loop_t = jn.make_phone_loop(jc), tn.make_phone_loop(tc)
+    rng = np.random.default_rng(8)
+    for T in (1, 37, 90):
+        scores = (rng.normal(size=(T, jc.n_states)) * 2).astype(np.float32)
+        gj, lj = jn._gamma_phys(jnp.asarray(scores), *loop_j, jc.n_states)
+        gt, lt = tn._gamma_phys(torch.as_tensor(scores), *loop_t,
+                                tc.n_states)
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=0,
+                                   atol=5e-5)
+        assert float(lt) == pytest.approx(float(lj), rel=1e-5)
 
 
 def test_mmi_frame_targets_match_jax(chain_comps):
