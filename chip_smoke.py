@@ -5,8 +5,10 @@ HInit and HRest training, HMMIRest (MMI), the DNN hybrid (HNTrainSGD,
 HNForward, HVite -N), HDecode with LV lattices, speaker adaptation
 (HERest -K, HHEd RC, HVite and HDecode -J), FULLC, DISCRETE and -r
 training, discrete recognition and HQuant, the demo chain of
-run_demo.sh and the full recipe of run_full.sh, every stage, and the
-uniform-row LV decoder, dense and factored, with its lattices.
+run_demo.sh and the full recipe of run_full.sh, every stage, the
+uniform-row LV decoder, dense and factored, with its lattices, and the
+host runtime in C++ (the ARPA codec, the `_C` corpus loader and the MLF
+scanner).
 
 Drives htk_tpu_torch's main paths, `htk_tpu_torch.tools.hcopy.run`,
 `htk_tpu_torch.tools.hvite.run` (-w, -z, -a), `tools.herest.run`,
@@ -31,7 +33,8 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
   1. device: a CUDA card is required; its name and power limit are
      printed; the four kernels (htk_tpu_torch/csrc/decode_scan.cu,
      fb_scans.cu, maxplus.cu and xw_gather.cu) are built from source with
-     nvcc, in parallel
+     nvcc, and the two host libraries (htk_tpu_torch/native/htkio.cpp and
+     htknative.cpp) with g++, in parallel
   2. the decode kernel against its plain torch version on random nets
      (several seeds, B > 1, a tie-heavy integer-score case), each at the
      full grid and at forced grids of 1, 2, 3 and 7 blocks
@@ -303,6 +306,33 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      of LSE(alpha_t + beta_t) from logP, the serial scans' too); then
      `dryrun_multichip(1)` in the one-rank group (fb_scans and
      decode_scan launches)
+ 32. the host runtime in C++ (htk_tpu_torch/native: htkio.cpp and
+     htknative.cpp, built with g++ in phase 1 beside the kernels, their
+     build seconds printed): (a) a 20,000-word trigram ARPA (about 43 MB:
+     1,000,000 bigrams, 500,000 trigrams, from a seed, over the 20k
+     system's words), 8 bigram and 8 trigram lines planted twice with
+     other values, through the codec (`native.parse_arpa`, `read_arpa`)
+     and through its plain version in Python (`native.parse_arpa_plain`):
+     packs exactly equal, duplicates included; `compile_lv_loop` over the
+     20k system from each, every table exactly equal; each planted bigram
+     reaching the loop as its two lines; the codec LM's dicts equal to
+     the Python reader's (`read_arpa_plain`); the walls of each; (b) 2,000
+     MFCC_E_D_A_Z_C files (500 x 39, from a seed) through
+     `preload_corpus` and through `open_speech_file` a file at a time:
+     every file covered, bit for bit the codec's float32 (q + B) / A, and
+     within one float32 rounding of the per-file reader (which divides in
+     float64: the count of values that differ is printed), with both
+     walls; (c) the MLF structure scanner against the pure parse on
+     config #4's train.mlf and the corpus's MLF, with both walls; (d)
+     HVite and HERest's first iteration, preload on, over config #4's
+     files (float, which preload leaves alone): rec.mlf byte for byte
+     phase 5's, the MMF within 1e-5 of scale of phase 6's (the card's
+     atomic float32 sums land in another order from run to run; whether
+     the bytes are equal is printed); then over a _C copy of them (all
+     preloaded) against the same tools reading per file: words and times
+     equal, scores within 1e-4 relative and the MMFs within 1e-2 of each
+     array's scale (the features part by a float32 rounding). Every wall
+     is labelled with the card's name and power limit
  20. one JSON line of kernels, then the device line last
 
 Phase 19 also runs the demo's trigram HDecode stage (LBuild, HDecode
@@ -353,6 +383,7 @@ import copy
 import datetime
 import io
 import json
+import math
 import os
 import pickle
 import re
@@ -383,10 +414,11 @@ from htk_tpu_torch.algo.trainer import (DeviceCompositeTrainer, Trainer,
                                         UttData, _bucket, make_batches,
                                         pad_batch, prepare_utterance,
                                         prepare_utterance_ids)
+from htk_tpu_torch import native
 from htk_tpu_torch.io.dictionary import read_dict
 from htk_tpu_torch.io import parmkind as pk
 from htk_tpu_torch.io.htkfeat import read_htk_file, write_htk_file
-from htk_tpu_torch.io.lm import read_arpa
+from htk_tpu_torch.io.lm import PackedNGramLM, read_arpa, read_arpa_plain
 from htk_tpu_torch.io.mlf import MLF
 from htk_tpu_torch.io.mmf import load_mmf, save_mmf
 from htk_tpu_torch.io.slf import read_slf, write_slf
@@ -416,9 +448,11 @@ from htk_tpu_torch.synth import (PARM_KIND, lv_system, random_decode_net,
 from htk_tpu_torch.tools import (hcopy, hdecode, herest, hhed, hinit,
                                  hmmirest, hnforward, hntrainsgd, hquants,
                                  hrest, hvite)
-from htk_tpu_torch.tools._common import DEVICE_ENV
+from htk_tpu_torch.tools._common import (DEVICE_ENV, open_speech_file,
+                                        preload_corpus)
 from htk_tpu_torch.tools._xfcli import (chain_model_params,
                                         load_input_transforms)
+from htk_tpu_torch.utils.config import Config
 from htk_tpu_torch.utils.logmath import LZERO, ladd_reduce
 
 ATOL = 1e-5
@@ -495,6 +529,18 @@ SEQ_UTTS = 4  # the sequence criterion's utterances
 PHONE_LOOP_LAUNCHES = 10  # phase 26: wide launches a timed phone-loop sample
 WIDE_SPARSE_Q = 20480  # phase 26: a composite past the narrow design's limit
 WIDE_SPARSE_SEED = 26
+# phase 32: a trigram ARPA over the 20k system's words (about 43 MB) with
+# bigram and trigram lines planted twice, other values the second time;
+# a corpus of _C feature files (MFCC_E_D_A_Z_C, 500 x 39)
+NATIVE_ARPA = dict(bigrams=1_000_000, trigrams=500_000, duplicates=8,
+                   seed=32)
+NATIVE_CORPUS = dict(n=2000, frames=500, dim=39, seed=33)
+NATIVE_KIND = "MFCC_E_D_A_Z_C"
+HVITE_SCORE_RTOL = 1e-4  # rec.mlf scores, preload against per-file on _C
+HEREST_MODEL_TOL = ACC_TOL  # trained MMFs, of each array's scale
+# HERest run again on the same files: its float32 sums by atomic adds on
+# the card land in another order from run to run
+HEREST_RERUN_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -669,12 +715,20 @@ def phase_device():
         f"cuda={torch.version.cuda}")
     card = card_line()
     log(card)
+    if not all(native.library_path(n).startswith(here + os.sep)
+               for n in ("htkio", "htknative")):
+        raise RuntimeError(f"chip_smoke: htk_tpu_torch is not the checkout's "
+                           f"own ({native.__file__}, not under {here})")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(lambda k: k.build(), KERNELS))
-    log(f"kernel builds: {time.perf_counter() - t0:.2f} s in parallel ("
-        + ", ".join(f"{k.name} nvcc {k.build_seconds:.2f} s"
-                    for k in KERNELS) + ")")
+    builds = [k.build for k in KERNELS] + [native.get_htkio,
+                                           native.get_arpa_lib]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda build: build(), builds))
+    log(f"kernel and host runtime builds: {time.perf_counter() - t0:.2f} s "
+        "in parallel (" + ", ".join(
+            [f"{k.name} nvcc {k.build_seconds:.2f} s" for k in KERNELS]
+            + [f"{n} g++ {native.BUILD_SECONDS[n]:.2f} s"
+               for n in ("htkio", "htknative")]) + ")")
     return card
 
 
@@ -4650,6 +4704,381 @@ def kernel_entry(name, source, replaces, launches, err, times, bnd,
             "bound_by": bnd[1], "library_ms": library_ms}
 
 
+def write_big_arpa(path, words, bigrams, trigrams, duplicates, seed):
+    """A trigram ARPA over `words`: every word a unigram with a back-off,
+    `bigrams` distinct bigrams with back-offs, `trigrams` distinct
+    trigrams extending them; then `duplicates` bigram and trigram lines
+    written a second time with other values (the last lines of their
+    sections). Returns the planted (bigram, trigram) keys."""
+    rng = np.random.default_rng(seed)
+    V = len(words)
+    bkeys = np.unique(rng.integers(0, V * V, int(bigrams * 1.1)))
+    bkeys = np.sort(rng.permutation(bkeys)[:bigrams])
+    tkeys = np.unique(rng.choice(bkeys, int(trigrams * 1.1)) * V
+                      + rng.integers(0, V, int(trigrams * 1.1)))
+    tkeys = np.sort(rng.permutation(tkeys)[:trigrams])
+    lines = ["\\data\\", f"ngram 1={V}", f"ngram 2={bigrams + duplicates}",
+             f"ngram 3={trigrams + duplicates}", "", "\\1-grams:"]
+    up, ub = rng.uniform(-6, -2, V), rng.uniform(-1.5, -0.1, V)
+    lines += [f"{p:.4f}\t{w}\t{b:.4f}" for p, w, b in zip(up, words, ub)]
+    lines += ["", "\\2-grams:"]
+    bp, bb = rng.uniform(-4, -0.1, bigrams), rng.uniform(-1, -0.05, bigrams)
+    w1, w2 = (bkeys // V).tolist(), (bkeys % V).tolist()
+    lines += [f"{p:.4f}\t{words[i]}\t{words[j]}\t{b:.4f}"
+              for p, i, j, b in zip(bp.tolist(), w1, w2, bb.tolist())]
+    bd = rng.choice(bigrams, duplicates, replace=False)
+    lines += [f"{bp[k] + rng.uniform(-1, 1):.4f}\t{words[w1[k]]}\t"
+              f"{words[w2[k]]}\t{bb[k]:.4f}" for k in bd]
+    lines += ["", "\\3-grams:"]
+    tp = rng.uniform(-3, -0.1, trigrams)
+    t1, t2, t3 = ((tkeys // (V * V)).tolist(), (tkeys // V % V).tolist(),
+                  (tkeys % V).tolist())
+    lines += [f"{p:.4f}\t{words[i]}\t{words[j]}\t{words[k]}"
+              for p, i, j, k in zip(tp.tolist(), t1, t2, t3)]
+    td = rng.choice(trigrams, duplicates, replace=False)
+    lines += [f"{tp[k] + rng.uniform(-1, 1):.4f}\t{words[t1[k]]}\t"
+              f"{words[t2[k]]}\t{words[t3[k]]}" for k in td]
+    lines += ["", "\\end\\", ""]
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+    return ([(words[w1[k]], words[w2[k]]) for k in bd],
+            [(words[t1[k]], words[t2[k]], words[t3[k]]) for k in td])
+
+
+def timed(fn, *args):
+    """fn(*args) and the host seconds it took."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def scaled_packs(packs):
+    """A codec pack dict in natural logs, as io/lm.read_arpa scales it."""
+    out = dict(packs)
+    for n in range(1, packs["order"] + 1):
+        ids, lp, bo, hb = packs[n]
+        out[n] = (ids, lp * math.log(10.0), bo * math.log(10.0), hb)
+    return out
+
+
+def net_tables(net):
+    """compile_lv_loop's arrays, the factored cross-word tables included."""
+    out = {k: getattr(net, k) for k in (
+        "comp_state", "band", "a0", "aE", "chain_of", "node_of_chain",
+        "chain_pron_prob", "trans", "start_entry", "end_exit")}
+    x = net.xw_backoff or {}
+    for k in ("bow", "uni", "inv", "succ_j", "succ_p", "marg"):
+        out[f"xw.{k}"] = x.get(k)
+    for i, (p, sc) in enumerate(x.get("buckets", ())):
+        out[f"xw.bucket{i}"] = (p, sc)
+    for i, a in enumerate(x.get("slots", ())):
+        out[f"xw.slots{i}"] = a
+    return out
+
+
+def same_arrays(a, b) -> bool:
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(same_arrays, a, b))
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a, b))
+
+
+def phase_native_arpa(big, root, card):
+    """32(b): the 43 MB ARPA through the codec and its plain version."""
+    path = os.path.join(root, "native_20k.arpa")
+    t0 = time.perf_counter()
+    dup_bi, dup_tri = write_big_arpa(path, big.words, **NATIVE_ARPA)
+    mb = os.path.getsize(path) / 1e6
+    log(f"ARPA written in {time.perf_counter() - t0:.2f} s: {mb:.1f} MB, "
+        f"{len(big.words)} unigrams, {NATIVE_ARPA['bigrams']} bigrams and "
+        f"{NATIVE_ARPA['trigrams']} trigrams, {NATIVE_ARPA['duplicates']} "
+        "of each written twice")
+    walls = {}
+    packs, walls["codec parse"] = timed(native.parse_arpa, path)
+    plain, walls["plain parse"] = timed(native.parse_arpa_plain, path)
+    lm, walls["read_arpa (codec)"] = timed(read_arpa, path)
+    dict_lm, walls["read_arpa_plain (dicts)"] = timed(read_arpa_plain, path)
+    if packs is None or plain is None:
+        raise AssertionError("ARPA: a parser rejected the file")
+    if packs["order"] != plain["order"] or packs["vocab"] != plain["vocab"]:
+        raise AssertionError("ARPA: codec and plain version differ in order "
+                             "or vocabulary")
+    for n in range(1, packs["order"] + 1):
+        if not same_arrays(packs[n], plain[n]):
+            raise AssertionError(f"ARPA: {n}-gram packs differ")
+    counts = [len(packs[n][1]) for n in range(1, packs["order"] + 1)]
+    log(f"ARPA codec packs == plain version's, duplicates included "
+        f"({counts} lines of order 1-{packs['order']})")
+    if type(lm) is not PackedNGramLM:
+        raise AssertionError(f"read_arpa returned {type(lm).__name__}")
+    nets = {}
+    for name, m in (("codec", lm),
+                    ("plain", PackedNGramLM(scaled_packs(plain)))):
+        net, walls[f"compile_lv_loop ({name})"] = timed(
+            compile_lv_loop, big.words, big.vocab, big.comp, m)
+        nets[name] = net_tables(net)
+    differ = [k for k in nets["codec"]
+              if not same_arrays(nets["codec"][k], nets["plain"][k])]
+    if differ or nets["codec"].keys() != nets["plain"].keys():
+        raise AssertionError(f"compile_lv_loop tables differ: {differ}")
+    log(f"compile_lv_loop tables from the codec LM == from the plain "
+        f"version's packs ({len(nets['codec'])} arrays, factored)")
+    # a bigram on two lines: both reach the LV loop, which keeps the larger
+    i, j, p = lm.bigram_arrays(big.words)
+    idx = {w: n for n, w in enumerate(big.words)}
+    vid = {w: n for n, w in enumerate(packs["vocab"])}
+    ids, lp = packs[2][0], packs[2][1]
+    for w1, w2 in dup_bi:
+        rows = (ids[:, 0] == vid[w1]) & (ids[:, 1] == vid[w2])
+        got = p[(i == idx[w1]) & (j == idx[w2])]
+        if rows.sum() != 2 or not np.array_equal(
+                np.sort(got), np.sort(lp[rows] * math.log(10.0))):
+            raise AssertionError(f"bigram {w1} {w2}: {got} are not its two "
+                                 f"lines {lp[rows]}")
+    log(f"the {len(dup_bi)} duplicated bigrams reach compile_lv_loop as two "
+        "entries each, as from htk_tpu's codec (the LV loop takes the "
+        "larger; a dict reader keeps the last)")
+    # last: reading a packed LM's dicts makes its array views follow them
+    t0 = time.perf_counter()
+    for k in ("unigrams", "bigrams", "trigrams", "tri_bo"):
+        if getattr(lm, k) != getattr(dict_lm, k):
+            raise AssertionError(f"ARPA: the codec LM's {k} != the Python "
+                                 "reader's")
+    log(f"ARPA codec LM's dicts == the Python reader's (a duplicate's last "
+        f"line in both; compared in {time.perf_counter() - t0:.2f} s)")
+    log(f"ARPA walls on {card}'s host (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items())
+        + f"; codec / Python reader "
+        f"{walls['read_arpa_plain (dicts)'] / walls['read_arpa (codec)']:.2f}x")
+    return walls
+
+
+def phase_native_corpus(root, card):
+    """32(c): preload_corpus on 2,000 _C files against the per-file reader;
+    32(d) the MLF scanner on their MLF."""
+    c = NATIVE_CORPUS
+    d = os.path.join(root, "native_corpus")
+    os.makedirs(d)
+    rng = np.random.default_rng(c["seed"])
+    kind = pk.str2parmkind(NATIVE_KIND)
+    paths = []
+    t0 = time.perf_counter()
+    for n in range(c["n"]):
+        x = (rng.normal(size=(c["frames"], c["dim"])) * 6).astype(np.float32)
+        paths.append(os.path.join(d, f"u{n:04d}.mfc"))
+        write_htk_file(paths[-1], x, 100000, kind)
+    log(f"corpus written in {time.perf_counter() - t0:.2f} s: {c['n']} "
+        f"{NATIVE_KIND} files of {c['frames']} x {c['dim']}")
+    cfg = Config()
+    pre, t_pre = timed(preload_corpus, paths, cfg)
+    per, t_per = timed(lambda: [open_speech_file(p, cfg) for p in paths])
+    if set(pre) != set(paths):
+        raise AssertionError(f"preload_corpus covered {len(pre)} of "
+                             f"{len(paths)} files")
+    off, worst = 0, 0.0
+    for p, (data, period, pkind, e) in zip(paths, per):
+        got = pre[p]
+        if got[1:3] != (period, pkind) or got[3].logical != e.logical:
+            raise AssertionError(f"{p}: preload's period/kind/entry differ")
+        # the codec's arithmetic in numpy: (q + B) / A in float32
+        raw = open(p, "rb").read()
+        w = c["dim"]
+        A = np.frombuffer(raw[12:12 + 4 * w], ">f4").astype(np.float32)
+        B = np.frombuffer(raw[12 + 4 * w:12 + 8 * w], ">f4").astype(
+            np.float32)
+        q = np.frombuffer(raw[12 + 8 * w:], ">i2").reshape(-1, w).astype(
+            np.float32)
+        if not np.array_equal(got[0], (q + B) / A):
+            raise AssertionError(f"{p}: preload != (q + B) / A in float32")
+        step = np.spacing(np.abs(data))
+        if not (np.abs(got[0] - data) <= step).all():
+            raise AssertionError(f"{p}: preload more than a float32 "
+                                 "rounding off open_speech_file")
+        off += int((got[0] != data).sum())
+        worst = max(worst, float(np.abs(got[0] - data).max()))
+    total = c["n"] * c["frames"] * c["dim"]
+    log(f"preload_corpus == (q + B) / A in float32 bit for bit on all "
+        f"{c['n']} files; against open_speech_file (float64 division) "
+        f"{off} of {total} values one float32 rounding apart (max |d| "
+        f"{worst:.3g}), the rest equal")
+    log(f"corpus walls on {card}'s host: preload_corpus {t_pre:.3f} s, "
+        f"open_speech_file per file {t_per:.3f} s ({t_per / t_pre:.2f}x)")
+    mlf = os.path.join(d, "corpus.mlf")
+    with open(mlf, "w") as f:
+        f.write("#!MLF!#\n")
+        for n in range(c["n"]):
+            f.write(f'"*/u{n:04d}.lab"\n')
+            f.write("".join(f"{k * 100000} {(k + 1) * 100000} p{k % 40}\n"
+                            for k in range(0, c["frames"], 10)))
+            f.write(".\n")
+    return t_pre, t_per, mlf
+
+
+def phase_native_mlf(mlfs, card):
+    """32(d): MLF.read's scanner leg against the pure parse."""
+    walls = []
+    for path in mlfs:
+        data = open(path, "rb").read()
+        scanned, pure = MLF(), MLF()
+        took, t_scan = timed(scanned._read_native, data)
+        if not took:
+            raise AssertionError(f"{path}: the scanner declined the file")
+        _, t_pure = timed(pure._read_pure, data, path)
+        if mlf_view(scanned) != mlf_view(pure):
+            raise AssertionError(f"{path}: scanner entries != pure parse's")
+        log(f"MLF {os.path.basename(path)} ({len(scanned.entries)} entries, "
+            f"{len(data) / 1e6:.2f} MB): scanner == pure parse; walls on "
+            f"{card}'s host: scanner {t_scan:.4f} s, pure {t_pure:.4f} s "
+            f"({t_pure / t_scan:.2f}x)")
+        walls.append((t_scan, t_pure))
+    return walls
+
+
+@contextlib.contextmanager
+def no_preload():
+    """HVite and HERest read every file through open_speech_file inside."""
+    saved = hvite.preload_corpus, herest.preload_corpus
+    hvite.preload_corpus = herest.preload_corpus = lambda files, cfg: {}
+    try:
+        yield
+    finally:
+        hvite.preload_corpus, herest.preload_corpus = saved
+
+
+def run_hvite_herest(sysm, root, tag, scp, train_scp):
+    """HVite as phase 5 runs it and HERest's first iteration as phase 6
+    runs it, over `scp`/`train_scp`; returns (rec.mlf, MMF) paths."""
+    rec = os.path.join(root, f"rec_{tag}.mlf")
+    argv = ["-T", "1", "-C", os.path.join(root, "hvite.cfg"), "-w",
+            sysm.wdnet, "-H", sysm.hmmdefs, "-i", rec, "-s", str(LM_SCALE),
+            "-p", str(WORD_PEN), "-S", scp, sysm.dict, sysm.hmmlist]
+    if hvite.run(argv) != 0:
+        raise RuntimeError(f"HVite ({tag}) returned non-zero")
+    out = os.path.join(root, f"hmm_{tag}")
+    os.makedirs(out)
+    argv = ["-T", "1", "-B", "-b", str(HEREST_BATCH), "-H", sysm.hmmdefs,
+            "-M", out, "-S", train_scp, "-I", sysm.train_mlf, sysm.hmmlist]
+    if herest.run(argv) != 0:
+        raise RuntimeError(f"HERest ({tag}) returned non-zero")
+    return rec, os.path.join(out, os.path.basename(sysm.hmmdefs))
+
+
+def mlf_view(m):
+    """An MLF's entries: pattern, then each alternative's labels."""
+    return [(p, [[(lab.name, lab.start, lab.end, lab.score, lab.aux)
+                  for lab in alt] for alt in tr.alternatives])
+            for p, tr in m.entries]
+
+
+def model_gap(a, b) -> float:
+    """The largest difference of two MMFs' Gaussians, weights and
+    transitions, each over its array's largest magnitude."""
+    ca, cb = (compile_hmmset(load_mmf([p])) for p in (a, b))
+    gap = 0.0
+    for k in ("means", "variances", "state_logw", "log_transp"):
+        x, y = (np.asarray(getattr(c, k), np.float64) for c in (ca, cb))
+        live = np.isfinite(x) & (x > LZERO / 2)
+        if not np.array_equal(live, np.isfinite(y) & (y > LZERO / 2)):
+            raise AssertionError(f"{k}: live entries differ")
+        if live.any():
+            gap = max(gap, float(np.abs(x[live] - y[live]).max()
+                                 / np.abs(x[live]).max()))
+    return gap
+
+
+def phase_native_tools(sysm, root, card):
+    """32(e): HVite and HERest with preload on. Over config #4's float
+    files (which preload leaves to the per-file reader) their outputs are
+    phase 5's rec.mlf and phase 6's first MMF byte for byte; over a _C
+    copy of the corpus (every file preloaded), preload against the
+    per-file path: the same words and times, scores and models within
+    float32 rounding of the features."""
+    t0 = time.perf_counter()
+    rec, mmf = run_hvite_herest(sysm, root, "preload_float", sysm.scp,
+                                sysm.train_scp)
+    wall_float = time.perf_counter() - t0
+    ref = os.path.join(root, "rec.mlf")
+    if open(rec, "rb").read() != open(ref, "rb").read():
+        raise AssertionError(f"{rec} != {ref} byte for byte")
+    ref = os.path.join(root, "hmm1", os.path.basename(sysm.hmmdefs))
+    rerun = model_gap(mmf, ref)
+    if rerun > HEREST_RERUN_TOL:
+        raise AssertionError(f"{mmf}: {rerun:.3g} of scale off phase 6's")
+    same = open(mmf, "rb").read() == open(ref, "rb").read()
+    log("HVite and HERest iteration 1 with preload over config #4's files "
+        "(none covered): rec.mlf == phase 5's byte for byte; the MMF "
+        f"{rerun:.3g} of scale off phase 6's (bytes "
+        f"{'equal' if same else 'differ'}; {wall_float:.2f} s)")
+    cdir = os.path.join(root, "c4_compressed")
+    os.makedirs(cdir)
+    moved = {}
+    for p in sysm.feats:
+        ff = read_htk_file(p)
+        q = os.path.join(cdir, os.path.basename(p))
+        write_htk_file(q, ff.data, ff.samp_period,
+                       ff.parm_kind | pk.HASCOMPX)
+        moved[p] = q
+    scps = []
+    for s in (sysm.scp, sysm.train_scp):
+        out = os.path.join(cdir, os.path.basename(s))
+        with open(s) as f, open(out, "w") as g:
+            for line in f:
+                g.write(moved.get(line.strip(), line.strip()) + "\n")
+        scps.append(out)
+    if len(preload_corpus(list(moved.values()), Config())) != len(moved):
+        raise AssertionError("preload did not cover the _C copy")
+    walls = {}
+    t0 = time.perf_counter()
+    rec_pre, mmf_pre = run_hvite_herest(sysm, root, "preload_c", *scps)
+    walls["preload"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with no_preload():
+        rec_per, mmf_per = run_hvite_herest(sysm, root, "perfile_c", *scps)
+    walls["per file"] = time.perf_counter() - t0
+    a, b = (mlf_view(MLF.load(r)) for r in (rec_pre, rec_per))
+
+    def words_times(view):
+        return [(p, [[lab[:3] for lab in alt] for alt in alts])
+                for p, alts in view]
+
+    if words_times(a) != words_times(b):
+        raise AssertionError("HVite on _C files: words or times differ "
+                             "between preload and per file")
+    sgap = max((abs(x[3] - y[3]) / max(abs(y[3]), 1.0)
+                for (_p, xa), (_q, ya) in zip(a, b)
+                for xs, ys in zip(xa, ya) for x, y in zip(xs, ys)
+                if x[3] is not None), default=0.0)
+    if sgap > HVITE_SCORE_RTOL:
+        raise AssertionError(f"HVite on _C files: scores {sgap:.3g} apart")
+    same_bytes = open(rec_pre, "rb").read() == open(rec_per, "rb").read()
+    mgap = model_gap(mmf_pre, mmf_per)
+    if mgap > HEREST_MODEL_TOL:
+        raise AssertionError(f"HERest on _C files: models {mgap:.3g} of "
+                             "scale apart")
+    mmf_same = open(mmf_pre, "rb").read() == open(mmf_per, "rb").read()
+    log(f"HVite and HERest iteration 1 over the _C copy ({len(moved)} "
+        f"files, all preloaded) on {card}: words and times == per file, "
+        f"scores {sgap:.3g} apart (rec.mlf bytes "
+        f"{'equal' if same_bytes else 'differ'}), MMFs {mgap:.3g} of scale "
+        f"apart (bytes {'equal' if mmf_same else 'differ'}); walls: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in walls.items()))
+
+
+def phase_native(sysm, big, root, card):
+    """Phase 32: the host runtime in C++ (htk_tpu_torch/native)."""
+    log(f"host runtime builds (phase 1, g++): " + ", ".join(
+        f"{n} {native.BUILD_SECONDS[n]:.2f} s -> {native.library_path(n)}"
+        for n in ("htkio", "htknative")))
+    walls = phase_native_arpa(big, root, card)
+    t_pre, t_per, mlf = phase_native_corpus(root, card)
+    phase_native_mlf([sysm.train_mlf, mlf], card)
+    phase_native_tools(sysm, root, card)
+    return walls, t_pre, t_per
+
+
 def main() -> int:
     os.environ[DEVICE_ENV] = "cuda"
     t_all = time.perf_counter()
@@ -4742,6 +5171,8 @@ def main() -> int:
         md_launches, md_dry, md_err = phase_multidevice(sysm, root, card,
                                                         dev)
         done("multi-device")
+        phase_native(sysm, big, root, card)
+        done("native host runtime")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     dbound = decode_bound(TIMING_B, TIMING_T, net.n_states, net.n_nodes,

@@ -25,12 +25,16 @@ mismatch as a warning, and our own write/read round-trips are exact.
 
 Copied from `htk_tpu/io/htkfeat.py` into the PyTorch port: host code, numpy
 only, behaviour unchanged. The port cannot use htk_tpu, whose
-utils package pulls in JAX.
+utils package pulls in JAX. `read_htk_file_fast` loads through the port's
+copy of the native codec (native/htkio.cpp), which raises HError 1094
+when it cannot build.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -171,3 +175,67 @@ def _parse_htk_file(raw: bytes, path: str,
         data = np.frombuffer(body[: 4 * width * n], dtype=f"{bo}f4").reshape(n, width)
         data = np.ascontiguousarray(data.astype(np.float32))
     return HTKFeatureFile(data=data, samp_period=samp_period, parm_kind=parm_kind)
+
+
+def _header_fits(path: str, n: int, samp_size: int, kind: int) -> bool:
+    """Whether the file holds the n samples of samp_size bytes its header
+    promises (a `_C` file's n counting the 4 rows of its two scale
+    vectors). native/htkio.cpp trusts the header; a damaged one would
+    send it past the end of its buffers."""
+    if n <= (4 if pk.has_qual(kind, pk.HASCOMPX) else 0):
+        return False
+    try:
+        return os.path.getsize(path) >= 12 + n * samp_size
+    except OSError:
+        return False
+
+
+def read_htk_file_fast(path: str) -> Optional[HTKFeatureFile]:
+    """Single-file native loader; None for the files it does not cover.
+
+    Per-file the numpy reader is already memcpy-bound, so this is NOT
+    routed automatically; the native win is the batch loader
+    (htk_tpu_torch.native.load_corpus_batch), which amortises the
+    Python->C boundary over a whole corpus (tools/_common.preload_corpus).
+    """
+    from ..native import get_htkio
+
+    lib = get_htkio()
+    import ctypes
+
+    try:
+        size = max(np.int64(np.fromfile(path, dtype=">i4", count=1)[0]), 1)
+    except Exception:
+        return None
+    with open(path, "rb") as f:
+        hdr = f.read(12)
+    if len(hdr) < 12:
+        return None
+    kind = int(np.frombuffer(hdr[10:12], dtype=">i2")[0])
+    samp_size = int(np.frombuffer(hdr[8:10], dtype=">i2")[0])
+    base = pk.base_kind(kind)
+    if base in (
+        pk.BASE_KINDS.index("WAVEFORM"),
+        pk.BASE_KINDS.index("IREFC"),
+        pk.BASE_KINDS.index("DISCRETE"),
+    ) or pk.has_qual(kind, pk.HASCRCC):
+        return None  # int kinds / CRC-checked files use the numpy path
+    width = samp_size // (2 if pk.has_qual(kind, pk.HASCOMPX) else 4)
+    if width <= 0:
+        return None
+    if not _header_fits(path, int(size), samp_size, kind):
+        return None  # the codec would read or write past its buffers
+    out = np.empty((int(size), width), np.float32)
+    period = ctypes.c_int32()
+    kind_c = ctypes.c_int32()
+    n = lib.htkio_load(
+        path.encode(), out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        int(size), width, ctypes.byref(period), ctypes.byref(kind_c),
+    )
+    if n < 0:
+        return None
+    return HTKFeatureFile(
+        data=np.ascontiguousarray(out[: int(n)]),
+        samp_period=int(period.value),
+        parm_kind=int(kind_c.value),
+    )

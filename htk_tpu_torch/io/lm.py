@@ -6,9 +6,13 @@ ARPA back-off files up to trigram. Log probs in the file are base-10
 
 Copied from `htk_tpu/io/lm.py` into the PyTorch port: host code, numpy
 only, behaviour unchanged. The port cannot use htk_tpu, whose
-utils package pulls in JAX. The native ARPA codec (htk_tpu/native) is
-left out: `read_arpa` always takes the Python reader, which builds the
-same dicts (`PackedNGramLM` stays for the binary reader).
+utils package pulls in JAX. `read_arpa` parses through the port's copy
+of the native ARPA codec (native/htknative.cpp) and returns a
+`PackedNGramLM`, as htk_tpu's does whenever g++ can build it; no
+environment variable switches the port's codec off, and a codec that
+cannot build raises HError 1094. The Python reader, `read_arpa_plain`, reports the numbered
+error of a file the codec rejects; on unique n-grams its dicts equal the
+codec's.
 """
 
 from __future__ import annotations
@@ -312,6 +316,28 @@ def _num_factory(line, path):
 
 
 def read_arpa(path: str, cfg=None) -> NGramLM:
+    from ..native import parse_arpa
+    from ..utils.filters import filtered
+
+    try:
+        with filtered(path, "HLANGMODFILTER", cfg) as p:
+            packs = parse_arpa(p)
+            if packs is not None:
+                if 1 not in packs or not len(packs[1][1]):
+                    HError(8150, "ReadLModel: no unigrams found in %s", path)
+                for n in range(1, packs["order"] + 1):
+                    ids, lp, bo, hb = packs[n]
+                    packs[n] = (ids, lp * LN10, bo * LN10, hb)
+                return PackedNGramLM(packs)
+            lines = open(p, "r", errors="replace").read().splitlines()
+    except OSError as e:
+        HError(8110, "ReadLModel: cannot open LM %s (%s)", path, e)
+    return _arpa_from_lines(lines, path)
+
+
+def read_arpa_plain(path: str, cfg=None) -> NGramLM:
+    """The Python ARPA reader alone, without the codec: dicts, where a
+    duplicated n-gram's last line wins."""
     from ..utils.filters import filtered
 
     try:
@@ -319,6 +345,10 @@ def read_arpa(path: str, cfg=None) -> NGramLM:
             lines = open(p, "r", errors="replace").read().splitlines()
     except OSError as e:
         HError(8110, "ReadLModel: cannot open LM %s (%s)", path, e)
+    return _arpa_from_lines(lines, path)
+
+
+def _arpa_from_lines(lines: List[str], path: str) -> NGramLM:
     lm = NGramLM()
     section = 0
     for raw in lines:

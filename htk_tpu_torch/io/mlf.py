@@ -15,7 +15,10 @@ SCRIBE/SAM — see `load_label_file`.
 
 Copied from `htk_tpu/io/mlf.py` into the PyTorch port: host code, numpy
 only, behaviour unchanged. The port cannot use htk_tpu, whose
-utils package pulls in JAX.
+utils package pulls in JAX. `MLF.read` scans through the port's copy of
+the native MLF structure scanner (native/htkio.cpp) first, as htk_tpu's
+does; the pure parse (`_read_pure`) takes every file the scanner does not
+cover and reports the numbered errors.
 """
 
 from __future__ import annotations
@@ -141,6 +144,11 @@ class MLF:
                 data = open(p, "rb").read()
         except OSError as e:
             HError(6510, "LoadMasterFile: cannot open MLF %s (%s)", path, e)
+        if self._read_native(data):
+            return
+        self._read_pure(data, path)
+
+    def _read_pure(self, data: bytes, path: str) -> None:
         lines = data.decode(errors="replace").splitlines()
         if not lines or lines[0].strip() != "#!MLF!#":
             HError(6511, "LoadMasterFile: %s missing #!MLF!# header", path)
@@ -164,6 +172,50 @@ class MLF:
             tr = parse_label_body(body)
             self.entries.append((pattern, tr))
             self._exact[pattern] = tr
+
+    def _read_native(self, data: bytes) -> bool:
+        """Fast path: the C scanner (native/htkio.cpp htkio_mlf_marks)
+        finds every pattern/terminator line in one pass; Python only
+        slices entry bodies. Returns False (caller takes the pure path,
+        which also produces the numbered errors) when the file's
+        structure is not strictly pattern/body/'.' alternating."""
+        from ..native import get_htkio
+
+        lib = get_htkio()
+        if not data.startswith(b"#!MLF!#"):
+            return False
+        import ctypes
+
+        import numpy as np
+
+        cap = data.count(b"\n") + 2
+        offs = np.empty(cap, np.int64)
+        ends = np.empty(cap, np.int64)
+        tags = np.empty(cap, np.uint8)
+        cnt = lib.htkio_mlf_marks(
+            data, len(data),
+            offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            ends.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            tags.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            cap)
+        if cnt < 0:
+            return False
+        # strict alternation pattern/dot; anything else -> pure path
+        if cnt % 2 or not all(
+                int(tags[k]) == (1 if k % 2 == 0 else 2)
+                for k in range(cnt)):
+            return False
+        for k in range(0, cnt, 2):
+            a, b = int(offs[k]), int(ends[k])
+            s = data[a:b].decode(errors="replace")
+            if not (s.startswith('"') and s.endswith('"')):
+                return False
+            pattern = s[1:-1]
+            body = data[b:int(offs[k + 1])].decode(errors="replace")
+            tr = parse_label_body(body.split("\n"))
+            self.entries.append((pattern, tr))
+            self._exact[pattern] = tr
+        return True
 
     def lookup(self, key: str) -> Optional[Transcription]:
         """Find the transcription for a label-file path/name.

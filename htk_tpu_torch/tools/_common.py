@@ -7,23 +7,25 @@ no card and no such request a tool stops with HError 1090.
 The torch counterpart of `htk_tpu/tools/_common.py`. HTK and ESIG
 feature files and waveforms open as in htk_tpu; a waveform runs through
 the port's frontend (ops/dsp.py) on the tool's device, and so does a
-live HAUDIO source (io/audio.py), pulled dry first. htk_tpu's
-`preload_corpus` is not carried over: it only feeds the native batch
-codec, which the port leaves out, so every file goes through the numpy
-reader, which gives the same data. Nor is `source_kind`, which has no
-caller. `channel_config` (HERest -r's channel views) is copied as it is.
+live HAUDIO source (io/audio.py), pulled dry first. `preload_corpus`
+loads a corpus's `_C` feature files in one call to the port's copy of
+the native batch codec (native/htkio.cpp), as htk_tpu's does; the tools
+that call it in htk_tpu call it here and take every other file through
+`open_speech_file`. `source_kind`, which has no caller, is not carried
+over. `channel_config` (HERest -r's channel views) is copied as it is.
 """
 
 from __future__ import annotations
 
 import os
+from typing import List
 
 import numpy as np
 import torch
 
 from ..io import parmkind as pk
 from ..io.audio import open_audio_input
-from ..io.htkfeat import read_htk_file
+from ..io.htkfeat import _header_fits, read_htk_file
 from ..io.scp import parse_scp_entry
 from ..io.wavefile import read_wave
 from ..ops.dsp import FrontendConfig, compute_features
@@ -206,3 +208,80 @@ def open_speech_file(entry: str, cfg: Config, defer_frontend: bool = False):
         cleanup(ptmp)
         cleanup(wtmp)
 
+
+def preload_corpus(entries: List[str], cfg: Config) -> dict:
+    """Batch-load `_C`-compressed HTK feature corpora natively.
+
+    Returns {entry: (data, period, kind, scp_entry)} for the files it
+    covered; callers fall through to open_speech_file for the rest
+    (waves, uncompressed floats — where numpy's SIMD byteswap already
+    wins — segment-sliced entries, filters, ESIG). The
+    `HTKLib/HParm.c : OpenBuffer` role at corpus scale: one C call
+    decompresses a whole chunk (native/htkio.cpp), in float32 as
+    htk_tpu's codec does (native.load_corpus_batch).
+    """
+    out: dict = {}
+    if cfg is None or cfg.str_("HPARMFILTER", None):
+        return out
+    if cfg.str_("SOURCEKIND", "ANON", module="HPARM").upper() != "ANON":
+        return out
+    if (cfg.str_("SOURCEFORMAT", "HTK", module="HWAVE") or
+            "HTK").upper() != "HTK":
+        return out
+    from ..native import load_corpus_batch
+
+    groups: dict = {}
+    seen: set = set()
+    budget = 2 << 30  # cap resident decompressed features at ~2 GB;
+    # everything past the cap streams through open_speech_file as before
+    for ent in entries:
+        if ent in seen or not isinstance(ent, str):
+            continue
+        seen.add(ent)
+        if budget <= 0:
+            continue
+        e = parse_scp_entry(ent)
+        if e.start is not None:
+            continue
+        try:
+            with open(e.physical, "rb") as f:
+                hdr = f.read(12)
+        except OSError:
+            continue
+        if len(hdr) < 12:
+            continue
+        n = int(np.frombuffer(hdr[:4], dtype=">i4")[0])
+        samp_size = int(np.frombuffer(hdr[8:10], dtype=">i2")[0])
+        kind = int(np.frombuffer(hdr[10:12], dtype=">i2")[0])
+        base = pk.base_kind(kind)
+        if base >= len(pk.BASE_KINDS):
+            continue  # no such kind: open_speech_file reports it
+        if base in (pk.BASE_KINDS.index("WAVEFORM"),
+                    pk.BASE_KINDS.index("IREFC"),
+                    pk.BASE_KINDS.index("DISCRETE")):
+            continue
+        if not pk.has_qual(kind, pk.HASCOMPX) or samp_size <= 0 or n <= 4:
+            continue
+        if not _header_fits(e.physical, n, samp_size, kind):
+            continue  # damaged: open_speech_file reports it
+        width = samp_size // 2
+        budget -= n * width * 4
+        groups.setdefault(width, []).append((ent, e, n))
+
+    CHUNK = 512
+    for width, items in groups.items():
+        for i0 in range(0, len(items), CHUNK):
+            chunk = items[i0 : i0 + CHUNK]
+            max_frames = max(n for _ent, _e, n in chunk)
+            arena, frames, periods, kinds = load_corpus_batch(
+                [c[1].physical for c in chunk], max_frames, width)
+            for k, (ent, e, _n) in enumerate(chunk):
+                if frames[k] < 0:
+                    continue  # damaged file: open_speech_file reports it
+                out[ent] = (
+                    np.ascontiguousarray(arena[k, : int(frames[k])]),
+                    int(periods[k]),
+                    int(kinds[k]) & ~(pk.HASCOMPX | pk.HASCRCC),
+                    e,
+                )
+    return out

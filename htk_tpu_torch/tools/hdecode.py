@@ -51,7 +51,7 @@ per-speaker `model_params` overrides of the decoder, derived once a
 speaker, and pass 1 batches utterances by (speaker, length) so each
 bucket has one speaker's parameters. Chains that would promote the
 scorer to full covariance are refused (HError 7450), as in the
-reference. The reference's `preload_corpus` hook is not taken. Under -T
+reference. `_C` feature files load through `preload_corpus`. Under -T
 the batched pass 1 prints its lattice records: in beam, kept,
 overflowing utterances (8523) and the gathers that resurrected
 beam-pruned predecessors.
@@ -85,7 +85,8 @@ from ..tools.hbuild import bigram_lattice
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
 from ..utils.metrics import maybe_profile
-from ._common import default_device, open_speech_file, outp_precision
+from ._common import (default_device, open_speech_file, outp_precision,
+                      preload_corpus)
 from ._xfcli import (chain_feature_data, chain_model_params,
                      load_input_transforms, resolve_chain)
 
@@ -280,8 +281,9 @@ def run(argv: List[str]) -> int:
     # lattices per utterance (tested). Pass 2 and the rescoring stay per
     # utterance (host DP).
     entries, featl, spks = [], [], []
+    pre = preload_corpus(files, cfg)
     for fn in files:
-        data, _p, _k, e = open_speech_file(fn, cfg)
+        data, _p, _k, e = pre.get(fn) or open_speech_file(fn, cfg)
         data, spk = adapt(e.logical, np.asarray(data))
         entries.append(e)
         featl.append(np.asarray(data))

@@ -105,7 +105,7 @@ from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
 from ..utils.metrics import emit_metric, maybe_profile
 from ._common import (channel_config, default_device, open_speech_file,
-                      outp_precision)
+                      outp_precision, preload_corpus)
 
 USAGE = ("Usage: python -m htk_tpu_torch.tools.herest [options] hmmList "
          "[accFiles...]")
@@ -289,6 +289,7 @@ def _accumulate(ta, comp, prune, files, batch_size) -> Pass:
     in_xfs = _input_transforms(ta, comp)
     spk_mask = ta.get("h")
     tagged = []  # (model-space speaker or None, utt)
+    pre = {} if retrain else preload_corpus(files, cfg)
     for fn in files:
         data2 = None
         if retrain:
@@ -301,7 +302,8 @@ def _accumulate(ta, comp, prune, files, batch_size) -> Pass:
                         data2.shape[0])
                 data, data2 = data[:n], data2[:n]
         else:
-            data, _period, _kind, e = open_speech_file(fn, cfg)
+            data, _period, _kind, e = (pre.get(fn)
+                                       or open_speech_file(fn, cfg))
         tr = find_labels(e.logical, mlfs, label_dir, label_ext)
         names = [lab.name for lab in tr.labels]
         if not names:

@@ -65,7 +65,8 @@ from ..ops.fb_scans import fb_scans
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
 from ..utils.logmath import LZERO
-from ._common import default_device, open_speech_file, outp_precision
+from ._common import (default_device, open_speech_file, outp_precision,
+                      preload_corpus)
 
 USAGE = ("Usage: python -m htk_tpu_torch.tools.hmmirest [options] hmmList "
          "trainFiles...")
@@ -495,8 +496,9 @@ def run(argv: List[str]) -> int:
                 a.add_(b)
         pend.clear()
 
+    pre = preload_corpus(files, cfg)
     for fn in files:
-        data, _p, _k, e = open_speech_file(fn, cfg)
+        data, _p, _k, e = pre.get(fn) or open_speech_file(fn, cfg)
         stem = os.path.splitext(os.path.basename(e.logical))[0]
 
         den_path = os.path.join(ta.get("r"), f"{stem}.lat")

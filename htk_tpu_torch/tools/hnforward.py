@@ -31,7 +31,7 @@ from ..io.htkfeat import write_htk_file
 from ..models.ann import ANNModule, load_ann
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError
-from ._common import default_device, open_speech_file
+from ._common import default_device, open_speech_file, preload_corpus
 
 USAGE = ("Usage: python -m htk_tpu_torch.tools.hnforward [options] hmmList "
          "testFiles...")
@@ -64,8 +64,9 @@ def run(argv: List[str]) -> int:
     ext = ta.get("y", "pos")
     prior_scale = 0.0 if ta.has("l") else 1.0
 
+    pre = preload_corpus(files, cfg)
     for fn in files:
-        data, period, _k, e = open_speech_file(fn, cfg)
+        data, period, _k, e = pre.get(fn) or open_speech_file(fn, cfg)
         scores = hybrid_outp(ann, data, prior_scale=prior_scale,
                              device=device, model=model).cpu().numpy()
         stem = os.path.splitext(os.path.basename(e.logical))[0]

@@ -43,7 +43,8 @@ from ..models.ann import init_ann, load_ann, save_ann
 from ..models.hmmset import compile_hmmset
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
-from ._common import default_device, open_speech_file, outp_precision
+from ._common import (default_device, open_speech_file, outp_precision,
+                      preload_corpus)
 
 USAGE = ("Usage: python -m htk_tpu_torch.tools.hntrainsgd [options] "
          "hmmList trainFiles...")
@@ -90,8 +91,9 @@ def run(argv: List[str]) -> int:
     mlfs = [MLF.load(p, ta.config) for p in ta.get_all("I")]
     utt_feats = []
     names_list = []
+    pre = preload_corpus(files, cfg)
     for fn in files:
-        data, _p, _k, e = open_speech_file(fn, cfg)
+        data, _p, _k, e = pre.get(fn) or open_speech_file(fn, cfg)
         tr = find_labels(e.logical, mlfs, ta.get("L"), ta.get("X", "lab"))
         names = [l.name for l in tr.labels]
         if not names:

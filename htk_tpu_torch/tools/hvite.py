@@ -98,7 +98,8 @@ from ..ops.stream import StreamingFrontend
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
 from ..utils.metrics import maybe_profile
-from ._common import default_device, open_speech_file, outp_precision
+from ._common import (default_device, open_speech_file, outp_precision,
+                      preload_corpus)
 from ._xfcli import load_input_transforms, resolve_chain
 
 USAGE = ("Usage: python -m htk_tpu_torch.tools.hvite [options] dictFile "
@@ -402,8 +403,9 @@ def run(argv: List[str]) -> int:
     want_lat = bool(lat_ext) or nbest > 1
 
     entries, featl = [], []
+    pre = preload_corpus(files, cfg)
     for fn in files:
-        data, _p, _k, e = open_speech_file(fn, cfg)
+        data, _p, _k, e = pre.get(fn) or open_speech_file(fn, cfg)
         entries.append(e)
         featl.append(np.asarray(data))
     raw = list(featl)
@@ -552,8 +554,9 @@ def _align_files(ta, cfg, comp, vocab, files, prec, device, out_mlf,
     sup_models = "M" in ofmt
     norm_scores = "N" in ofmt
     pron_map = word_internal_phone_map(comp.names)
+    pre = preload_corpus(files, cfg)
     for fn in files:
-        data, _p, _k, e = open_speech_file(fn, cfg)
+        data, _p, _k, e = pre.get(fn) or open_speech_file(fn, cfg)
         if adapt_for is not None:
             data = adapt_for(e.logical, data)
         wtr = find_labels(e.logical, mlfs, label_dir, label_ext)

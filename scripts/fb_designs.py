@@ -154,17 +154,18 @@ def phone_loop(dev, models=3444, T=504):
 
 def sweep(dev, rounds=3):
     from htk_tpu_torch.ops import fb_scans as fbs
-    from htk_tpu_torch.ops._cuda import _BUILD_DIR, CudaKernel
+    from htk_tpu_torch.ops._cuda import CudaKernel
+    from htk_tpu_torch.utils.build import BUILD_DIR
     with open(fbs.KERNEL.source) as f:
         src = f.read()
     kernels = {}
-    os.makedirs(_BUILD_DIR, exist_ok=True)
+    os.makedirs(BUILD_DIR, exist_ok=True)
     for ll, sc in SWEEP:
         v = re.sub(r"constexpr int kLongList = \d+;",
                    f"constexpr int kLongList = {ll};", src)
         v = re.sub(r"constexpr int kStateCost = \d+;",
                    f"constexpr int kStateCost = {sc};", v)
-        path = os.path.join(_BUILD_DIR, f"fb_scans_L{ll}_C{sc}.cu")
+        path = os.path.join(BUILD_DIR, f"fb_scans_L{ll}_C{sc}.cu")
         with open(path, "w") as f:
             f.write(v)
         k = CudaKernel("fb_scans", fbs._bind)
