@@ -63,6 +63,11 @@ walked on the host) and `generate_lattice_batch` (a bucket through one
 decode; on uniform-row nets the records are compacted on the device
 first, `_lv_lattice_pipeline`), the walk itself host numpy copied from
 the reference.
+
+`decode_batch` and `generate_lattice_batch` mark their stages with
+`utils.metrics` spans (`htk.decode.*`, `htk.lattice.*`, and `htk.lv.*` a
+chunk of the uniform-row frame loop), recorded only while recording is
+on: a call, a stage or an OutP chunk each, never a frame.
 """
 
 from __future__ import annotations
@@ -80,6 +85,7 @@ from ..ops.decode_scan import decode_scan
 from ..ops.outp import GaussianScorer
 from ..utils.errors import HError, HRError
 from ..utils.logmath import LZERO, LSMALL
+from ..utils.metrics import add, device_wait, span
 from .net import DecodeNetwork
 
 # word-link record packing for uniform-row nets: one int64 per state,
@@ -716,6 +722,15 @@ def _as_scores(state_scores, device) -> torch.Tensor:
     return torch.as_tensor(state_scores, dtype=torch.float32, device=device)
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """`t` as a host array; a copy off a CUDA device adds its bytes to the
+    open span's `d2h_bytes`."""
+    a = t.cpu().numpy()
+    if t.is_cuda:
+        add("d2h_bytes", a.nbytes)
+    return a
+
+
 def _outp_states(net, comp, feats, state_scores, precision, device,
                  model_params=None):
     """(1, T, Ns) network-state scores of one utterance: the hybrid
@@ -767,10 +782,13 @@ def _lv_scan_body(net, comp, d, precision, max_active, x, lm_scale,
     carry = _uniform_init(B, Ns, x.device)
     recs = []
     for c in range(T // CH):
-        outp_chunk = scorer(x[:, c * CH:(c + 1) * CH])[..., d["comp_state"]]
-        for tl in range(CH):
-            carry, r = step(carry, outp_chunk[:, tl], c * CH + tl)
-            recs.append(r)
+        with span("htk.lv.outp"):
+            outp_chunk = scorer(x[:, c * CH:(c + 1) * CH])[
+                ..., d["comp_state"]]
+        with span("htk.lv.step", frame_steps=CH):
+            for tl in range(CH):
+                carry, r = step(carry, outp_chunk[:, tl], c * CH + tl)
+                recs.append(r)
     WEs, pwns, pwts = (torch.stack(p, dim=1) for p in zip(*recs))
     return carry, WEs, pwns, pwts
 
@@ -968,6 +986,13 @@ def decode_batch(
     per utterance. On uniform-row nets, utterances longer than REC_TMASK
     frames go through `decode` (chunked) one by one, the rest batch.
     """
+    with span("htk.decode.batch"):
+        return _decode_batch(net, comp, feats_list, lm_scale, word_pen,
+                             precision, pad_to, beam, max_active, device)
+
+
+def _decode_batch(net, comp, feats_list, lm_scale, word_pen, precision,
+                  pad_to, beam, max_active, device):
     B = len(feats_list)
     lens = [int(f.shape[0]) for f in feats_list]
     if net.uniform_width and max(lens) > REC_TMASK:
@@ -985,36 +1010,40 @@ def decode_batch(
             for b, r in zip(short, rs):
                 out[b] = r
         return out
-    T = ((max(lens) + pad_to - 1) // pad_to) * pad_to
-    D = feats_list[0].shape[1]
-    fb = np.zeros((B, T, D), np.float32)
-    for b, f in enumerate(feats_list):
-        fb[b, : lens[b]] = f
+    with span("htk.decode.pad"):
+        T = ((max(lens) + pad_to - 1) // pad_to) * pad_to
+        D = feats_list[0].shape[1]
+        fb = np.zeros((B, T, D), np.float32)
+        for b, f in enumerate(feats_list):
+            fb[b, : lens[b]] = f
 
     if net.uniform_width:
         return _decode_uniform(net, comp, fb, lens, lm_scale, word_pen,
                                beam, max_active, precision, device)
-    outp = _net_outp(net, comp, fb, precision, device)
-    (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
-        outp, net, lm_scale, word_pen, beam=beam, max_active=max_active)
-    WEb = WEb.cpu().numpy()
-    pwnb = pwnb.cpu().numpy()
-    pwtb = pwtb.cpu().numpy()
-    vb, wnb, wtb = vb.cpu().numpy(), wnb.cpu().numpy(), wtb.cpu().numpy()
+    with span("htk.decode.outp"):
+        outp = _net_outp(net, comp, fb, precision, device)
+    with span("htk.decode.scan"):
+        (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
+            outp, net, lm_scale, word_pen, beam=beam, max_active=max_active)
+    device_wait("htk.decode.wait", WEb.device)
+    with span("htk.decode.to_host", d2h_bytes=0):
+        WEb, pwnb, pwtb, vb, wnb, wtb = (
+            _to_host(x) for x in (WEb, pwnb, pwtb, vb, wnb, wtb))
 
     out: List[Optional[DecodeResult]] = []
-    for b in range(B):
-        tr = lens[b]
-        if tr == T:
-            WE_fin, pwn_fin, pwt_fin = _final_records(
-                net, vb[b], wnb[b], wtb[b])
-        else:
-            # ends at time tr-1 were emitted by scan step tr
-            WE_fin = WEb[b, tr].astype(np.float64)
-            pwn_fin = pwnb[b, tr].astype(np.int64)
-            pwt_fin = pwtb[b, tr].astype(np.int64)
-        out.append(_finalize(net, WEb[b], pwnb[b], pwtb[b], WE_fin,
-                             pwn_fin, pwt_fin, tr, lm_scale))
+    with span("htk.decode.finalize"):
+        for b in range(B):
+            tr = lens[b]
+            if tr == T:
+                WE_fin, pwn_fin, pwt_fin = _final_records(
+                    net, vb[b], wnb[b], wtb[b])
+            else:
+                # ends at time tr-1 were emitted by scan step tr
+                WE_fin = WEb[b, tr].astype(np.float64)
+                pwn_fin = pwnb[b, tr].astype(np.int64)
+                pwt_fin = pwtb[b, tr].astype(np.int64)
+            out.append(_finalize(net, WEb[b], pwnb[b], pwtb[b], WE_fin,
+                                 pwn_fin, pwt_fin, tr, lm_scale))
     return out
 
 
@@ -1556,52 +1585,56 @@ def _lv_lattice_pipeline(net, comp, x, t_reals, lm_scale, word_pen, beam,
         model_params=model_params)
     B, T, C = WEs.shape
     dev = x.device
-    ev = (v + d["aE"][None]).reshape(B, C, S)
-    best_s = torch.argmax(ev, dim=2, keepdim=True)  # the first maximum
-    WEl = ev.gather(2, best_s)[..., 0]
-    okl = WEl > LSMALL
-    wn, wt = _unpack(rec)
-    pwnl = torch.where(okl, wn.reshape(B, C, S).gather(2, best_s)[..., 0],
-                       -1)
-    pwtl = torch.where(okl, wt.reshape(B, C, S).gather(2, best_s)[..., 0],
-                       -1)
-    tr = torch.as_tensor(np.asarray(t_reals, np.int64), device=dev)
-    use_last = (tr >= T)[:, None]
-    trc = tr.clamp(0, T - 1)
-    bi = torch.arange(B, device=dev)
-    WE_fin = torch.where(use_last, WEl, WEs[bi, trc])
-    pwn_fin = torch.where(use_last, pwnl, pwns[bi, trc])
-    pwt_fin = torch.where(use_last, pwtl, pwts[bi, trc])
+    with span("htk.lattice.compact"):
+        ev = (v + d["aE"][None]).reshape(B, C, S)
+        best_s = torch.argmax(ev, dim=2, keepdim=True)  # the first maximum
+        WEl = ev.gather(2, best_s)[..., 0]
+        okl = WEl > LSMALL
+        wn, wt = _unpack(rec)
+        pwnl = torch.where(
+            okl, wn.reshape(B, C, S).gather(2, best_s)[..., 0], -1)
+        pwtl = torch.where(
+            okl, wt.reshape(B, C, S).gather(2, best_s)[..., 0], -1)
+        tr = torch.as_tensor(np.asarray(t_reals, np.int64), device=dev)
+        use_last = (tr >= T)[:, None]
+        trc = tr.clamp(0, T - 1)
+        bi = torch.arange(B, device=dev)
+        WE_fin = torch.where(use_last, WEl, WEs[bi, trc])
+        pwn_fin = torch.where(use_last, pwnl, pwns[bi, trc])
+        pwt_fin = torch.where(use_last, pwtl, pwts[bi, trc])
 
-    K = min(k_lat, C)
-    sc_k, ix_k = _ranked(WEs, K)  # (B, T, K)
-    pn_k = pwns.gather(2, ix_k)
-    pt_k = pwts.gather(2, ix_k)
-    fidx = torch.arange(T, device=dev)[None]
-    valid_f = (fidx >= 1) & (fidx < tr[:, None])
-    best = sc_k[:, :, :1]
-    in_beam = (valid_f[:, :, None] & (sc_k > LSMALL) & (best > LSMALL)
-               & (sc_k >= best - lattice_beam))
-    M = min(T * K, k_rec)
-    skey = torch.where(in_beam, sc_k, LZERO).reshape(B, T * K)
-    rec_sc, rec_idx = _ranked(skey, M)
-    rec_ix = ix_k.reshape(B, T * K).gather(1, rec_idx)
-    sel_pn = pn_k.reshape(B, T * K).gather(1, rec_idx)
-    sel_pt = pt_k.reshape(B, T * K).gather(1, rec_idx)
-    counts = in_beam.reshape(B, -1).sum(dim=1)
+        K = min(k_lat, C)
+        sc_k, ix_k = _ranked(WEs, K)  # (B, T, K)
+        pn_k = pwns.gather(2, ix_k)
+        pt_k = pwts.gather(2, ix_k)
+        fidx = torch.arange(T, device=dev)[None]
+        valid_f = (fidx >= 1) & (fidx < tr[:, None])
+        best = sc_k[:, :, :1]
+        in_beam = (valid_f[:, :, None] & (sc_k > LSMALL) & (best > LSMALL)
+                   & (sc_k >= best - lattice_beam))
+        M = min(T * K, k_rec)
+        skey = torch.where(in_beam, sc_k, LZERO).reshape(B, T * K)
+        rec_sc, rec_idx = _ranked(skey, M)
+        rec_ix = ix_k.reshape(B, T * K).gather(1, rec_idx)
+        sel_pn = pn_k.reshape(B, T * K).gather(1, rec_idx)
+        sel_pt = pt_k.reshape(B, T * K).gather(1, rec_idx)
+        counts = in_beam.reshape(B, -1).sum(dim=1)
 
-    ee = d["end_exit"][None]
-    tot_fin = torch.where((WE_fin > LSMALL) & (ee > LSMALL),
-                          WE_fin + ee * lm_scale, LZERO)
-    tot_k, ixf_k = _ranked(tot_fin, K)  # (B, K)
-    scf_k = torch.where(tot_k > LSMALL, WE_fin.gather(1, ixf_k), LZERO)
-    pnf_k = pwn_fin.gather(1, ixf_k)
-    ptf_k = pwt_fin.gather(1, ixf_k)
+        ee = d["end_exit"][None]
+        tot_fin = torch.where((WE_fin > LSMALL) & (ee > LSMALL),
+                              WE_fin + ee * lm_scale, LZERO)
+        tot_k, ixf_k = _ranked(tot_fin, K)  # (B, K)
+        scf_k = torch.where(tot_k > LSMALL, WE_fin.gather(1, ixf_k), LZERO)
+        pnf_k = pwn_fin.gather(1, ixf_k)
+        ptf_k = pwt_fin.gather(1, ixf_k)
 
-    flt = torch.cat([scf_k, rec_sc], dim=1).cpu().numpy()
-    ints = torch.cat([a.to(torch.int64) for a in (
-        ixf_k, pnf_k, ptf_k, rec_ix, rec_idx, sel_pn, sel_pt,
-        counts[:, None])], dim=1).cpu().numpy()
+        flt = torch.cat([scf_k, rec_sc], dim=1)
+        ints = torch.cat([a.to(torch.int64) for a in (
+            ixf_k, pnf_k, ptf_k, rec_ix, rec_idx, sel_pn, sel_pt,
+            counts[:, None])], dim=1)
+    device_wait("htk.lattice.wait", dev)
+    with span("htk.lattice.to_host", d2h_bytes=0):
+        flt, ints = _to_host(flt), _to_host(ints)
     recs = dict(scf_k=flt[:, :K], rec_sc=flt[:, K:],
                 ixf_k=ints[:, :K], pnf_k=ints[:, K:2 * K],
                 ptf_k=ints[:, 2 * K:3 * K],
@@ -1659,178 +1692,192 @@ def generate_lattice_batch(
     batches by speaker). The reference's `state_scores_list` hook is not
     taken.
     """
-    B = len(feats_list)
-    lens = [int(f.shape[0]) for f in feats_list]
-    if net.uniform_width and max(lens) > REC_TMASK:
-        HError(8520, "generate_lattice_batch: %d frames exceed the packed "
-                     "record's 15-bit frame field (max %d) — chunk the "
-                     "utterance", max(lens), REC_TMASK)
-    T = ((max(lens) + pad_to - 1) // pad_to) * pad_to
-    D = feats_list[0].shape[1]
-    fb = np.zeros((B, T, D), np.float32)
-    for b, f in enumerate(feats_list):
-        fb[b, : lens[b]] = f
-    if not net.uniform_width:
-        outp = _net_outp(net, comp, fb, precision, device, model_params)
-        (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
-            outp, net, lm_scale, word_pen, beam=beam, max_active=max_active)
-        return lattices_from_planes(
-            net, (vb, wnb, wtb), (WEb, pwnb, pwtb), lens, lattice_beam,
-            frame_period_s, lm_scale, word_pen, want_results, max_preds)
+    with span("htk.lattice.batch"):
+        B = len(feats_list)
+        lens = [int(f.shape[0]) for f in feats_list]
+        if net.uniform_width and max(lens) > REC_TMASK:
+            HError(8520, "generate_lattice_batch: %d frames exceed the "
+                         "packed record's 15-bit frame field (max %d) — "
+                         "chunk the utterance", max(lens), REC_TMASK)
+        with span("htk.lattice.pad"):
+            T = ((max(lens) + pad_to - 1) // pad_to) * pad_to
+            D = feats_list[0].shape[1]
+            fb = np.zeros((B, T, D), np.float32)
+            for b, f in enumerate(feats_list):
+                fb[b, : lens[b]] = f
+        if not net.uniform_width:
+            outp = _net_outp(net, comp, fb, precision, device,
+                             model_params)
+            (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
+                outp, net, lm_scale, word_pen, beam=beam,
+                max_active=max_active)
+            return lattices_from_planes(
+                net, (vb, wnb, wtb), (WEb, pwnb, pwtb), lens, lattice_beam,
+                frame_period_s, lm_scale, word_pen, want_results, max_preds)
 
-    x = torch.as_tensor(fb, device=device)
-    r, (WEs_d, pwns_d, pwts_d) = _lv_lattice_pipeline(
-        net, comp, x, lens, float(lm_scale), float(word_pen),
-        _BEAM_OFF if beam is None else float(beam), float(lattice_beam),
-        max_active, precision,
-        LAT_TOPK if k_lat is None else int(k_lat), int(k_rec), model_params)
-    K, M = r["K"], r["M"]
-    st = {"in_beam": 0, "kept": 0, "overflow": 0, "gathers": 0,
-          "resurrected": 0}
+        x = torch.as_tensor(fb, device=device)
+        r, (WEs_d, pwns_d, pwts_d) = _lv_lattice_pipeline(
+            net, comp, x, lens, float(lm_scale), float(word_pen),
+            _BEAM_OFF if beam is None else float(beam), float(lattice_beam),
+            max_active, precision,
+            LAT_TOPK if k_lat is None else int(k_lat), int(k_rec),
+            model_params)
+        K, M = r["K"], r["M"]
+        st = {"in_beam": 0, "kept": 0, "overflow": 0, "gathers": 0,
+              "resurrected": 0}
 
-    # pass 1: the compacted records into per-utterance rec dicts (plane
-    # t+1 holds ends at time t; the final frame tr-1 comes from the
-    # ranked finals), inserted in (t asc, row asc, slot asc) order
-    recs: List[dict] = []
-    for b in range(B):
-        tr = lens[b]
-        rec: dict = {}
-        n_in = int(r["counts"][b])
-        st["in_beam"] += n_in
-        if n_in > M:
-            st["overflow"] += 1
-            HRError(8523, "generate_lattice_batch: %d in-beam records "
-                          "exceed the device budget %d — weakest "
-                          "dropped (raise k_rec or tighten "
-                          "lattice_beam)", n_in, M)
-        keep = r["rec_sc"][b] > LSMALL
-        if keep.any():
-            idxs = r["rec_idx"][b][keep]
-            tt = idxs // K - 1  # plane index - 1 = end time
-            kk = idxs % K
-            ixs = r["rec_ix"][b][keep]
-            scs = r["rec_sc"][b][keep].astype(np.float64)
-            pns = r["sel_pn"][b][keep]
-            pts = r["sel_pt"][b][keep]
-            order = np.lexsort((kk, ixs, tt))
-            rec.update(zip(
-                zip(ixs[order].tolist(), tt[order].tolist()),
-                zip(scs[order].tolist(), pns[order].tolist(),
-                    pts[order].tolist())))
-        row_sc = r["scf_k"][b]
-        # the finals are ranked by word end + exit LM, so the raw max
-        # may sit anywhere among the kept K
-        bestf = row_sc.max()
-        if bestf > LSMALL:
-            keepf = np.nonzero((row_sc > LSMALL)
-                               & (row_sc >= bestf - lattice_beam))[0]
-            keepf = keepf[np.argsort(r["ixf_k"][b, keepf], kind="stable")]
-            for k in keepf:
-                rec[(int(r["ixf_k"][b, k]), tr - 1)] = (
-                    float(row_sc[k]), int(r["pnf_k"][b, k]),
-                    int(r["ptf_k"][b, k]))
-        st["kept"] += len(rec)
-        recs.append(rec)
+        # pass 1: the compacted records into per-utterance rec dicts (plane
+        # t+1 holds ends at time t; the final frame tr-1 comes from the
+        # ranked finals), inserted in (t asc, row asc, slot asc) order
+        with span("htk.lattice.records"):
+            recs: List[dict] = []
+            for b in range(B):
+                tr = lens[b]
+                rec: dict = {}
+                n_in = int(r["counts"][b])
+                st["in_beam"] += n_in
+                if n_in > M:
+                    st["overflow"] += 1
+                    HRError(8523, "generate_lattice_batch: %d in-beam "
+                                  "records exceed the device budget %d — "
+                                  "weakest dropped (raise k_rec or tighten "
+                                  "lattice_beam)", n_in, M)
+                keep = r["rec_sc"][b] > LSMALL
+                if keep.any():
+                    idxs = r["rec_idx"][b][keep]
+                    tt = idxs // K - 1  # plane index - 1 = end time
+                    kk = idxs % K
+                    ixs = r["rec_ix"][b][keep]
+                    scs = r["rec_sc"][b][keep].astype(np.float64)
+                    pns = r["sel_pn"][b][keep]
+                    pts = r["sel_pt"][b][keep]
+                    order = np.lexsort((kk, ixs, tt))
+                    rec.update(zip(
+                        zip(ixs[order].tolist(), tt[order].tolist()),
+                        zip(scs[order].tolist(), pns[order].tolist(),
+                            pts[order].tolist())))
+                row_sc = r["scf_k"][b]
+                # the finals are ranked by word end + exit LM, so the raw
+                # max may sit anywhere among the kept K
+                bestf = row_sc.max()
+                if bestf > LSMALL:
+                    keepf = np.nonzero((row_sc > LSMALL)
+                                       & (row_sc >= bestf - lattice_beam))[0]
+                    keepf = keepf[np.argsort(r["ixf_k"][b, keepf],
+                                             kind="stable")]
+                    for k in keepf:
+                        rec[(int(r["ixf_k"][b, k]), tr - 1)] = (
+                            float(row_sc[k]), int(r["pnf_k"][b, k]),
+                            int(r["ptf_k"][b, k]))
+                st["kept"] += len(rec)
+                recs.append(rec)
 
-    # pass 2: transitively resurrect beam-dropped predecessors for the
-    # whole batch, one stacked gather from the device planes per wave.
-    # The seed wave (records pointing at a pruned predecessor) is found
-    # with one packed-key membership test per utterance.
-    frontier = []
-    for b, rec in enumerate(recs):
-        if not rec:
-            continue
-        ka = np.asarray(list(rec), np.int64).reshape(len(rec), 2)
-        va = np.asarray(list(rec.values()), np.float64).reshape(
-            len(rec), 3)
-        pn_b = va[:, 1].astype(np.int64)
-        pt_b = va[:, 2].astype(np.int64)
-        pks = np.sort(ka[:, 0] * _REC_PK + (ka[:, 1] + 2))
-        m = pn_b >= 0
-        pp = pn_b[m] * _REC_PK + (pt_b[m] + 2)
-        pos = np.searchsorted(pks, pp)
-        nb = pks.size
-        ok = (pos < nb) & (pks[np.minimum(pos, nb - 1)] == pp)
-        for j in np.nonzero(m)[0][~ok].tolist():
-            frontier.append((b, (int(ka[j, 0]), int(ka[j, 1]))))
-    while frontier:
-        need = []
-        referrers: dict = {}
-        for b, key in frontier:
-            _s, pn, pt = recs[b][key]
-            if pn < 0 or (pn, pt) in recs[b]:
-                continue
-            k2 = (b, pn, pt)
-            if k2 not in referrers:
-                referrers[k2] = []
-                need.append(k2)
-            referrers[k2].append(key)
-        if not need:
-            break
-        idx = torch.as_tensor(np.asarray(need, np.int64), device=WEs_d.device)
-        bs, pns, pts = idx[:, 0], idx[:, 1], idx[:, 2] + 1
-        trip = torch.stack([WEs_d[bs, pts, pns].double(),
-                            pwns_d[bs, pts, pns].double(),
-                            pwts_d[bs, pts, pns].double()]).cpu().numpy()
-        st["gathers"] += 1
-        frontier = []
-        for (b, pn, pt), s_, a_, c_ in zip(need, *trip):
-            if s_ <= LSMALL:
-                # genuinely unavailable: sever so the arc is dropped,
-                # not misattached to the utterance start
-                for key in referrers[(b, pn, pt)]:
-                    recs[b][key] = (recs[b][key][0], -1, -2)
-                continue
-            recs[b][(pn, pt)] = (float(s_), int(a_), int(c_))
-            st["resurrected"] += 1
-            frontier.append((b, (pn, pt)))
-    if stats is not None:
-        for k, v in st.items():
-            stats[k] = stats.get(k, 0) + v
+        # pass 2: transitively resurrect beam-dropped predecessors for the
+        # whole batch, one stacked gather from the device planes per wave.
+        # The seed wave (records pointing at a pruned predecessor) is found
+        # with one packed-key membership test per utterance.
+        with span("htk.lattice.resurrect"):
+            frontier = []
+            for b, rec in enumerate(recs):
+                if not rec:
+                    continue
+                ka = np.asarray(list(rec), np.int64).reshape(len(rec), 2)
+                va = np.asarray(list(rec.values()), np.float64).reshape(
+                    len(rec), 3)
+                pn_b = va[:, 1].astype(np.int64)
+                pt_b = va[:, 2].astype(np.int64)
+                pks = np.sort(ka[:, 0] * _REC_PK + (ka[:, 1] + 2))
+                m = pn_b >= 0
+                pp = pn_b[m] * _REC_PK + (pt_b[m] + 2)
+                pos = np.searchsorted(pks, pp)
+                nb = pks.size
+                ok = (pos < nb) & (pks[np.minimum(pos, nb - 1)] == pp)
+                for j in np.nonzero(m)[0][~ok].tolist():
+                    frontier.append((b, (int(ka[j, 0]), int(ka[j, 1]))))
+            while frontier:
+                need = []
+                referrers: dict = {}
+                for b, key in frontier:
+                    _s, pn, pt = recs[b][key]
+                    if pn < 0 or (pn, pt) in recs[b]:
+                        continue
+                    k2 = (b, pn, pt)
+                    if k2 not in referrers:
+                        referrers[k2] = []
+                        need.append(k2)
+                    referrers[k2].append(key)
+                if not need:
+                    break
+                with span("htk.lattice.gather", d2h_bytes=0):
+                    idx = torch.as_tensor(np.asarray(need, np.int64),
+                                          device=WEs_d.device)
+                    bs, pns, pts = idx[:, 0], idx[:, 1], idx[:, 2] + 1
+                    trip = _to_host(torch.stack([
+                        WEs_d[bs, pts, pns].double(),
+                        pwns_d[bs, pts, pns].double(),
+                        pwts_d[bs, pts, pns].double()]))
+                st["gathers"] += 1
+                frontier = []
+                for (b, pn, pt), s_, a_, c_ in zip(need, *trip):
+                    if s_ <= LSMALL:
+                        # genuinely unavailable: sever so the arc is
+                        # dropped, not misattached to the utterance start
+                        for key in referrers[(b, pn, pt)]:
+                            recs[b][key] = (recs[b][key][0], -1, -2)
+                        continue
+                    recs[b][(pn, pt)] = (float(s_), int(a_), int(c_))
+                    st["resurrected"] += 1
+                    frontier.append((b, (pn, pt)))
+            if stats is not None:
+                for k, v in st.items():
+                    stats[k] = stats.get(k, 0) + v
 
-    def _severed(pairs):
-        # every resolvable record is already in rec (pass 2)
-        return [None] * len(pairs)
+        def _severed(pairs):
+            # every resolvable record is already in rec (pass 2)
+            return [None] * len(pairs)
 
-    # pass 3: lattices (+ 1-bests) from the completed record sets
-    end_exit = np.asarray(net.end_exit, np.float64)
-    out = []
-    for b in range(B):
-        tr = lens[b]
-        rec = recs[b]
-        if not rec:
-            out.append((None, None) if want_results else None)
-            continue
-        res = None
-        if want_results:
-            # the best complete path: the finals are ranked by word end +
-            # exit LM, so the true 1-best is inside the kept K and this
-            # argmax matches the sequential _finalize
-            scf = r["scf_k"][b]
-            fsc = (scf.astype(np.float64)
-                   + end_exit[r["ixf_k"][b]] * float(lm_scale))
-            j = int(np.argmax(np.where(scf > LSMALL, fsc, LZERO)))
-            if scf[j] > LSMALL and fsc[j] > LSMALL:
-                node, t = int(r["ixf_k"][b, j]), tr - 1
-                pn, pt = int(r["pnf_k"][b, j]), int(r["ptf_k"][b, j])
-                chain = []
-                while True:
-                    chain.append((node, pt + 1, t))
-                    if pn < 0 or pt < 0:
-                        break
-                    node, t = pn, pt
-                    got = rec.get((node, t))
-                    if got is None:  # severed: resolved above
-                        break
-                    _s, pn, pt = got
-                    pn, pt = int(pn), int(pt)
-                chain.reverse()
-                res = _result_from_chain(net, chain, float(fsc[j]))
-        lat = _lattice_from_rec(net, rec, None, tr, frame_period_s,
-                                lm_scale, word_pen, resolve_many=_severed,
-                                max_preds=max_preds, arc_beam=lattice_beam)
-        out.append((lat, res) if want_results else lat)
-    return out
+        # pass 3: lattices (+ 1-bests) from the completed record sets
+        with span("htk.lattice.walk"):
+            end_exit = np.asarray(net.end_exit, np.float64)
+            out = []
+            for b in range(B):
+                tr = lens[b]
+                rec = recs[b]
+                if not rec:
+                    out.append((None, None) if want_results else None)
+                    continue
+                res = None
+                if want_results:
+                    # the best complete path: the finals are ranked by word
+                    # end + exit LM, so the true 1-best is inside the kept K
+                    # and this argmax matches the sequential _finalize
+                    scf = r["scf_k"][b]
+                    fsc = (scf.astype(np.float64)
+                           + end_exit[r["ixf_k"][b]] * float(lm_scale))
+                    j = int(np.argmax(np.where(scf > LSMALL, fsc, LZERO)))
+                    if scf[j] > LSMALL and fsc[j] > LSMALL:
+                        node, t = int(r["ixf_k"][b, j]), tr - 1
+                        pn = int(r["pnf_k"][b, j])
+                        pt = int(r["ptf_k"][b, j])
+                        chain = []
+                        while True:
+                            chain.append((node, pt + 1, t))
+                            if pn < 0 or pt < 0:
+                                break
+                            node, t = pn, pt
+                            got = rec.get((node, t))
+                            if got is None:  # severed: resolved above
+                                break
+                            _s, pn, pt = got
+                            pn, pt = int(pn), int(pt)
+                        chain.reverse()
+                        res = _result_from_chain(net, chain, float(fsc[j]))
+                lat = _lattice_from_rec(
+                    net, rec, None, tr, frame_period_s, lm_scale, word_pen,
+                    resolve_many=_severed, max_preds=max_preds,
+                    arc_beam=lattice_beam)
+                out.append((lat, res) if want_results else lat)
+        return out
 
 
 def lattices_from_planes(net, carry, planes, lens, lattice_beam,
