@@ -61,8 +61,8 @@ Word lattices (HVite -z, HDecode, and -n's N-best source) come from the
 same word-end planes: `generate_lattice` (one utterance, the whole planes
 walked on the host) and `generate_lattice_batch` (a bucket through one
 decode; on uniform-row nets the records are compacted on the device
-first, `_lv_lattice_pipeline`), the walk itself host numpy copied from
-the reference.
+first, `_lv_lattice_pipeline`), the walk itself the reference's on
+record columns (host numpy).
 
 `decode_batch` and `generate_lattice_batch` mark their stages with
 `utils.metrics` spans (`htk.decode.*`, `htk.lattice.*`, and `htk.lv.*` a
@@ -72,7 +72,10 @@ on: a call, a stage or an OutP chunk each, never a frame.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from dataclasses import dataclass
+from itertools import repeat
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -1058,17 +1061,27 @@ def _decode_batch(net, comp, feats_list, lm_scale, word_pen, precision,
 # nets the batch generator compacts them on the device first
 # (`_lv_lattice_pipeline`: the per-frame top-K, the in-beam records,
 # the ranked finals) and brings only those records to the host. The host
-# walk is numpy copied out of htk_tpu/algo/decode.py (`_lattice_from_rec`,
-# `_host_lm_lookup`, `_host_lm3_lookup`), so the same records give
-# byte-identical SLF.
+# walk is htk_tpu/algo/decode.py's (`_lattice_from_rec`, `_host_lm_lookup`,
+# `_host_lm3_lookup`) with the records held as columns from the compacted
+# copy to the Lattice, in place of a dict of records an utterance and
+# loops over records and entry frames: the same records give
+# byte-identical SLF (tests/test_torch_latwalk.py).
 
 
-# (node, t) record keys pack into one int64 so record lookups become
+# Pairs of node ids and record keys pack into one int64 so lookups become
 # sorted-array searches instead of dict walks: t is bounded by the
 # 15-bit traceback field (auto-chunked above 32767 frames) and node ids
-# by the 17+4-bit word-link row space, so node * 2^22 + (t + 2) cannot
-# collide or overflow
+# by the 17+4-bit word-link row space, so a (pred, row) pair packs as
+# pred * 2^22 + row and a record (b, node, t) of utterance b in a batch
+# as b * 2^43 + (t + 2) * 2^22 + node (`_rec_key`), unique and below
+# 2^63 for b < 2^20. Record keys sort as (b, t, node): the order in
+# which the walk numbers a lattice's nodes.
 _REC_PK = np.int64(1) << 22
+_UTT_PK = np.int64(1) << 43
+
+
+def _rec_key(node, t, b=0):
+    return b * _UTT_PK + (t + 2) * _REC_PK + node
 
 
 def _host_lm_lookup(net):
@@ -1272,53 +1285,160 @@ def _lattice_from_host_planes(net, WEs, pwns, pwts, carry, fin, T,
         pwn_fin[i_ord[first][win]] = np.asarray(wn, np.int64)[sel][win]
         pwt_fin[i_ord[first][win]] = np.asarray(wt, np.int64)[sel][win]
 
-    # records table: rec[(node, t)] = (score, pred_node, pred_t) — one
-    # vectorised pass over the (T-1, Nn) plane (the per-frame per-node
-    # Python loop dominated sequential lattice generation); np.nonzero's
-    # row-major order IS the former (t asc, node asc) insertion order
-    rec = {}
+    # the records, columnar (see _lattice_from_rec): the in-beam ends of
+    # the (T-1, Nn) plane in np.nonzero's row-major (t asc, node asc)
+    # order, then the finals at T-1 by node (no key repeats: the plane's
+    # ends lie before T-1)
+    pwns = np.asarray(pwns)
+    pwts = np.asarray(pwts)
     rows = np.asarray(WEs[1:T])  # native plane dtype: beam comparisons
     # round exactly like the former per-element loop (and the batch path)
     best = rows.max(axis=1, keepdims=True) if T > 1 else rows
     mask = (best > LSMALL) & (rows > LSMALL) & (rows >= best - lattice_beam)
     tt, ii = np.nonzero(mask)
-    rec.update(zip(
-        zip(ii.tolist(), tt.tolist()),
-        zip(rows[tt, ii].tolist(),
-            np.asarray(pwns)[tt + 1, ii].tolist(),
-            np.asarray(pwts)[tt + 1, ii].tolist())))
     bestf = WE_fin.max()
     fkeep = np.nonzero((WE_fin > LSMALL)
                        & (WE_fin >= bestf - lattice_beam))[0]
-    for i_ in fkeep.tolist():
-        rec[(i_, T - 1)] = (float(WE_fin[i_]), int(pwn_fin[i_]),
-                            int(pwt_fin[i_]))
+    recs = (np.concatenate([ii, fkeep]).astype(np.int64),
+            np.concatenate([tt, np.full(fkeep.size, T - 1)]).astype(
+                np.int64),
+            np.concatenate([rows[tt, ii].astype(np.float64),
+                            WE_fin[fkeep]]),
+            np.concatenate([pwns[tt + 1, ii], pwn_fin[fkeep]]).astype(
+                np.int64),
+            np.concatenate([pwts[tt + 1, ii], pwt_fin[fkeep]]).astype(
+                np.int64))
     res = None
     if want_result:
         res = _finalize(net, WEs, pwns, pwts, WE_fin.astype(np.float64),
                         pwn_fin.astype(np.int64), pwt_fin.astype(np.int64),
                         T, lm_scale)
-    if not rec:
+    if not recs[0].size:
         return (None, res) if want_result else None
 
     def resolve(pn, pt):
-        score = float(WEs[pt + 1, pn]) if pt < T - 1 else float(WE_fin[pn])
-        if score <= LSMALL:
-            return None
-        ppn = int(pwns[pt + 1, pn]) if pt < T - 1 else int(pwn_fin[pn])
-        ppt = int(pwts[pt + 1, pn]) if pt < T - 1 else int(pwt_fin[pn])
-        return score, ppn, ppt
+        last = pt >= T - 1
+        r = np.where(last, 0, pt + 1)
+        return (np.where(last, WE_fin[pn], WEs[r, pn]).astype(np.float64),
+                np.where(last, pwn_fin[pn], pwns[r, pn]).astype(np.int64),
+                np.where(last, pwt_fin[pn], pwts[r, pn]).astype(np.int64))
 
-    lat = _lattice_from_rec(net, rec, resolve, T, frame_period_s,
-                            lm_scale, word_pen, max_preds=max_preds,
+    lat = _lattice_from_rec(net, recs, T, frame_period_s, lm_scale,
+                            word_pen, resolve=resolve, max_preds=max_preds,
                             arc_beam=lattice_beam)
     return (lat, res) if want_result else lat
 
 
-def _lattice_from_rec(net, rec, resolve, T_real, frame_period_s,
-                      lm_scale, word_pen, resolve_many=None,
-                      max_preds=1, arc_beam=None):
+def _isin_sorted(keys, q):
+    """Whether each of `q` is in the sorted array `keys`."""
+    if not keys.size:
+        return np.zeros(q.shape, bool)
+    pos = np.searchsorted(keys, q)
+    return (pos < keys.size) & (keys[np.minimum(pos, keys.size - 1)] == q)
+
+
+def _dict_order(key):
+    """The rows a dict filled row by row under `key` ends with, in its
+    order: each key at its first row's place with its last row's values
+    (an index into the rows)."""
+    ks = np.sort(key)
+    if not (ks[1:] == ks[:-1]).any():
+        return np.arange(key.size)
+    srt = np.argsort(key, kind="stable")
+    ks = key[srt]
+    head = np.ones(ks.size, bool)
+    head[1:] = ks[1:] != ks[:-1]
+    starts = np.nonzero(head)[0]
+    last = srt[np.append(starts[1:], ks.size) - 1]
+    return last[np.argsort(srt[starts])]
+
+
+def _resurrect(b, recs, fetch):
+    """Transitively retain the predecessor records that kept records
+    reference. A beam keeps the best ends per frame, but a kept record's
+    traceback may point at a pruned (pn, pt); HTK's LatFromPaths never
+    emits arcs to pruned predecessors, so they come back from the
+    word-end planes (their scores are still there) rather than being
+    rerouted to the start.
+
+    `recs` = (node, t, score, pn, pt) are columnar records in insertion
+    order and `b` the utterance of each (a batch's records in one set).
+    Breadth-first waves: each wave's missing (b, pn, pt), in the order of
+    their first referrer, go to one `fetch(b, pn, pt)` call, which returns
+    their (score, pn, pt) columns, a score <= LSMALL where one is
+    unavailable (`fetch` None: every one is). Those found are appended in
+    that order and form the next wave; an unavailable one severs its
+    referrers to (pn, pt) = (-1, -2) in place, so their arcs are dropped,
+    not misattached to the utterance start. Returns (b, recs), the fetch
+    calls and the records appended."""
+    node, t, sc, pn, pt = recs
+    have = np.sort(_rec_key(node, t, b))
+    added = np.empty(0, np.int64)
+    # severing writes into copies: the caller's columns stay as they were
+    chunks = [[b, node, t, sc, pn.copy(), pt.copy()]]
+    fr = np.nonzero(pn >= 0)[0]
+    fetches = appended = 0
+    while fr.size:
+        cb, _n, _t, _s, cpn, cpt = chunks[-1]
+        q = _rec_key(cpn[fr], cpt[fr], cb[fr])
+        miss = (cpn[fr] >= 0) & ~_isin_sorted(have, q) & ~_isin_sorted(
+            added, q)
+        fr, q = fr[miss], q[miss]
+        if not fr.size:
+            break
+        uq, first, inv = np.unique(q, return_index=True, return_inverse=True)
+        order = np.argsort(first)
+        rank = np.empty_like(order)
+        rank[order] = np.arange(order.size)
+        src = fr[first[order]]  # each missing record's first referrer
+        nb, npn, npt = cb[src], cpn[src], cpt[src]
+        if fetch is None:
+            ok = np.zeros(src.size, bool)
+        else:
+            s_, a_, c_ = fetch(nb, npn, npt)
+            fetches += 1
+            ok = s_ > LSMALL
+        cut = fr[~ok[rank[inv]]]
+        cpn[cut] = -1
+        cpt[cut] = -2
+        if not ok.any():
+            break
+        chunks.append([nb[ok], npn[ok], npt[ok], s_[ok], a_[ok], c_[ok]])
+        added = np.sort(np.concatenate([added, uq[order][ok]]))
+        appended += int(ok.sum())
+        fr = np.arange(int(ok.sum()))
+    cols = [np.concatenate(c) for c in zip(*chunks)]
+    return (cols[0], tuple(cols[1:])), fetches, appended
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """The cyclic garbage collector paused inside, as it was after. The
+    walk builds a lattice's nodes and arcs under it: tens of thousands of
+    objects that form no reference cycle, whose allocations would
+    otherwise trigger collections that pass over the objects alive
+    (about half the walk's time on 16,000-record lattices)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
+def _lattice_from_rec(net, recs, T_real, frame_period_s, lm_scale,
+                      word_pen, resolve=None, max_preds=1, arc_beam=None):
     """Build a Lattice from beam-kept word-end records.
+
+    `recs` = (node, t, score, pn, pt): one record a row, in a
+    deterministic insertion order that sets the arc order, each (node, t)
+    once; int64 but score (float64). A record with pn < 0 starts at the
+    utterance's start, (pn, pt) = (-1, -2) marks one severed from its
+    predecessor. `resolve(pn, pt)` recovers records that the beam dropped
+    ((score, ppn, ppt) columns, see `_resurrect`; None: none can be).
+    Shared by the sequential and batched lattice generators so both emit
+    byte-identical SLF for identical record sets.
 
     `max_preds` > 1 (HDECODE: LATPREDS, the HLVRec lattice semantics):
     each record additionally links to up to max_preds-1 ALTERNATIVE
@@ -1330,112 +1450,43 @@ def _lattice_from_rec(net, rec, resolve, T_real, frame_period_s,
     `arc_beam` prunes alternatives scoring worse than the record's own
     path by more than the beam (default: keep all that max_preds allows).
 
-    `rec`: {(node, t): (score, pred_node, pred_t)} in deterministic
-    insertion order; `resolve(pn, pt)` recovers a record that the beam
-    dropped (returns (score, ppn, ppt) or None when unavailable);
-    `resolve_many(pairs)` is the batch form, one call per resurrection
-    wave. Shared by the sequential and batched lattice generators so
-    both emit byte-identical SLF for identical record sets.
+    The open span's counts get `records` (the records walked), `arcs`
+    (every arc) and `alt_arcs` (the alternatives among them).
     """
     from ..io.slf import Lattice, LArc, LNode, NULL_WORD
 
-    _PK = _REC_PK
+    def _keys(recs):
+        pk = _rec_key(recs[0], recs[1])
+        srt = np.argsort(pk)
+        return srt, pk[srt]
 
-    def _rec_arrays():
-        # rec INSERTION order — it defines arc emission order
-        ka = np.asarray(list(rec), np.int64).reshape(len(rec), 2)
-        va = np.asarray(list(rec.values()), np.float64).reshape(
-            len(rec), 3)
-        return (ka[:, 0], ka[:, 1], va[:, 0],
-                va[:, 1].astype(np.int64), va[:, 2].astype(np.int64))
-
-    ii, tt_, sc, pn_a, pt_a = _rec_arrays()
+    ii, tt_, sc, pn_a, pt_a = recs
+    srt, pks = _keys(recs)
+    m_int = pn_a >= 0
+    if not _isin_sorted(pks, _rec_key(pn_a[m_int], pt_a[m_int])).all():
+        (_b, recs), _f, _a = _resurrect(
+            np.zeros(ii.size, np.int64), recs,
+            None if resolve is None else lambda _b, pn, pt: resolve(pn, pt))
+        ii, tt_, sc, pn_a, pt_a = recs
+        srt, pks = _keys(recs)
+        m_int = pn_a >= 0
+    pq = _rec_key(pn_a[m_int], pt_a[m_int])
     n = ii.size
-    pk = ii * _PK + (tt_ + 2)
-    srt = np.argsort(pk, kind="stable")
-    pks = pk[srt]
-
-    def _pred_rows(m):
-        # rows (in rec insertion order) holding each m-row's (pn, pt)
-        pos = np.searchsorted(pks, pn_a[m] * _PK + (pt_a[m] + 2))
-        return pos, srt
-
-    # Transitively retain predecessor records referenced by survivors:
-    # a beam keeps the best ends per frame, but a kept record's traceback
-    # may point at a pruned (pn, pt) — HTK's LatFromPaths never emits arcs
-    # to pruned predecessors, so resurrect them from the word-end planes
-    # (their scores are still there) rather than rerouting to the start.
-    # Breadth-first waves: each wave's missing predecessors resolve in
-    # one call, then their own predecessors form the next wave. The seed
-    # wave is found vectorised (callers that pre-resolve, as the batched
-    # pipeline's pass 2 does, make this whole block a no-op).
-    m_ref = pn_a >= 0
-    if m_ref.any():
-        pos, _ = _pred_rows(m_ref)
-        ok = (pos < n) & (pks[np.minimum(pos, n - 1)]
-                          == pn_a[m_ref] * _PK + (pt_a[m_ref] + 2))
-        miss = np.nonzero(m_ref)[0][~ok]
-    else:
-        miss = np.empty(0, np.int64)
-    if miss.size:
-        keys0 = list(rec)
-        frontier = [keys0[j] for j in miss.tolist()]
-        while frontier:
-            need = []
-            referrers: dict = {}
-            for key in frontier:
-                _, pn, pt = rec[key]
-                if pn < 0 or (pn, pt) in rec:
-                    continue
-                if (pn, pt) not in referrers:
-                    referrers[(pn, pt)] = []
-                    need.append((pn, pt))
-                referrers[(pn, pt)].append(key)
-            if not need:
-                break
-            got_all = (resolve_many(need) if resolve_many is not None
-                       else [resolve(pn, pt) for pn, pt in need])
-            frontier = []
-            for (pn, pt), got in zip(need, got_all):
-                if got is None:
-                    # genuinely unavailable: sever so the arc is dropped,
-                    # not misattached to the utterance start
-                    for key in referrers[(pn, pt)]:
-                        rec[key] = (rec[key][0], -1, -2)
-                    continue
-                rec[(pn, pt)] = got
-                frontier.append((pn, pt))
-        # resurrection extended/rewrote rec — rebuild the arrays
-        ii, tt_, sc, pn_a, pt_a = _rec_arrays()
-        n = ii.size
-        pk = ii * _PK + (tt_ + 2)
-        srt = np.argsort(pk, kind="stable")
-        pks = pk[srt]
 
     lat = Lattice(lmscale=lm_scale, wdpenalty=word_pen)
     start_id = 0
-    lat.nodes.append(LNode(id=0, time=0.0, word=NULL_WORD))
     end_id = 1
-    lat.nodes.append(
-        LNode(id=1, time=T_real * frame_period_s, word=NULL_WORD))
-    # nodes in (t, i) order, ids assigned by rank; node_id lookups become
-    # array indexing
-    nsort = np.lexsort((ii, tt_))
+    # nodes in (t, i) order, the keys' order, ids assigned by rank;
+    # node_id lookups become array indexing
     nid_a = np.empty(n, np.int64)
-    nid_a[nsort] = 2 + np.arange(n, dtype=np.int64)
-    node_words = net.node_words
-    nodes = lat.nodes
-    for nid0, (i_, t_) in enumerate(zip(ii[nsort].tolist(),
-                                        tt_[nsort].tolist())):
-        nodes.append(LNode(id=nid0 + 2, time=(t_ + 1) * frame_period_s,
-                           word=node_words[i_]))
-    # arcs: all score/LM arithmetic vectorised over the record arrays,
-    # one lean loop only for LArc construction
-    end_exit = np.asarray(net.end_exit, np.float64)
-    m_start = pn_a < 0
-    m_sever = m_start & (pt_a == -2)
-    m_int = ~m_start
+    nid_a[srt] = 2 + np.arange(n, dtype=np.int64)
+    times = ((tt_[srt] + 1) * frame_period_s).tolist()
+    words = list(map(net.node_words.__getitem__, ii[srt].tolist()))
 
+    # each record's primary arc (from its best predecessor) and final arc
+    end_exit = np.asarray(net.end_exit, np.float64)
+    m_start = ~m_int
+    m_sever = m_start & (pt_a == -2)
     lm_a = np.zeros(n, np.float64)
     ac_a = np.zeros(n, np.float64)
     src_a = np.full(n, start_id, np.int64)
@@ -1443,98 +1494,100 @@ def _lattice_from_rec(net, rec, resolve, T_real, frame_period_s,
         start_entry = np.asarray(net.start_entry, np.float64)
         lm_a[m_start] = start_entry[ii[m_start]]
         ac_a[m_start] = sc[m_start] - lm_a[m_start] * lm_scale
+    tri = getattr(net, "xw_trigram", None) is not None
     if m_int.any():
-        pos, _ = _pred_rows(m_int)
-        prow = srt[pos]  # every m_int predecessor is present by now
-        if getattr(net, "xw_trigram", None) is not None:
+        lmf = _host_lm3_lookup(net) if tri else _host_lm_lookup(net)
+        prow = srt[np.searchsorted(pks, pq)]  # every predecessor is here
+        if tri:
             # pass 1 scored pn -> i under pn's token's own trigram
             # context — its record's predecessor names that context
-            lm_a[m_int] = _host_lm3_lookup(net)(
-                pn_a[prow], pn_a[m_int], ii[m_int])
+            lm_a[m_int] = lmf(pn_a[prow], pn_a[m_int], ii[m_int])
         else:
-            lm_a[m_int] = _host_lm_lookup(net)(pn_a[m_int], ii[m_int])
+            lm_a[m_int] = lmf(pn_a[m_int], ii[m_int])
         ac_a[m_int] = (sc[m_int] - sc[prow] - lm_a[m_int] * lm_scale
                        - word_pen)
         src_a[m_int] = nid_a[prow]
     m_fin = (tt_ == T_real - 1) & (end_exit[ii] > LSMALL)
-    fin_lm = end_exit[ii]
+    # record by record: its primary arc unless severed, then its final arc
+    emit = np.stack([~m_sever, m_fin], 1).ravel()
+    a_src = [np.stack([src_a, nid_a], 1).ravel()[emit]]
+    a_dst = [np.stack([nid_a, np.full(n, end_id)], 1).ravel()[emit]]
+    a_ac = [np.stack([ac_a, np.zeros(n)], 1).ravel()[emit]]
+    a_lm = [np.stack([lm_a, end_exit[ii]], 1).ravel()[emit]]
 
-    aid = 0
-    arcs = lat.arcs
-    for sev_j, fin_j, src_j, nid_j, ac_j, lm_j, flm_j in zip(
-            m_sever.tolist(), m_fin.tolist(), src_a.tolist(),
-            nid_a.tolist(), ac_a.tolist(), lm_a.tolist(),
-            fin_lm.tolist()):
-        if not sev_j:
-            arcs.append(LArc(id=aid, start=src_j, end=nid_j,
-                             aclike=ac_j, lmlike=lm_j))
-            aid += 1
-        if fin_j:
-            arcs.append(LArc(id=aid, start=nid_j, end=end_id,
-                             aclike=0.0, lmlike=flm_j))
-            aid += 1
-
+    n_alt = 0
     if max_preds > 1 and m_int.any():
         # alternative-predecessor arcs (HLVRec lattice semantics):
         # candidates are the records kept at each entry time, scored
         # score(j, pt) + s*lm(j -> i) + pen + ac_seg(i, t)
-        from collections import defaultdict
-
         MAXC = 64  # candidate predecessors examined per entry time
-        s = float(lm_scale)
-        node_id = dict(zip(zip(ii.tolist(), tt_.tolist()),
-                           nid_a.tolist()))
-        by_t: dict = defaultdict(list)
-        for (j_, t_) in rec:
-            by_t[t_].append(j_)
-        tri = getattr(net, "xw_trigram", None) is not None
-        lmf3 = _host_lm3_lookup(net) if tri else None
-        lmf2 = _host_lm_lookup(net) if not tri else None
-        get = rec.get
-        rows_int = np.nonzero(m_int)[0]
-        by_pt: dict = defaultdict(list)
-        for r in rows_int.tolist():
-            by_pt[int(pt_a[r])].append(r)
-        for pt_, rws in by_pt.items():
-            cands = by_t.get(pt_)
-            if not cands or len(cands) < 2:
-                continue
-            if len(cands) > MAXC:
-                cands = sorted(
-                    cands, key=lambda j_: -get((j_, pt_))[0])[:MAXC]
-            cj = np.asarray(cands, np.int64)
-            c_sc = np.asarray([get((j_, pt_))[0] for j_ in cands])
-            c_pp = np.asarray([get((j_, pt_))[1] for j_ in cands],
-                              np.int64)
-            ri = np.asarray(rws, np.int64)
-            # (n_rec, n_cand) pair grid, flattened for the LM lookup
-            ii_g = np.repeat(ii[ri], len(cj))
-            cj_g = np.tile(cj, len(ri))
-            if tri:
-                lm_g = lmf3(np.tile(c_pp, len(ri)), cj_g, ii_g)
-            else:
-                lm_g = lmf2(cj_g, ii_g)
-            lm_g = lm_g.reshape(len(ri), len(cj))
-            alt = (c_sc[None, :] + s * lm_g + word_pen
-                   + ac_a[ri][:, None])
-            own = sc[ri][:, None]
-            okm = cj[None, :] != pn_a[ri][:, None]
-            if arc_beam is not None:
-                okm &= alt >= own - arc_beam
-            okm &= alt > LSMALL
-            # top (max_preds - 1) alternatives per record
-            for k_, r in enumerate(ri.tolist()):
-                cand_k = np.nonzero(okm[k_])[0]
-                if not len(cand_k):
-                    continue
-                top = cand_k[np.argsort(-alt[k_][cand_k],
-                                        kind="stable")][:max_preds - 1]
-                for q in top.tolist():
-                    arcs.append(LArc(
-                        id=aid, start=int(node_id[(int(cj[q]), pt_)]),
-                        end=int(nid_a[r]), aclike=float(ac_a[r]),
-                        lmlike=float(lm_g[k_, q])))
-                    aid += 1
+        # each entry frame's candidates: its records in insertion order,
+        # above MAXC its MAXC best by a stable descending sort on score
+        by_t = np.argsort(tt_, kind="stable")
+        ft, fs, fc = np.unique(tt_[by_t], return_index=True,
+                               return_counts=True)
+        if (fc > MAXC).any():
+            neg = np.where(np.repeat(fc > MAXC, fc), -sc[by_t], 0.0)
+            by_t = by_t[np.lexsort((neg, tt_[by_t]))]
+        W = int(min(fc.max(), MAXC))
+        col = np.arange(W)
+        table = np.where(col < np.minimum(fc, MAXC)[:, None],
+                         by_t[np.minimum(fs[:, None] + col, n - 1)], -1)
+        # one (records x W) grid for every record with a predecessor
+        rows = np.nonzero(m_int)[0]
+        f = np.searchsorted(ft, pt_a[rows])
+        fcl = np.minimum(f, ft.size - 1)
+        has = (ft[fcl] == pt_a[rows]) & (fc[fcl] >= 2)
+        # alternatives come grouped by entry frame, the frames in the
+        # order of their first record, then record by record
+        _u, first, inv = np.unique(pt_a[rows], return_index=True,
+                                   return_inverse=True)
+        grp = first[inv][has]
+        rows, fcl = rows[has], fcl[has]
+        o = np.argsort(grp, kind="stable")
+        rows, G = rows[o], table[fcl[o]]
+        valid = G >= 0
+        r_g = np.broadcast_to(rows[:, None], G.shape)[valid]
+        c_g = G[valid]
+        cj = ii[c_g]
+        if tri:
+            lm_g = lmf(pn_a[c_g], cj, ii[r_g])
+        else:
+            lm_g = lmf(cj, ii[r_g])
+        alt = sc[c_g] + float(lm_scale) * lm_g + word_pen + ac_a[r_g]
+        ok = cj != pn_a[r_g]
+        if arc_beam is not None:
+            ok &= alt >= sc[r_g] - arc_beam
+        ok &= alt > LSMALL
+        # top (max_preds - 1) alternatives per record: a stable
+        # descending rank along the candidates
+        key = np.full(G.shape, np.inf)
+        key[valid] = np.where(ok, -alt, np.inf)
+        okg = np.zeros(G.shape, bool)
+        okg[valid] = ok
+        lmg = np.zeros(G.shape)
+        lmg[valid] = lm_g
+        top = np.argsort(key, axis=1, kind="stable")[:, :max_preds - 1]
+        sel = np.take_along_axis(okg, top, 1)
+        n_alt = int(sel.sum())
+        a_src.append(nid_a[np.take_along_axis(G, top, 1)[sel]])
+        a_dst.append(np.broadcast_to(nid_a[rows][:, None], sel.shape)[sel])
+        a_ac.append(np.broadcast_to(ac_a[rows][:, None], sel.shape)[sel])
+        a_lm.append(np.take_along_axis(lmg, top, 1)[sel])
+
+    a_src, a_dst, a_ac, a_lm = (np.concatenate(x)
+                                for x in (a_src, a_dst, a_ac, a_lm))
+    cols = (a_src.tolist(), a_dst.tolist(), a_ac.tolist(), a_lm.tolist())
+    with _gc_paused():
+        lat.nodes = [LNode(id=0, time=0.0, word=NULL_WORD),
+                     LNode(id=1, time=T_real * frame_period_s,
+                           word=NULL_WORD)]
+        lat.nodes.extend(map(LNode, range(2, n + 2), times, words))
+        lat.arcs = list(map(LArc, range(a_src.size), cols[0], cols[1],
+                            repeat(None), cols[2], cols[3]))
+    add("records", n)
+    add("arcs", a_src.size)
+    add("alt_arcs", n_alt)
     return lat
 
 
@@ -1726,115 +1779,75 @@ def generate_lattice_batch(
         st = {"in_beam": 0, "kept": 0, "overflow": 0, "gathers": 0,
               "resurrected": 0}
 
-        # pass 1: the compacted records into per-utterance rec dicts (plane
-        # t+1 holds ends at time t; the final frame tr-1 comes from the
-        # ranked finals), inserted in (t asc, row asc, slot asc) order
+        # pass 1: the compacted records of the whole batch as columns,
+        # utterance by utterance in the order a dict of each would hold
+        # them: the kept records in (t asc, row asc) order (plane t+1
+        # holds ends at time t), then the finals at tr-1 by row from the
+        # ranked finals; a final that repeats an earlier record's key
+        # overwrites that record in its place (`_dict_order`)
         with span("htk.lattice.records"):
-            recs: List[dict] = []
-            for b in range(B):
-                tr = lens[b]
-                rec: dict = {}
-                n_in = int(r["counts"][b])
-                st["in_beam"] += n_in
-                if n_in > M:
-                    st["overflow"] += 1
-                    HRError(8523, "generate_lattice_batch: %d in-beam "
-                                  "records exceed the device budget %d — "
-                                  "weakest dropped (raise k_rec or tighten "
-                                  "lattice_beam)", n_in, M)
-                keep = r["rec_sc"][b] > LSMALL
-                if keep.any():
-                    idxs = r["rec_idx"][b][keep]
-                    tt = idxs // K - 1  # plane index - 1 = end time
-                    kk = idxs % K
-                    ixs = r["rec_ix"][b][keep]
-                    scs = r["rec_sc"][b][keep].astype(np.float64)
-                    pns = r["sel_pn"][b][keep]
-                    pts = r["sel_pt"][b][keep]
-                    order = np.lexsort((kk, ixs, tt))
-                    rec.update(zip(
-                        zip(ixs[order].tolist(), tt[order].tolist()),
-                        zip(scs[order].tolist(), pns[order].tolist(),
-                            pts[order].tolist())))
-                row_sc = r["scf_k"][b]
-                # the finals are ranked by word end + exit LM, so the raw
-                # max may sit anywhere among the kept K
-                bestf = row_sc.max()
-                if bestf > LSMALL:
-                    keepf = np.nonzero((row_sc > LSMALL)
-                                       & (row_sc >= bestf - lattice_beam))[0]
-                    keepf = keepf[np.argsort(r["ixf_k"][b, keepf],
-                                             kind="stable")]
-                    for k in keepf:
-                        rec[(int(r["ixf_k"][b, k]), tr - 1)] = (
-                            float(row_sc[k]), int(r["pnf_k"][b, k]),
-                            int(r["ptf_k"][b, k]))
-                st["kept"] += len(rec)
-                recs.append(rec)
+            counts = r["counts"]
+            st["in_beam"] += int(counts.sum())
+            for b in np.nonzero(counts > M)[0].tolist():
+                st["overflow"] += 1
+                HRError(8523, "generate_lattice_batch: %d in-beam "
+                              "records exceed the device budget %d — "
+                              "weakest dropped (raise k_rec or tighten "
+                              "lattice_beam)", int(counts[b]), M)
+            flat = np.flatnonzero(r["rec_sc"] > LSMALL)
+            kb = flat // M
+            tt = r["rec_idx"].ravel()[flat] // K - 1  # plane - 1 = end time
+            ixs = r["rec_ix"].ravel()[flat]
+            # a frame's K slots hold distinct rows, so (b, t, row), the
+            # record key, orders them whole
+            o = np.argsort(_rec_key(ixs, tt, kb))
+            flat, kb, tt, ixs = flat[o], kb[o], tt[o], ixs[o]
+            # the finals are ranked by word end + exit LM, so the raw max
+            # may sit anywhere among the kept K
+            row_sc = r["scf_k"]
+            bestf = row_sc.max(axis=1, keepdims=True)
+            fb, fk = np.nonzero((bestf > LSMALL) & (row_sc > LSMALL)
+                                & (row_sc >= bestf - lattice_beam))
+            ixf = r["ixf_k"][fb, fk]
+            of = np.lexsort((ixf, fb))
+            fb, fk = fb[of], fk[of]
+            ub = np.concatenate([kb, fb])
+            cols = [np.concatenate(c) for c in (
+                (ixs, ixf[of]),
+                (tt, np.asarray(lens, np.int64)[fb] - 1),
+                (r["rec_sc"].ravel()[flat].astype(np.float64),
+                 row_sc[fb, fk].astype(np.float64)),
+                (r["sel_pn"].ravel()[flat], r["pnf_k"][fb, fk]),
+                (r["sel_pt"].ravel()[flat], r["ptf_k"][fb, fk]))]
+            g = np.argsort(ub, kind="stable")
+            g = g[_dict_order(_rec_key(cols[0], cols[1], ub)[g])]
+            ub = ub[g]
+            recs = tuple(c[g] for c in cols)
+            st["kept"] += int(ub.size)
 
         # pass 2: transitively resurrect beam-dropped predecessors for the
-        # whole batch, one stacked gather from the device planes per wave.
-        # The seed wave (records pointing at a pruned predecessor) is found
-        # with one packed-key membership test per utterance.
+        # whole batch, one stacked gather from the device planes a wave
+        def gather(bs, pns, pts):
+            with span("htk.lattice.gather", d2h_bytes=0):
+                idx = torch.as_tensor(np.stack([bs, pns, pts + 1]),
+                                      device=WEs_d.device)
+                bs, pns, pts = idx
+                s_, a_, c_ = _to_host(torch.stack([
+                    WEs_d[bs, pts, pns].double(),
+                    pwns_d[bs, pts, pns].double(),
+                    pwts_d[bs, pts, pns].double()]))
+            return s_, a_.astype(np.int64), c_.astype(np.int64)
+
         with span("htk.lattice.resurrect"):
-            frontier = []
-            for b, rec in enumerate(recs):
-                if not rec:
-                    continue
-                ka = np.asarray(list(rec), np.int64).reshape(len(rec), 2)
-                va = np.asarray(list(rec.values()), np.float64).reshape(
-                    len(rec), 3)
-                pn_b = va[:, 1].astype(np.int64)
-                pt_b = va[:, 2].astype(np.int64)
-                pks = np.sort(ka[:, 0] * _REC_PK + (ka[:, 1] + 2))
-                m = pn_b >= 0
-                pp = pn_b[m] * _REC_PK + (pt_b[m] + 2)
-                pos = np.searchsorted(pks, pp)
-                nb = pks.size
-                ok = (pos < nb) & (pks[np.minimum(pos, nb - 1)] == pp)
-                for j in np.nonzero(m)[0][~ok].tolist():
-                    frontier.append((b, (int(ka[j, 0]), int(ka[j, 1]))))
-            while frontier:
-                need = []
-                referrers: dict = {}
-                for b, key in frontier:
-                    _s, pn, pt = recs[b][key]
-                    if pn < 0 or (pn, pt) in recs[b]:
-                        continue
-                    k2 = (b, pn, pt)
-                    if k2 not in referrers:
-                        referrers[k2] = []
-                        need.append(k2)
-                    referrers[k2].append(key)
-                if not need:
-                    break
-                with span("htk.lattice.gather", d2h_bytes=0):
-                    idx = torch.as_tensor(np.asarray(need, np.int64),
-                                          device=WEs_d.device)
-                    bs, pns, pts = idx[:, 0], idx[:, 1], idx[:, 2] + 1
-                    trip = _to_host(torch.stack([
-                        WEs_d[bs, pts, pns].double(),
-                        pwns_d[bs, pts, pns].double(),
-                        pwts_d[bs, pts, pns].double()]))
-                st["gathers"] += 1
-                frontier = []
-                for (b, pn, pt), s_, a_, c_ in zip(need, *trip):
-                    if s_ <= LSMALL:
-                        # genuinely unavailable: sever so the arc is
-                        # dropped, not misattached to the utterance start
-                        for key in referrers[(b, pn, pt)]:
-                            recs[b][key] = (recs[b][key][0], -1, -2)
-                        continue
-                    recs[b][(pn, pt)] = (float(s_), int(a_), int(c_))
-                    st["resurrected"] += 1
-                    frontier.append((b, (pn, pt)))
+            (ub, recs), n_gather, n_res = _resurrect(ub, recs, gather)
+            st["gathers"] += n_gather
+            st["resurrected"] += n_res
             if stats is not None:
                 for k, v in st.items():
                     stats[k] = stats.get(k, 0) + v
-
-        def _severed(pairs):
-            # every resolvable record is already in rec (pass 2)
-            return [None] * len(pairs)
+            g = np.argsort(ub, kind="stable")
+            recs = tuple(c[g] for c in recs)
+            cut = np.searchsorted(ub[g], np.arange(B + 1))
 
         # pass 3: lattices (+ 1-bests) from the completed record sets
         with span("htk.lattice.walk"):
@@ -1842,8 +1855,8 @@ def generate_lattice_batch(
             out = []
             for b in range(B):
                 tr = lens[b]
-                rec = recs[b]
-                if not rec:
+                rec = tuple(c[cut[b]:cut[b + 1]] for c in recs)
+                if not rec[0].size:
                     out.append((None, None) if want_results else None)
                     continue
                 res = None
@@ -1856,28 +1869,39 @@ def generate_lattice_batch(
                            + end_exit[r["ixf_k"][b]] * float(lm_scale))
                     j = int(np.argmax(np.where(scf > LSMALL, fsc, LZERO)))
                     if scf[j] > LSMALL and fsc[j] > LSMALL:
-                        node, t = int(r["ixf_k"][b, j]), tr - 1
-                        pn = int(r["pnf_k"][b, j])
-                        pt = int(r["ptf_k"][b, j])
-                        chain = []
-                        while True:
-                            chain.append((node, pt + 1, t))
-                            if pn < 0 or pt < 0:
-                                break
-                            node, t = pn, pt
-                            got = rec.get((node, t))
-                            if got is None:  # severed: resolved above
-                                break
-                            _s, pn, pt = got
-                            pn, pt = int(pn), int(pt)
-                        chain.reverse()
-                        res = _result_from_chain(net, chain, float(fsc[j]))
+                        res = _result_from_chain(net, _chain(
+                            rec, int(r["ixf_k"][b, j]), tr - 1,
+                            int(r["pnf_k"][b, j]), int(r["ptf_k"][b, j])),
+                            float(fsc[j]))
                 lat = _lattice_from_rec(
-                    net, rec, None, tr, frame_period_s, lm_scale, word_pen,
-                    resolve_many=_severed, max_preds=max_preds,
-                    arc_beam=lattice_beam)
+                    net, rec, tr, frame_period_s, lm_scale, word_pen,
+                    max_preds=max_preds, arc_beam=lattice_beam)
                 out.append((lat, res) if want_results else lat)
         return out
+
+
+def _chain(recs, node, t, pn, pt):
+    """The (node, t_start, t_end) chain in forward order from the record
+    (node, t) with predecessor (pn, pt) back through `recs` (columnar, see
+    `_lattice_from_rec`), to the utterance's start or to a predecessor
+    that is not among them."""
+    pk = _rec_key(recs[0], recs[1])
+    srt = np.argsort(pk)
+    pks = pk[srt]
+    chain = []
+    while True:
+        chain.append((node, pt + 1, t))
+        if pn < 0 or pt < 0:
+            break
+        node, t = pn, pt
+        q = _rec_key(node, t)
+        j = int(np.searchsorted(pks, q))
+        if j == pks.size or pks[j] != q:  # severed: resolved above
+            break
+        k = srt[j]
+        pn, pt = int(recs[3][k]), int(recs[4][k])
+    chain.reverse()
+    return chain
 
 
 def lattices_from_planes(net, carry, planes, lens, lattice_beam,

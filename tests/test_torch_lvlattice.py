@@ -333,3 +333,27 @@ def test_tied_rows_keep_the_lower_rows(reference_outp):
         assert _slf(lt) == _slf(jl)
         words |= {n.word for n in lt.nodes}
     assert "A3" not in words and {"A1", "A2", "I1", "I2"} <= words
+
+
+def test_the_walk_span_counts_records_arcs_and_alternatives(
+        reference_outp):
+    """Under `recording()` the `htk.lattice.walk` span of one call counts
+    the records walked (each lattice's nodes but its two !NULL ends), the
+    arcs emitted, and the alternative-predecessor arcs among them (the
+    arcs beyond a LATPREDS 1 call on the same input)."""
+    from htk_tpu_torch.utils import metrics
+
+    (jc, jn, pc, pn), feats, _ma, (lm, pen) = _lex_case(reference_outp,
+                                                        "factored")
+    kw = dict(lattice_beam=150.0, pad_to=16, device="cpu")
+    with metrics.recording():
+        got = pdec.generate_lattice_batch(pn, pc, feats, lm, pen,
+                                          max_preds=8, **kw)
+        walk, = [s for s in metrics.RECORDER.records
+                 if s.name == "htk.lattice.walk"]
+    one = pdec.generate_lattice_batch(pn, pc, feats, lm, pen, **kw)
+    arcs = sum(len(lt.arcs) for lt in got)
+    assert walk.counts == {
+        "records": sum(len(lt.nodes) - 2 for lt in got), "arcs": arcs,
+        "alt_arcs": arcs - sum(len(lt.arcs) for lt in one)}
+    assert walk.counts["alt_arcs"] > 0
