@@ -50,7 +50,9 @@ batched traceback walks the word-link records on the device and only the
 `state_scores` (T, S_phys), ANN log-posteriors minus log-priors (HVite
 -N), replace the GMM OutP; network states gather their columns, which
 feed the decode kernel on general nets and the uniform scan (its
-`state_mode`) on uniform-row nets. `decode`, `generate_lattice` and
+`state_mode`) on uniform-row nets. `generate_lattice_batch` takes it as
+the reference's `state_scores_list` (HDecode -N), a bucket's scores
+padded on the device. `decode`, `generate_lattice` and
 `generate_lattice_batch` take the reference's adaptation hook too:
 `model_params` ({means, variances, gconsts}, HDecode -J) replaces the
 set's Gaussians through a scorer built for the call (`scorer_with`),
@@ -742,8 +744,32 @@ def _outp_states(net, comp, feats, state_scores, precision, device,
     if state_scores is None:
         return _net_outp(net, comp, feats[None], precision, device,
                          model_params)
-    logb = _as_scores(state_scores, device)
-    return logb[:, _net_dev(net, device)["comp_state"]][None].contiguous()
+    return _state_outp(net, _as_scores(state_scores, device)[None])
+
+
+def _state_outp(net, scores: torch.Tensor) -> torch.Tensor:
+    """(..., T, Ns) network-state scores gathered from the hybrid hook's
+    (..., T, S_phys) `scores` on their device."""
+    return scores[..., _net_dev(net, scores.device)["comp_state"]
+                  ].contiguous()
+
+
+def _pad_scores(scores, lens, T: int, device) -> torch.Tensor:
+    """The hybrid hook's scores as one (B, T, S_phys) float32 tensor on
+    `device`: a padded (B, T, S) tensor as it is, else each utterance's
+    (T_b, S) rows (from the reference's list of arrays or tensors, or
+    from a tensor padded to another length) zero-padded to T. Padding
+    happens on the device; nothing is copied to the host."""
+    if torch.is_tensor(scores) and scores.dim() == 3:
+        x = _as_scores(scores, device)
+        if x.shape[1] == T:
+            return x
+        scores = list(x)
+    first = _as_scores(scores[0], device)
+    out = first.new_zeros((len(lens), T, first.shape[-1]))
+    for b, s in enumerate(scores):
+        out[b, :lens[b]] = _as_scores(s, device)[:lens[b]]
+    return out
 
 
 def _lv_chunk(T: int, B: int, Ns: int) -> int:
@@ -1609,10 +1635,12 @@ def _ranked(key: torch.Tensor, k: int):
 
 def _lv_lattice_pipeline(net, comp, x, t_reals, lm_scale, word_pen, beam,
                          lattice_beam, max_active, precision, k_lat, k_rec,
-                         model_params=None):
+                         model_params=None, state_mode=False):
     """The batched lattice front half on uniform-row nets
     (htk_tpu/algo/decode.py : _lv_lattice_pipeline): the uniform-row scan
-    with chunk-wise OutP on frames x (B, T, D), then on the device
+    with chunk-wise OutP on frames x (B, T, D) (under `state_mode`, x
+    holds the hybrid hook's state scores (B, T, S_phys), gathered a chunk
+    at a time), then on the device
 
       - the final word ends of each utterance: plane t_real when
         t_real < T (ends at t_real-1 are emitted by scan step t_real),
@@ -1635,7 +1663,7 @@ def _lv_lattice_pipeline(net, comp, x, t_reals, lm_scale, word_pen, beam,
     S = net.uniform_width
     (v, rec), WEs, pwns, pwts = _lv_scan_body(
         net, comp, d, precision, max_active, x, lm_scale, word_pen, beam,
-        model_params=model_params)
+        state_mode, model_params)
     B, T, C = WEs.shape
     dev = x.device
     with span("htk.lattice.compact"):
@@ -1717,6 +1745,7 @@ def generate_lattice_batch(
     want_results: bool = False,
     stats: Optional[dict] = None,
     model_params: Optional[dict] = None,
+    state_scores_list=None,
     *,
     device,
 ):
@@ -1742,9 +1771,18 @@ def generate_lattice_batch(
     records, records kept, overflowing utterances, resurrection gathers
     and records resurrected (summed over calls). `model_params` is the
     adaptation hook, as in `decode`, for the whole bucket (HDecode
-    batches by speaker). The reference's `state_scores_list` hook is not
-    taken.
+    batches by speaker). `state_scores_list` is the reference's hybrid
+    hook (HDecode -N): the (T_b, S_phys) scores of each utterance (numpy
+    or tensors), or one padded (B, T', S_phys) tensor, in place of the
+    GMM OutP of `feats_list`, which then gives only the utterances'
+    lengths; the scores are padded on the device and never copied to the
+    host. It takes no `model_params`.
     """
+    state_mode = state_scores_list is not None
+    if state_mode and model_params is not None:
+        HError(8626, "generate_lattice_batch: model_params adapt the "
+                     "Gaussians of a GMM set; hybrid state_scores_list "
+                     "take none")
     with span("htk.lattice.batch"):
         B = len(feats_list)
         lens = [int(f.shape[0]) for f in feats_list]
@@ -1754,13 +1792,17 @@ def generate_lattice_batch(
                          "chunk the utterance", max(lens), REC_TMASK)
         with span("htk.lattice.pad"):
             T = ((max(lens) + pad_to - 1) // pad_to) * pad_to
-            D = feats_list[0].shape[1]
-            fb = np.zeros((B, T, D), np.float32)
-            for b, f in enumerate(feats_list):
-                fb[b, : lens[b]] = f
+            if state_mode:
+                x = _pad_scores(state_scores_list, lens, T, device)
+            else:
+                D = feats_list[0].shape[1]
+                fb = np.zeros((B, T, D), np.float32)
+                for b, f in enumerate(feats_list):
+                    fb[b, : lens[b]] = f
         if not net.uniform_width:
-            outp = _net_outp(net, comp, fb, precision, device,
-                             model_params)
+            outp = (_state_outp(net, x) if state_mode else
+                    _net_outp(net, comp, fb, precision, device,
+                              model_params))
             (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
                 outp, net, lm_scale, word_pen, beam=beam,
                 max_active=max_active)
@@ -1768,13 +1810,14 @@ def generate_lattice_batch(
                 net, (vb, wnb, wtb), (WEb, pwnb, pwtb), lens, lattice_beam,
                 frame_period_s, lm_scale, word_pen, want_results, max_preds)
 
-        x = torch.as_tensor(fb, device=device)
+        if not state_mode:
+            x = torch.as_tensor(fb, device=device)
         r, (WEs_d, pwns_d, pwts_d) = _lv_lattice_pipeline(
             net, comp, x, lens, float(lm_scale), float(word_pen),
             _BEAM_OFF if beam is None else float(beam), float(lattice_beam),
             max_active, precision,
             LAT_TOPK if k_lat is None else int(k_lat), int(k_rec),
-            model_params)
+            model_params, state_mode)
         K, M = r["K"], r["M"]
         st = {"in_beam": 0, "kept": 0, "overflow": 0, "gathers": 0,
               "resurrected": 0}

@@ -41,6 +41,7 @@ from ..ops.fb_scans import fb_scans
 from ..ops.outp import matmul_precision
 from ..utils.errors import HError
 from ..utils.logmath import LZERO, exp_or_zero
+from ..utils.metrics import span
 
 CACHE_BYTES = 4 << 30  # frame caches up to this size live on the device
 
@@ -257,23 +258,68 @@ def train_ann(ann: ANNDef, x: np.ndarray, y: np.ndarray, cfg: SGDConfig,
 
 
 def hybrid_outp(ann: ANNDef, feats, prior_scale: float = 1.0, *, device,
-                model=None) -> torch.Tensor:
+                model=None, lengths=None,
+                precision: str = "highest") -> torch.Tensor:
     """(T, D) frames -> (T, K) hybrid scores log P(s|x) - scale*log P(s)
-    on `device` (HNForward / hybrid HVite: scaled posteriors replace GMM
-    b_j(o_t)). `model` reuses `ANNModule(ann, device)` across calls."""
+    on `device` (HNForward / hybrid HVite / HDecode -N: scaled posteriors
+    replace GMM b_j(o_t)). A padded batch (B, T, D) with its real
+    `lengths` (B,) gives (B, T, K): the splice clamps at each utterance's
+    own last frame, and the padded rows hold finite scores that no
+    decode reads. The matmuls run under `precision` ("highest": FP32;
+    "default": TF32 on the card); activations, the log-softmax and the
+    prior subtraction are float32. `model` reuses `ANNModule(ann,
+    device)` across calls.
+
+    One call is the span `htk.ann.forward`, counting the rows run through
+    the net (`frames`, padding included), `flops` (2 x weights x frames),
+    `weight_bytes` (the weights and biases, read once a call) and
+    `act_bytes` (each layer's input and output rows, once); the splice is
+    `htk.ann.splice`."""
     dev = torch.device(device)
     if model is None:
         model = ANNModule(ann, dev)
-    x = splice(torch.as_tensor(np.asarray(feats, np.float32), device=dev),
-               ann.context)
-    with torch.no_grad(), matmul_precision("highest"):
-        logits = model(x)
-        logpost = torch.log_softmax(logits, dim=-1)
-        if ann.target_priors is not None:
-            pri = torch.as_tensor(np.asarray(ann.target_priors, np.float32),
-                                  device=dev)
-            logpost = logpost - prior_scale * torch.log(pri)[None, :]
-    return logpost
+    shape = np.shape(feats)
+    frames = int(np.prod(shape[:-1]))
+    weights = sum(l.weight.size for l in ann.layers)
+    widths = sum(sum(l.weight.shape) for l in ann.layers)
+    with span("htk.ann.forward", frames=frames, flops=2 * weights * frames,
+              weight_bytes=4 * (weights + sum(l.bias.size
+                                              for l in ann.layers)),
+              act_bytes=4 * widths * frames):
+        x = torch.as_tensor(feats if torch.is_tensor(feats) else
+                            np.asarray(feats, np.float32),
+                            dtype=torch.float32, device=dev)
+        with span("htk.ann.splice"):
+            x = splice(x, ann.context, lengths)
+        with torch.no_grad(), matmul_precision(precision):
+            logits = model(x.reshape(frames, -1))
+            logpost = torch.log_softmax(logits, dim=-1)
+            if ann.target_priors is not None:
+                pri = torch.as_tensor(np.asarray(ann.target_priors,
+                                                 np.float32), device=dev)
+                logpost = logpost - prior_scale * torch.log(pri)[None, :]
+    return logpost.reshape(*shape[:-1], -1)
+
+
+def check_targets(ann: ANNDef, comp) -> None:
+    """HError 7712 unless output k of `ann` is the compiled set's
+    physical state k, the order the decoders' `state_scores` take: as
+    many outputs as the set has states and, where the ANN names its
+    targets, target k named after state k (its ~s macro, or HNTrainSGD's
+    `S<k>`). Checked once, where a tool or caller builds the model."""
+    if ann.out_dim != comp.n_states:
+        HError(7712, "ANN: %d outputs for a set of %d states",
+               ann.out_dim, comp.n_states)
+    if not ann.target_names:
+        return
+    hset = getattr(comp, "_hset", None)
+    macro = ({id(si): n for n, si in hset.macros["s"].items()}
+             if hset is not None else {})
+    for k, (name, si) in enumerate(zip(ann.target_names,
+                                       comp._state_objs)):
+        if name != f"S{k}" and name != macro.get(id(si)):
+            HError(7712, "ANN: target %d is %s, not the set's state %d",
+                   k, name, k)
 
 
 # ---------------------------------------------------------------------------

@@ -61,16 +61,28 @@ class ANNDef:
         return self.layers[-1].weight.shape[0]
 
 
-def splice(feats: torch.Tensor, context: int) -> torch.Tensor:
+def splice(feats: torch.Tensor, context: int,
+           lengths=None) -> torch.Tensor:
     """(T, D) -> (T, (2c+1)*D) context-window splicing (FeaMix); the
-    window clamps at the utterance's edges."""
+    window clamps at the utterance's edges. A padded batch (B, T, D) with
+    its real `lengths` (B,) gives (B, T, (2c+1)*D): frame t of utterance
+    b reads frames clamp(t + o, 0, lengths[b] - 1), so the window clamps
+    at each utterance's own last frame, and the padded rows repeat it."""
     if context == 0:
         return feats
-    T = feats.shape[0]
-    offs = torch.arange(-context, context + 1, device=feats.device)
-    idx = (torch.arange(T, device=feats.device)[:, None]
-           + offs[None, :]).clamp(0, T - 1)
-    return feats[idx].reshape(T, -1)
+    T = feats.shape[-2]
+    dev = feats.device
+    offs = torch.arange(-context, context + 1, device=dev)
+    win = torch.arange(T, device=dev)[:, None] + offs[None, :]
+    if feats.dim() == 2:
+        return feats[win.clamp(0, T - 1)].reshape(T, -1)
+    if lengths is None:
+        lengths = [T] * feats.shape[0]
+    last = torch.as_tensor(np.maximum(np.asarray(lengths, np.int64), 1) - 1,
+                           device=dev)
+    idx = torch.minimum(win[None].clamp(min=0), last[:, None, None])
+    rows = torch.arange(feats.shape[0], device=dev)[:, None, None]
+    return feats[rows, idx].reshape(feats.shape[0], T, -1)
 
 
 def _act(x, kind: str):

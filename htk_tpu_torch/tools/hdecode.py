@@ -37,6 +37,8 @@ Usage: HDecode [options] dictFile hmmList testFiles...
   -o flags  output label format (accepted)
   -J dir    input transform dir (repeatable)   -h mask  speaker mask
   -k        the MMF's own input transform (~a) is the base of each chain
+  -N annfile  hybrid decoding: the ANN's log-posteriors minus log-priors
+            (algo/nnet.hybrid_outp) replace the GMM OutP
   Standard: -A -C -D -S -T -V
 
 The port of `htk_tpu/tools/hdecode.py`. Pass 1 runs on
@@ -54,7 +56,10 @@ scorer to full covariance are refused (HError 7450), as in the
 reference. `_C` feature files load through `preload_corpus`. Under -T
 the batched pass 1 prints its lattice records: in beam, kept,
 overflowing utterances (8523) and the gathers that resurrected
-beam-pruned predecessors.
+beam-pruned predecessors. Under -N (not with -J) each pass-1 batch runs
+the ANN once on its padded frames on the device (`hybrid_outp`) and
+hands the score plane to `generate_lattice_batch(state_scores_list=)`;
+the sequential path passes each utterance's scores to `generate_lattice`.
 
 Config: HTKTPU: LVDECODE = T/F forces/disables the uniform-row LV
 network (default: auto, on when the vocabulary has >= 800 words);
@@ -74,12 +79,14 @@ from ..algo.adapt import load_tmf_text, speaker_from_mask
 from ..algo.decode import generate_lattice, generate_lattice_batch
 from ..algo.latops import best_path_trigram
 from ..algo.lvnet import compile_lv_loop
+from ..algo.nnet import check_targets, hybrid_outp
 from ..algo.net import compile_network, word_internal_phone_map
 from ..io.dictionary import read_dict
 from ..io.lm import read_lm
 from ..io.mlf import MLF, Label, Transcription
 from ..io.mmf import load_hmm_list, load_mmf
 from ..io.slf import write_slf
+from ..models.ann import ANNModule, load_ann
 from ..models.hmmset import compile_hmmset
 from ..tools.hbuild import bigram_lattice
 from ..utils.cli import Option, parse_args, tool_main
@@ -108,6 +115,7 @@ OPTS = {
     "J": Option("J", 1, "input transform dir", repeatable=True),
     "k": Option("k", 0, "use input transforms"),
     "h": Option("h", 1, "speaker mask for -J selection"),
+    "N": Option("N", 1, "ANN file (hybrid decoding)"),
 }
 
 LV_VOCAB_THRESHOLD = 800
@@ -125,6 +133,9 @@ def run(argv: List[str]) -> int:
     mmfs = ta.get_all("H")
     if not mmfs:
         HError(1030, "HDecode: at least one -H mmf required")
+    if ta.has("N") and ta.get_all("J"):
+        HError(1030, "HDecode: -N (hybrid ANN scores) and -J (input "
+                     "transforms of the GMM set) cannot be combined")
 
     prec = outp_precision(cfg)
     hset = load_mmf(mmfs, cfg=ta.config)
@@ -133,6 +144,21 @@ def run(argv: List[str]) -> int:
     vocab = read_dict(dict_file, ta.config)
     load_hmm_list(hmm_list_file, ta.config)
     lm = read_lm(ta.get("w"), ta.config)
+    # hybrid decoding (-N): the ANN's scores replace OutP; its output k
+    # must be the set's physical state k
+    ann = load_ann(ta.get("N")) if ta.has("N") else None
+    if ann is not None:
+        check_targets(ann, comp)
+        model = ANNModule(ann, device)
+        if ta.trace:
+            print(f"HDecode: hybrid decoding with ANN {ta.get('N')}")
+
+    def ann_scores(data):
+        """One utterance's hybrid scores on the device, or None."""
+        if ann is None:
+            return None
+        return hybrid_outp(ann, data, device=device, model=model,
+                           precision=prec)
 
     # sentence boundary words (HDecode STARTWORD/ENDWORD config): when
     # the dictionary gives them pronunciations (recipe convention
@@ -307,14 +333,27 @@ def run(argv: List[str]) -> int:
                        and spks[order[i0 + len(idx)]] == spks[idx[0]]):
                     idx.append(order[i0 + len(idx)])
                 i0 += len(idx)
+                fl = [featl[j] for j in idx]
+                scores = None
+                if ann is not None:
+                    # one ANN pass over the batch's padded frames; the
+                    # score plane stays on the device
+                    lens = [f.shape[0] for f in fl]
+                    fb = np.zeros((len(fl), -(-max(lens) // 128) * 128,
+                                   fl[0].shape[1]), np.float32)
+                    for b, f in enumerate(fl):
+                        fb[b, :lens[b]] = f
+                    scores = hybrid_outp(ann, fb, device=device, model=model,
+                                         lengths=lens, precision=prec)
                 ls = generate_lattice_batch(
-                    net, comp, [featl[j] for j in idx], lm_scale,
+                    net, comp, fl, lm_scale,
                     word_pen, lattice_beam=lat_beam,
                     frame_period_s=period / 1e7, beam=main_beam,
                     max_active=max_active, precision=prec,
                     max_preds=lat_preds, stats=stats,
                     model_params=spk_params.get(spks[idx[0]]),
-                    device=device)
+                    state_scores_list=scores, device=device)
+                del scores
                 for j, lt in zip(idx, ls):
                     lats[j] = lt
         if ta.trace:
@@ -330,7 +369,7 @@ def run(argv: List[str]) -> int:
                 frame_period_s=period / 1e7, beam=main_beam,
                 max_active=max_active, precision=prec,
                 max_preds=lat_preds, model_params=spk_params.get(spks[j]),
-                device=device)
+                state_scores=ann_scores(data), device=device)
 
     # HFB.c-style retry escalation on the pass-1 beam (the decoder
     # analogue of HERest's -t retry ladder): an utterance whose pruned
@@ -358,7 +397,8 @@ def run(argv: List[str]) -> int:
                     lattice_beam=lat_beam, frame_period_s=period / 1e7,
                     beam=b, max_active=ma, precision=prec,
                     max_preds=lat_preds,
-                    model_params=spk_params.get(spks[j]), device=device)
+                    model_params=spk_params.get(spks[j]),
+                    state_scores=ann_scores(featl[j]), device=device)
                 if lt is not None:
                     lats[j] = lt
                     break
@@ -379,7 +419,7 @@ def run(argv: List[str]) -> int:
                     xnet, comp, data, lm_scale, word_pen,
                     lattice_beam=lat_beam, frame_period_s=period / 1e7,
                     precision=prec, model_params=spk_params.get(spk),
-                    device=device)
+                    state_scores=ann_scores(data), device=device)
                 if lat2 is not None:
                     lat = lat2
             if ta.has("z"):
