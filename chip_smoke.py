@@ -31,10 +31,11 @@ big-vocabulary row, factored cross-word legs) and at 5,000 words with a
 trigram LM (its `triguide_5k` row). Phases, each raising on failure:
 
   1. device: a CUDA card is required; its name and power limit are
-     printed; the four kernels (htk_tpu_torch/csrc/decode_scan.cu,
-     fb_scans.cu, maxplus.cu and xw_gather.cu) are built from source with
-     nvcc, and the two host libraries (htk_tpu_torch/native/htkio.cpp and
-     htknative.cpp) with g++, in parallel
+     printed; the five kernels (htk_tpu_torch/csrc/decode_scan.cu,
+     fb_scans.cu, maxplus.cu, xw_gather.cu and lv_step.cu) are built from
+     source with nvcc, and the two host libraries
+     (htk_tpu_torch/native/htkio.cpp and htknative.cpp) with g++, in
+     parallel
   2. the decode kernel against its plain torch version on random nets
      (several seeds, B > 1, a tie-heavy integer-score case), each at the
      full grid and at forced grids of 1, 2, 3 and 7 blocks
@@ -112,8 +113,9 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      exactly, lane_gather also == `torch.index_select`
  14. trigram guidance at 5k: `lv_system(5000, lm_order=3)`,
      `compile_lv_loop(trigram=True)`, one `decode_batch` of 8 at
-     max_active=128; this leg launches no kernel (its scatters are torch
-     ops), which the counts show
+     max_active=128; one lv_step launch a padded frame and no other
+     kernel (the guided leg's scatters are torch ops), which the counts
+     show
  15. times, in turns plain/kernel/kernel/plain: segmax, the routed leg,
      window_gather, bucket_max and lane_gather per launch and their
      device times under torch.profiler; on the real frame, segmax's
@@ -333,6 +335,17 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      equal, scores within 1e-4 relative and the MMFs within 1e-2 of each
      array's scale (the features part by a float32 rounding). Every wall
      is labelled with the card's name and power limit
+ 33. (run after phase 12, on its system) the uniform step's kernel
+     (csrc/lv_step.cu, ops/lv_step.py) against the plain step at the
+     hdecode cells' shape: 13 utterances of the 20k system (C = 20,000
+     rows of S = 16, its band), padded to 512 frames, the exact factored
+     leg without a beam: v, the records and the three planes bit for bit;
+     one segmax and one step launch a frame; then, in turns plain/kernel/
+     kernel/plain, the step kernel's device time a launch (CUDA events
+     over 100 launches of one frame) against its byte floor and against
+     the plain step a frame with segmax's output given (the same
+     function), and the whole frame loop's time a frame (a whole batch,
+     segmax and the kernel against the plain step with segmax)
  20. one JSON line of kernels, then the device line last
 
 Phase 19 also runs the demo's trigram HDecode stage (LBuild, HDecode
@@ -428,6 +441,7 @@ from htk_tpu_torch.models.hmmset import compile_hmmset
 from htk_tpu_torch.models.proto import make_proto
 from htk_tpu_torch.ops import decode_scan as ds
 from htk_tpu_torch.ops import fb_scans as fbs
+from htk_tpu_torch.ops import lv_step as lvs
 from htk_tpu_torch.ops import maxplus as mp
 from htk_tpu_torch.ops import tropical as trop
 from htk_tpu_torch.ops import xw_gather as xg
@@ -465,7 +479,7 @@ FORCED_GRIDS = (1, 2, 3, 7, None)  # decode_scan blocks; None: the full grid
 TIMING_B, TIMING_T = 8, 512
 LM_SCALE, WORD_PEN = 8.0, -10.0
 FRAME_S = 0.01
-KERNELS = (ds.KERNEL, fbs.KERNEL, mp.KERNEL, xg.KERNEL)
+KERNELS = (ds.KERNEL, fbs.KERNEL, mp.KERNEL, xg.KERNEL, lvs.KERNEL)
 # tropical launches the maxplus kernel; xw_gather counts its two entries
 COUNTS = KERNELS + (trop.LAUNCHES, xg.SEGMAX, xg.GATHER_ADD)
 # each profiled kernel's launch count, for a profile timed with CUDA events
@@ -496,6 +510,7 @@ HBM_BPS, FP32_OPS = 3.35e12, 67e12  # H100 SXM data sheet
 # triguide_5k rows: their seeds, LM scales and word penalties)
 BIG = dict(n_words=20000, seed=11)
 BIG_LM_SCALE, BIG_WORD_PEN = 12.0, 0.0
+LV_STEP_B = 13  # phase 33: the hdecode cells' batch of utterances
 TRI = dict(n_words=5000, lm_order=3, seed=7)
 ADAPTIVE = -TOPA  # adaptive-exact top-A
 XW_CASE = dict(C=2000, n_slots=80000)  # random segmax / gather-add operands
@@ -693,14 +708,29 @@ def plain_maxplus():
 @contextlib.contextmanager
 def plain_xw():
     """segmax, gather_add and lane_gather (and so the factored exact leg
-    and every xw wrapper) run their plain versions inside."""
-    saved = xg.segmax, xg.gather_add, xg.lane_gather
-    xg.segmax, xg.gather_add, xg.lane_gather = (
-        xg.segmax_plain, xg.gather_add_plain, xg.lane_gather_plain)
+    and every xw wrapper) and the uniform step run their plain versions
+    inside."""
+    saved = xg.segmax, xg.gather_add, xg.lane_gather, dec._KernelScan
+    xg.segmax, xg.gather_add, xg.lane_gather, dec._KernelScan = (
+        xg.segmax_plain, xg.gather_add_plain, xg.lane_gather_plain,
+        dec._PlainScan)
     try:
         yield
     finally:
-        xg.segmax, xg.gather_add, xg.lane_gather = saved
+        xg.segmax, xg.gather_add, xg.lane_gather, dec._KernelScan = saved
+
+
+@contextlib.contextmanager
+def fixed_segmax(out):
+    """segmax gives `out` inside and launches nothing: the plain step's
+    exact leg is then the back-off max and `out`, which is lv_step's
+    function."""
+    saved = xg.segmax
+    xg.segmax = lambda *args, **kw: out
+    try:
+        yield
+    finally:
+        xg.segmax = saved
 
 
 def phase_device():
@@ -1649,6 +1679,100 @@ def phase_big_real_batch(net, comp, feats, dev):
     return err, batch, k[1][0][:, T // 2].contiguous(), fails
 
 
+def lv_step_bound(B, C, S, K):
+    """lv_step: v, the 32-bit records and the frame's scores in and v and
+    the records out, (B, Ns) each; the band, a0, aE (Ns,), bonus, uni, bow
+    (C,) and the explicit leg's planes (B, C) in; the three planes' frame,
+    the word-end copy and the back-off keys out. Per state an add and a
+    compare for each band shift, the entry's two adds and compare, the
+    score's add, the word end's add and compare."""
+    Ns = C * S
+    nbytes = (20 * B * Ns + 4 * (K + 2) * Ns + 12 * C + 8 * B * C
+              + 16 * B * C + 8 * B)
+    return bound("lv_step", nbytes, B * Ns * (2 * K + 6))
+
+
+def phase_lv_step(big, net, card, dev):
+    """The uniform step's kernel against the plain step at the hdecode
+    cells' shape (phase 33): a batch of LV_STEP_B utterances of the 20k
+    system, the exact factored leg, no beam. Returns the launches of the
+    compared loop, max |d| (0: equal bits), (kernel ms a launch, the
+    plain step's ms a frame with segmax's output given: the same
+    function) and the bound."""
+    lm = (BIG_LM_SCALE, BIG_WORD_PEN)
+    feats = big.feats[:LV_STEP_B]
+    lens = [f.shape[0] for f in feats]
+    T = pad_T(lens)
+    fb = np.zeros((len(feats), T, feats[0].shape[1]), np.float32)
+    for b, f in enumerate(feats):
+        fb[b, :lens[b]] = f
+    outp = _net_outp(net, big.comp, fb, "highest", dev)
+    d = dec._net_dev(net, dev)
+    B, _, Ns = outp.shape
+    S, K = net.uniform_width, net.band.shape[0]
+    args = (B, T, Ns, d["band"], d["a0"], d["aE"], S, d["bonus"],
+            d["trans"] * lm[0], d["start"] * lm[0], lm[1], dec._BEAM_OFF,
+            None, dec._scale_xw(d["xw"], lm[0]), None, dev)
+
+    def loop(cls):
+        scan = cls(*args)
+        scan.frames(outp, 0)
+        return scan
+
+    reset_counts()
+    kscan = loop(dec._KernelScan)
+    torch.cuda.synchronize(dev)
+    launches = (lvs.KERNEL.launches, xg.SEGMAX.launches)
+    if launches != (T, T):
+        raise AssertionError(f"lv_step batch: (lv_step, segmax) launched "
+                             f"{launches} times, expected ({T}, {T})")
+    (v, rec), planes = kscan.result()
+    (vp, recp), planes_p = loop(dec._PlainScan).result()
+    torch.cuda.synchronize(dev)
+    for name, a, b in zip(("v", "rec", "WEs", "pwns", "pwts"),
+                          (v, rec, *planes), (vp, recp, *planes_p)):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"lv_step batch: {name} differs from the "
+                                 f"plain step at {int((a != b).sum())} "
+                                 "places")
+    log(f"lv_step batch (B={B}, T={T}, C={net.n_nodes}, S={S}, K={K}, "
+        f"Ns={Ns}): kernel loop == plain loop bit for bit (v, records, "
+        f"WEs, pwns, pwts); one segmax and one lv_step launch a frame")
+    run = kscan.run
+    x = dec._scale_xw(d["xw"], lm[0])
+    t = T // 2
+    exp = dec._segmax_leg(run.we_buf, x, net.n_nodes)
+
+    def step():
+        run.step(t, t, exp=exp)
+
+    def frames(f, dv, reps=1):
+        return [x / T for x in time_launches(f, dv, 1, reps)]
+
+    def plain_step(f, dv):
+        with fixed_segmax(exp):
+            return frames(f, dv)
+
+    k, p, ks, ps = in_turns(time_launches, lambda: loop(dec._PlainScan),
+                            step, dev, plain_step)
+    kf = frames(lambda: loop(dec._KernelScan), dev, 3)
+    pf = frames(lambda: loop(dec._PlainScan), dev, 3)
+    kfm, pfm = statistics.median(kf), statistics.median(pf)
+    bnd = lv_step_bound(B, net.n_nodes, S, K)
+    log(f"lv_step on {card}: {k:.6f} ms a launch (device, CUDA events "
+        f"over {LAUNCH_LOOP} launches; {100 * bnd[0] / k:.1f}% of its "
+        f"{bnd[0]:.6f}-ms bound by {bnd[1]}), the plain step with "
+        f"segmax's output given (the same function) {p:.6f} ms a frame; "
+        f"the whole frame (segmax and the step): kernel {kfm:.6f} ms, "
+        f"plain {pfm:.6f} ms; samples " + " ".join(f"{y:.6f}" for y in ks)
+        + " | " + " ".join(f"{y:.6f}" for y in ps) + " | "
+        + " ".join(f"{y:.6f}" for y in kf) + " | "
+        + " ".join(f"{y:.6f}" for y in pf))
+    return T, 0.0, (k, p), bnd
+
+
 def certificate_failures(net, WEs, dev) -> int:
     """Frames of one batch whose adaptive-exact certificate fails, so that
     segmax runs in full: algo/decode.py's `safe` (no word end outside the
@@ -1748,17 +1872,22 @@ def phase_trigram(dev):
                            max_active=TOPA, device=dev)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t3
-    n = sum(k.launches for k in COUNTS)
-    if n or any(r is None or not r.words for r in res):
-        raise AssertionError(f"5k trigram: {n} kernel launches, or an "
-                             "utterance without a transcript")
+    want = pad_T([f.shape[0] for f in sysm.feats])
+    n = sum(k.launches for k in COUNTS) - lvs.KERNEL.launches
+    if (n or lvs.KERNEL.launches != want
+            or any(r is None or not r.words for r in res)):
+        raise AssertionError(f"5k trigram: {lvs.KERNEL.launches} lv_step "
+                             f"launches (expected {want}) and {n} of other "
+                             "kernels, or an utterance without a "
+                             "transcript")
     acc = word_accuracy(sysm.truths, [r.words for r in res])
     log(f"5k trigram system (lv_system {t1 - t0:.2f} s, compile_lv_loop "
         f"{t2 - t1:.2f} s): C={net.n_nodes}, {len(x3['pair_u'])} contexts, "
         f"{len(x3['tri_j'])} trigram slots, o3max {x3['o3max']}; "
         f"decode_batch of {len(res)} at max_active={TOPA}: {wall:.3f} s, "
-        f"no kernel launched (the guided leg is torch ops), word accuracy "
-        f"{acc:.2f}% (informational); first words {res[0].words[:8]}")
+        f"one lv_step launch a padded frame ({want}) and no other kernel "
+        f"(the guided leg is torch ops), word accuracy {acc:.2f}% "
+        f"(informational); first words {res[0].words[:8]}")
     return wall
 
 
@@ -5132,6 +5261,8 @@ def main() -> int:
                                                           big.feats, dev)
         paths, rtabs, wtabs, bops, lops = phase_xw_paths(bnet, bWE, dev)
         done("20k factored LV decoder and xw paths")
+        lv_step = phase_lv_step(big, bnet, card, dev)
+        done("uniform step kernel")
         phase_trigram(dev)
         done("5k trigram guidance")
         xt = phase_big_timing(big, bnet, bbatch, bWE, paths, lops, fails,
@@ -5250,6 +5381,9 @@ def main() -> int:
         kernel_entry("lane_gather", xs, "benchmarks/dyngather_probe.py:22",
                      paths["lane_gather"][0], xw_err, xt["lane_gather"],
                      xb["lane_gather"], xt["lane_gather"][2]),
+        kernel_entry("lv_step", "htk_tpu_torch/csrc/lv_step.cu",
+                     "htk_tpu/algo/decode.py : _make_uniform_step (XLA, "
+                     "no Pallas kernel)", *lv_step),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

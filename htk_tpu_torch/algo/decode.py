@@ -42,9 +42,16 @@ row max, word entry a row broadcast, and the cross-word step one of
                   top-A word ends, each scored under its token's trigram
                   context
 
-The frame loop runs in Python with OutP computed chunk-wise, then a
-batched traceback walks the word-link records on the device and only the
-(B, 3, T) path plane comes back to the host.
+The frame loop runs in Python with OutP computed chunk-wise, writing
+each frame's word ends into (B, T, C) planes allocated once a call
+(`_uniform_scan`). On the card a frame is the cross-word leg and one
+launch of ops/lv_step (csrc/lv_step.cu: the entry, the within-word step
+and the next word ends; two launches with a beam), and on the factored
+exact leg the launch forms the back-off max itself, so a frame is
+segmax and lv_step; on the CPU it is the plain step
+(`_make_uniform_step`), the kernel's reference. Then a batched traceback
+walks the word-link records on the device and only the (B, 3, T) path
+plane comes back to the host.
 
 `decode` and `generate_lattice` take the reference's hybrid hook:
 `state_scores` (T, S_phys), ANN log-posteriors minus log-priors (HVite
@@ -84,6 +91,7 @@ import numpy as np
 import torch
 
 from ..models.hmmset import CompiledHMMSet
+from ..ops import lv_step as _lv_step
 from ..ops import maxplus as _maxplus
 from ..ops import xw_gather as _xw_gather
 from ..ops.decode_scan import decode_scan
@@ -321,43 +329,57 @@ def _take(m, an, exp_v, exp_a):
     return torch.maximum(m, exp_v), torch.where(take, exp_a, an)
 
 
+def _backoff(WE, xw):
+    """The back-off leg: each batch row's best WE + bow entering every
+    row c at that plus uni[c]; (bo_best (B,), m, an (B, C))."""
+    bo_best, bo_arg = torch.max(WE + xw["bow"][None], dim=1)
+    m = bo_best[:, None] + xw["uni"][None]
+    return bo_best, m, bo_arg[:, None].expand_as(m)
+
+
 def _factored_leg(xw, C: int, A: Optional[int], adaptive: bool):
-    """cross(WE, pwn) -> (m, an) (B, C) for the factored tables `xw`
-    (LM-scaled): htk_tpu/algo/decode.py:546-643 without the routed hook.
-    The reference picks adaptive-exact's leg with a lax.cond on one
-    batch-wide certificate; here the certificate stays on the device:
+    """(cross, explicit) as `_cross_leg` gives them, for the factored
+    tables `xw` (LM-scaled): htk_tpu/algo/decode.py:546-643 without the
+    routed hook. Without top-A the leg is exact: the back-off max, then
+    `explicit`, the bucket leg (None where the net has no explicit
+    bigram). The reference picks adaptive-exact's leg with a lax.cond on
+    one batch-wide certificate; here the certificate stays on the device:
     segmax launches every frame with it as its `skip` flag, so on the
     card its blocks return at once where the top-A leg is safe, and
     torch.where selects on the same flag. The frame loop never waits on
     the device, and the unspecified outputs of a skipped launch are only
     ever passed over by the where."""
-    use_topa = A is not None and A < C and xw["succ_j"] is not None
-    has_slots = xw["out_row"].numel() > 0
-    bow_r, uni_r = xw["bow"][None], xw["uni"][None]
+    if A is None or A >= C or xw["succ_j"] is None:
+        if xw["out_row"].numel():
+            def explicit(WE):
+                return _segmax_leg(WE, xw, C)
+        else:
+            def explicit(WE):
+                return None
+
+        def cross(WE, pwn):
+            _bo_best, m, an = _backoff(WE, xw)
+            exp = explicit(WE)
+            return (m, an) if exp is None else _take(m, an, *exp)
+
+        return cross, explicit
 
     def cross(WE, pwn):
-        bo_best, bo_arg = torch.max(WE + bow_r, dim=1)
-        m = bo_best[:, None] + uni_r
-        an = bo_arg[:, None].expand_as(m)
-        if use_topa:
-            vals, idxs = _top_a(WE, A)
-            cand = vals[..., None] + xw["succ_p"][idxs]  # (B, A, O)
-            exp_v, exp_a = _scatter_max(cand, xw["succ_j"][idxs], idxs, C)
-            if adaptive:
-                # an excluded source i can beat the back-off floor
-                # bo_best + uni[j] only if WE[i] + marg[i] > bo_best
-                ex_m = (WE + xw["marg"][None]).scatter(1, idxs, 2 * LZERO)
-                safe = (ex_m.amax(dim=1) <= bo_best).all()
-                slow_v, slow_a = _segmax_leg(WE, xw, C, skip=safe)
-                exp_v = torch.where(safe, exp_v, slow_v)
-                exp_a = torch.where(safe, exp_a, slow_a)
-        elif has_slots:
-            exp_v, exp_a = _segmax_leg(WE, xw, C)
-        else:
-            return m, an
+        bo_best, m, an = _backoff(WE, xw)
+        vals, idxs = _top_a(WE, A)
+        cand = vals[..., None] + xw["succ_p"][idxs]  # (B, A, O)
+        exp_v, exp_a = _scatter_max(cand, xw["succ_j"][idxs], idxs, C)
+        if adaptive:
+            # an excluded source i can beat the back-off floor
+            # bo_best + uni[j] only if WE[i] + marg[i] > bo_best
+            ex_m = (WE + xw["marg"][None]).scatter(1, idxs, 2 * LZERO)
+            safe = (ex_m.amax(dim=1) <= bo_best).all()
+            slow_v, slow_a = _segmax_leg(WE, xw, C, skip=safe)
+            exp_v = torch.where(safe, exp_v, slow_v)
+            exp_a = torch.where(safe, exp_a, slow_a)
         return _take(m, an, exp_v, exp_a)
 
-    return cross
+    return cross, None
 
 
 def _trigram_leg(xw, x3, C: int, A: Optional[int]):
@@ -418,20 +440,15 @@ def _trigram_leg(xw, x3, C: int, A: Optional[int]):
     return cross
 
 
-def _make_uniform_step(B, Ns, band, a0, aE, S, entry_bonus_row, trans,
-                       start_entry, word_pen, beam, max_active, xw=None,
-                       xw3=None):
-    """The batched per-frame update as step(carry, outp_t, t), for
-    uniform-row nets (htk_tpu/algo/decode.py : _make_uniform_step).
-    carry = (v (B, Ns) f32, rec (B, Ns) int64 packed records); returns the
-    next carry and this frame's word-end records (WE, pwn, pwt), each
-    (B, C). `t` is the Python frame index, `beam` and `word_pen` Python
-    floats, so the step never waits on the device. `xw`/`xw3` are the
-    factored and trigram tables of `_net_dev`, LM-scaled (`_scale_xw`,
-    `_scale_xw3`). The operations run in the reference's order, which
-    keeps the scores bit-equal to it on the same outp."""
-    C = Ns // S
-    K = band.shape[0]
+def _cross_leg(C: int, trans, max_active, xw=None, xw3=None):
+    """The cross-word leg of the uniform step as (cross, explicit):
+    cross(WE, pwn) -> (m, an) (B, C), each row's best entry score and its
+    source row, by trigram guidance (`xw3`), the factored tables (`xw`),
+    else the dense (C, C) `trans` by top-A or max-plus. On the factored
+    exact leg `explicit(WE)` is its part besides the back-off max,
+    (exp_v, exp_a) or None, which the card's step takes over; on every
+    other leg `explicit` is None. Raises what the reference raises for a
+    leg its tables cannot run."""
     max_active, adaptive = _topa_mode(max_active)
     if C >= REC_MAXROWS:
         HError(8520, "decode_scan_uniform_batch: %d rows exceed the "
@@ -454,18 +471,42 @@ def _make_uniform_step(B, Ns, band, a0, aE, S, entry_bonus_row, trans,
                          "bigram successor tables (out-degree too skewed "
                          "at this vocabulary) — decode without -u or "
                          "disable HDECODE: TRIGUIDE")
-    topa = max_active is not None and max_active < C
+        return _trigram_leg(xw, xw3, C, max_active), None
+    if xw is not None:
+        return _factored_leg(xw, C, max_active, adaptive)
+    if max_active is not None and max_active < C:
+        def cross(WE, pwn):
+            vals, idxs = _top_a(WE, max_active)
+            cand = vals[..., None] + trans[idxs]  # (B, A, C)
+            m, k = torch.max(cand, dim=1)
+            return m, idxs.gather(1, k)
+    else:
+        def cross(WE, pwn):
+            return _maxplus.maxplus(WE, trans, floor=False)
+    return cross, None
+
+
+def _make_uniform_step(B, Ns, band, a0, aE, S, entry_bonus_row, trans,
+                       start_entry, word_pen, beam, max_active, xw=None,
+                       xw3=None):
+    """The batched per-frame update as step(carry, outp_t, t), for
+    uniform-row nets (htk_tpu/algo/decode.py : _make_uniform_step).
+    carry = (v (B, Ns) f32, rec (B, Ns) int64 packed records); returns the
+    next carry and this frame's word-end records (WE, pwn, pwt), each
+    (B, C). `t` is the Python frame index, `beam` and `word_pen` Python
+    floats, so the step never waits on the device. `xw`/`xw3` are the
+    factored and trigram tables of `_net_dev`, LM-scaled (`_scale_xw`,
+    `_scale_xw3`). The operations run in the reference's order, which
+    keeps the scores bit-equal to it on the same outp. This is the plain
+    version of the card's step (ops/lv_step.py), and the CPU's."""
+    C = Ns // S
+    K = band.shape[0]
+    cross, _explicit = _cross_leg(C, trans, max_active, xw, xw3)
     beam_on = beam is not None and beam < _BEAM_OFF
     a0_r = a0.reshape(C, S)[None]
     aE_r = aE[None]
     bonus_r = entry_bonus_row[None]
     start_r = start_entry[None].expand(B, C)
-    if xw3 is not None:
-        cross = _trigram_leg(xw, xw3, C, max_active)
-    elif xw is not None:
-        cross = _factored_leg(xw, C, max_active, adaptive)
-    else:
-        cross = None
 
     def step(carry, outp_t, t: int):
         v, rec = carry
@@ -475,15 +516,7 @@ def _make_uniform_step(B, Ns, band, a0, aE, S, entry_bonus_row, trans,
         prec = rec.reshape(B, C, S).gather(2, best_s[..., None])[..., 0]
         pwn, pwt = _unpack(torch.where(ok, prec, 0))
 
-        if cross is not None:
-            m, an = cross(WE, pwn)
-        elif topa:
-            vals, idxs = _top_a(WE, max_active)
-            cand = vals[..., None] + trans[idxs]  # (B, A, C)
-            m, k = torch.max(cand, dim=1)
-            an = idxs.gather(1, k)
-        else:
-            m, an = _maxplus.maxplus(WE, trans, floor=False)
+        m, an = cross(WE, pwn)
         # the reference computes the step at every frame and takes the
         # start entry at t == 0, with no record
         if t == 0:
@@ -522,6 +555,77 @@ def _uniform_init(B, Ns, device):
             torch.zeros((B, Ns), dtype=torch.int64, device=device))
 
 
+class _PlainScan:
+    """A call's frame loop on the plain step (`_make_uniform_step`),
+    writing each frame's word ends into (B, T, C) planes allocated once.
+    `frames(outp, t0)` steps frames t0.. over the (B, CH, Ns) chunk
+    `outp`; `result()` gives ((v, rec int64) (B, Ns), (WEs, pwns, pwts))."""
+
+    kernel = False
+
+    def __init__(self, B, T, Ns, band, a0, aE, S, bonus, trans, start,
+                 word_pen, beam, max_active, xw, xw3, device):
+        self.step = _make_uniform_step(B, Ns, band, a0, aE, S, bonus,
+                                       trans, start, word_pen, beam,
+                                       max_active, xw, xw3)
+        self.carry = _uniform_init(B, Ns, device)
+        C = Ns // S
+        self.planes = (
+            torch.empty((B, T, C), dtype=torch.float32, device=device),
+            torch.empty((B, T, C), dtype=torch.int32, device=device),
+            torch.empty((B, T, C), dtype=torch.int32, device=device))
+
+    def frames(self, outp, t0: int) -> None:
+        for tl in range(outp.shape[1]):
+            self.carry, ends = self.step(self.carry, outp[:, tl], t0 + tl)
+            for plane, x in zip(self.planes, ends):
+                plane[:, t0 + tl] = x
+
+    def result(self):
+        return self.carry, self.planes
+
+
+class _KernelScan:
+    """`_PlainScan`'s contract on the card: a frame is the cross-word leg
+    and one launch of ops/lv_step.py (two with a beam). On the factored
+    exact leg the launch also forms the back-off max, so the leg is
+    segmax alone; every other leg hands its (m, an) planes over."""
+
+    kernel = True
+
+    def __init__(self, B, T, Ns, band, a0, aE, S, bonus, trans, start,
+                 word_pen, beam, max_active, xw, xw3, device):
+        self.cross, self.explicit = _cross_leg(Ns // S, trans, max_active,
+                                               xw, xw3)
+        tabs = ({} if self.explicit is None
+                else dict(uni=xw["uni"], bow=xw["bow"]))
+        self.run = _lv_step.LvSteps(
+            band, a0, aE, bonus, start, S, B, T, word_pen,
+            beam if beam is not None and beam < _BEAM_OFF else None, **tabs)
+
+    def frames(self, outp, t0: int) -> None:
+        run = self.run
+        run.chunk(outp)
+        for tl in range(outp.shape[1]):
+            t = t0 + tl
+            if self.explicit is not None:
+                run.step(tl, t, exp=self.explicit(run.we_buf))
+            else:
+                run.step(tl, t, *self.cross(run.we_buf, run.pwns[:, t]))
+
+    def result(self):
+        return self.run.result()
+
+
+def _uniform_scan(B, T, Ns, band, a0, aE, S, bonus, trans, start, word_pen,
+                  beam, max_active, xw, xw3, device):
+    """The frame loop of one call: the card's step for CUDA tensors, the
+    plain step otherwise (the tables lie on `device`)."""
+    cls = _KernelScan if torch.device(device).type == "cuda" else _PlainScan
+    return cls(B, T, Ns, band, a0, aE, S, bonus, trans, start, word_pen,
+               beam, max_active, xw, xw3, device)
+
+
 def decode_scan_uniform_batch(
     outp_states,  # (B, T, Ns)
     band, a0, aE,
@@ -541,21 +645,16 @@ def decode_scan_uniform_batch(
     trigram tables of `_net_dev`, LM-scaled (`_scale_xw`, `_scale_xw3`);
     `trans` is then the net's empty (0, 0) matrix."""
     B, T, Ns = outp_states.shape
-    step = _make_uniform_step(
-        B, Ns, band, a0, aE, S, entry_bonus_row, trans, start_entry,
-        word_pen, beam, max_active, xw, xw3)
+    scan = _uniform_scan(B, T, Ns, band, a0, aE, S, entry_bonus_row, trans,
+                         start_entry, word_pen, beam, max_active, xw, xw3,
+                         outp_states.device)
     if T > REC_TMASK:
         HError(8520, "decode_scan_uniform_batch: %d frames exceed the "
                      "packed-record range (%d — chunk longer audio)",
                T, REC_TMASK)
-    carry = _uniform_init(B, Ns, outp_states.device)
-    recs = []
-    for t in range(T):
-        carry, r = step(carry, outp_states[:, t], t)
-        recs.append(r)
-    v, rec = carry
-    return (v, *_unpack(rec)), tuple(
-        torch.stack(p, dim=1) for p in zip(*recs))
+    scan.frames(outp_states, 0)
+    (v, rec), planes = scan.result()
+    return (v, *_unpack(rec)), planes
 
 
 def _traceback_device(vb, wnb, wtb, WEb, pwnb, pwtb, aE, end_exit_s,
@@ -797,28 +896,25 @@ def _lv_scan_body(net, comp, d, precision, max_active, x, lm_scale,
     S = net.uniform_width
     B, T = x.shape[0], x.shape[1]
     Ns = len(net.comp_state)
-    step = _make_uniform_step(
-        B, Ns, d["band"], d["a0"], d["aE"], S, d["bonus"],
+    scan = _uniform_scan(
+        B, T, Ns, d["band"], d["a0"], d["aE"], S, d["bonus"],
         d["trans"] * lm_scale, d["start"] * lm_scale, word_pen, beam,
         max_active, _scale_xw(d.get("xw"), lm_scale),
-        _scale_xw3(d.get("xw3"), lm_scale))
+        _scale_xw3(d.get("xw3"), lm_scale), x.device)
     if state_mode:
         def scorer(chunk):
             return chunk
     else:
         scorer = scorer_with(comp, x.device, precision, model_params)
     CH = _lv_chunk(T, B, Ns)
-    carry = _uniform_init(B, Ns, x.device)
-    recs = []
+    kernel_steps = CH if scan.kernel else 0
     for c in range(T // CH):
         with span("htk.lv.outp"):
             outp_chunk = scorer(x[:, c * CH:(c + 1) * CH])[
                 ..., d["comp_state"]]
-        with span("htk.lv.step", frame_steps=CH):
-            for tl in range(CH):
-                carry, r = step(carry, outp_chunk[:, tl], c * CH + tl)
-                recs.append(r)
-    WEs, pwns, pwts = (torch.stack(p, dim=1) for p in zip(*recs))
+        with span("htk.lv.step", frame_steps=CH, kernel_steps=kernel_steps):
+            scan.frames(outp_chunk, c * CH)
+    carry, (WEs, pwns, pwts) = scan.result()
     return carry, WEs, pwns, pwts
 
 

@@ -326,7 +326,7 @@ def test_factored_tie_rules():
     assert a[0].tolist() == first
     pwn = torch.full((1, C), -1, dtype=torch.int32)
     for A, top in ((3, 2), (2, 1)):  # kept rows 0..A-1: the highest wins
-        m, an = pdec._factored_leg(x, C, A, False)(WE, pwn)
+        m, an = pdec._factored_leg(x, C, A, False)[0](WE, pwn)
         assert an[0].tolist() == [top] * C
 
 
