@@ -53,25 +53,25 @@ segmax and lv_step; on the CPU it is the plain step
 walks the word-link records on the device and only the (B, 3, T) path
 plane comes back to the host.
 
-`decode` and `generate_lattice` take the reference's hybrid hook:
-`state_scores` (T, S_phys), ANN log-posteriors minus log-priors (HVite
--N), replace the GMM OutP; network states gather their columns, which
-feed the decode kernel on general nets and the uniform scan (its
-`state_mode`) on uniform-row nets. `generate_lattice_batch` takes it as
-the reference's `state_scores_list` (HDecode -N), a bucket's scores
-padded on the device. `decode`, `generate_lattice` and
-`generate_lattice_batch` take the reference's adaptation hook too:
-`model_params` ({means, variances, gconsts}, HDecode -J) replaces the
-set's Gaussians through a scorer built for the call (`scorer_with`),
-never the one cached on the set (`scorer_for`). The opt-in routed leg
-(`HTKTPU_XW_ROUTE`) is not taken.
+`decode_batch` and `generate_lattice_batch` take the reference's hybrid
+hook, `state_scores_list`: each utterance's (T, S_phys) scores (ANN
+log-posteriors minus log-priors, HVite and HDecode -N, or a discrete
+set's table lookups) replace the GMM OutP, padded on the device; network
+states gather their columns, which feed the decode kernel on general
+nets and the uniform scan (its `state_mode`) on uniform-row nets. Both
+take the reference's adaptation hook too: `model_params` ({means,
+variances, gconsts}, HDecode -J) replaces the set's Gaussians through a
+scorer built for the call (`scorer_with`), never the one cached on the
+set (`scorer_for`). `decode` and `generate_lattice` are buckets of one
+(`state_scores` one utterance's scores) through the same functions. The
+opt-in routed leg (`HTKTPU_XW_ROUTE`) is not taken.
 
 Word lattices (HVite -z, HDecode, and -n's N-best source) come from the
-same word-end planes: `generate_lattice` (one utterance, the whole planes
-walked on the host) and `generate_lattice_batch` (a bucket through one
-decode; on uniform-row nets the records are compacted on the device
-first, `_lv_lattice_pipeline`), the walk itself the reference's on
-record columns (host numpy).
+same word-end planes: on general nets, and in `generate_lattice` on any
+net, the whole planes walked on the host (`_planes_lattices`); in
+`generate_lattice_batch` on uniform-row nets the records compacted on the
+device first (`_lv_lattice_pipeline`). The walk itself is the
+reference's on record columns (host numpy).
 
 `decode_batch` and `generate_lattice_batch` mark their stages with
 `utils.metrics` spans (`htk.decode.*`, `htk.lattice.*`, and `htk.lv.*` a
@@ -657,37 +657,51 @@ def decode_scan_uniform_batch(
     return (v, *_unpack(rec)), planes
 
 
+def _final_ends(v, wn, wt, planes, aE, tr, S: int):
+    """Each utterance's word ends at its last frame on a uniform-row net,
+    (WE_fin, pwn_fin, pwt_fin) (B, C): plane t_real where t_real < T (ends
+    at t_real-1 are emitted by scan step t_real), else each row's first
+    maximising state of v + aE in the final carry (v, wn, wt) (B, Ns).
+    `planes` = (WEs, pwns, pwts) (B, T, C); `tr` the t_reals, int64 on
+    their device."""
+    WEs, pwns, pwts = planes
+    B, T, C = WEs.shape
+    ev = (v + aE[None]).reshape(B, C, S)
+    best_s = torch.argmax(ev, dim=2, keepdim=True)  # the first maximum
+    WEl = ev.gather(2, best_s)[..., 0]
+    okl = WEl > LSMALL
+
+    def last(x):
+        return torch.where(
+            okl, x.reshape(B, C, S).gather(2, best_s)[..., 0], -1)
+
+    use_last = (tr >= T)[:, None]
+    trc = tr.clamp(0, T - 1)
+    bi = torch.arange(B, device=tr.device)
+    return (torch.where(use_last, WEl, WEs[bi, trc]),
+            torch.where(use_last, last(wn), pwns[bi, trc]),
+            torch.where(use_last, last(wt), pwts[bi, trc]))
+
+
 def _traceback_device(vb, wnb, wtb, WEb, pwnb, pwtb, aE, end_exit_s,
                       t_reals, S: int):
     """Batched record walk on the device for uniform-row nets
     (htk_tpu/algo/decode.py : _traceback_device).
 
-    Finalises each utterance from plane row t_real when t_real < T (ends
-    at t_real-1 are emitted by scan step t_real), else from the final
-    carry; then walks the backpointers with two gathers a step for the
-    whole batch. Returns the (B, 3, T) int32 plane of (node, t_start,
-    t_end) per step in reverse order, -1 padded, and the (B,) path scores.
-    The reference scans all T steps; this stops once every path has
-    ended, checked every _WALK_CHECK steps (the rest is -1 either way).
+    Finalises each utterance at its last frame (`_final_ends`), then
+    walks the backpointers with two gathers a step for the whole batch.
+    Returns the (B, 3, T) int32 plane of (node, t_start, t_end) per step
+    in reverse order, -1 padded, and the (B,) path scores. The reference
+    scans all T steps; this stops once every path has ended, checked
+    every _WALK_CHECK steps (the rest is -1 either way).
     """
     B, T, C = WEb.shape
     dev = WEb.device
     i32 = torch.int32
-    ev = (vb + aE[None]).reshape(B, C, S)
-    WEl, best_s = torch.max(ev, dim=2)
-    okl = WEl > LSMALL
-
-    def last(x):
-        return torch.where(
-            okl, x.reshape(B, C, S).gather(2, best_s[..., None])[..., 0], -1)
-
     tr = torch.as_tensor(t_reals, dtype=torch.int64, device=dev)
-    use_last = (tr >= T)[:, None]
-    trc = tr.clamp(0, T - 1)
     bi = torch.arange(B, device=dev)
-    WE_fin = torch.where(use_last, WEl, WEb[bi, trc])
-    pwn_fin = torch.where(use_last, last(wnb), pwnb[bi, trc])
-    pwt_fin = torch.where(use_last, last(wtb), pwtb[bi, trc])
+    WE_fin, pwn_fin, pwt_fin = _final_ends(vb, wnb, wtb, (WEb, pwnb, pwtb),
+                                           aE, tr, S)
 
     score, i0 = torch.max(WE_fin + end_exit_s[None], dim=1)
     ok = score > LSMALL
@@ -744,23 +758,42 @@ def run_decode_batch(
                                         word_pen))
 
 
-def _final_records(net, v, wn, wt):
-    """Per-node word-end records from the final state vector."""
+def _final_records(net, v, wn, wt, kind=None):
+    """Per-node word-end records (WE_fin float64, pwn_fin, pwt_fin int64)
+    (Nn,) from the final state vector: each node's first state in a
+    descending argsort of v + aE, where that score lies above LZERO
+    (LZERO and -1 elsewhere). In a descending order a node's first state
+    is the one a strict-greater scan over that order keeps. `kind` is the
+    sort's: numpy's default for the 1-best, "stable" for the lattice
+    walk, as the reference sorts each."""
     nos = np.asarray(net.node_of_chain[net.chain_of])
     e_state = np.asarray(v) + np.asarray(net.aE)
-    wn = np.asarray(wn)
-    wt = np.asarray(wt)
+    order = np.argsort(-e_state, kind=kind)
+    nodes, first = np.unique(nos[order], return_index=True)
+    sel = order[first]
+    e = e_state[sel].astype(np.float64)
+    win = e > LZERO
+    nodes, sel = nodes[win], sel[win]
     Nn = net.n_nodes
     WE_fin = np.full(Nn, LZERO, np.float64)
     pwn_fin = np.full(Nn, -1, np.int64)
     pwt_fin = np.full(Nn, -1, np.int64)
-    for s in np.argsort(-e_state):
-        i = nos[s]
-        if e_state[s] > WE_fin[i]:
-            WE_fin[i] = e_state[s]
-            pwn_fin[i] = wn[s]
-            pwt_fin[i] = wt[s]
+    WE_fin[nodes] = e[win]
+    pwn_fin[nodes] = np.asarray(wn)[sel]
+    pwt_fin[nodes] = np.asarray(wt)[sel]
     return WE_fin, pwn_fin, pwt_fin
+
+
+def _last_ends(net, carry, planes, b: int, tr: int, kind=None):
+    """Utterance b's word-end records at its last frame tr - 1 from one
+    padded scan's host arrays: plane tr where the scan ran past it (ends
+    at time tr-1 are emitted by scan step tr), else `_final_records` of
+    the final carry (`kind` its sort)."""
+    WEb, pwnb, pwtb = planes
+    if tr < WEb.shape[1]:
+        return (WEb[b, tr].astype(np.float64), pwnb[b, tr].astype(np.int64),
+                pwtb[b, tr].astype(np.int64))
+    return _final_records(net, *(x[b] for x in carry), kind=kind)
 
 
 def _finalize(net, WEs, pwns, pwts, WE_fin, pwn_fin, pwt_fin, T_real,
@@ -835,15 +868,38 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return a
 
 
-def _outp_states(net, comp, feats, state_scores, precision, device,
+def pad_frames(feats_list, T: int) -> np.ndarray:
+    """A bucket's frames (T_b, D) zero-padded into one (B, T, D) float32
+    host array."""
+    fb = np.zeros((len(feats_list), T, feats_list[0].shape[1]), np.float32)
+    for b, f in enumerate(feats_list):
+        fb[b, :f.shape[0]] = f
+    return fb
+
+
+def _bucket_input(who, feats_list, lens, state_scores_list, model_params,
+                  pad_to, device):
+    """What a bucket's scan reads, padded to T, the longest of `lens`
+    rounded up to `pad_to`: its frames as one (B, T, D) host array, or the
+    hybrid hook's state scores as one (B, T, S_phys) tensor on `device`
+    (`_pad_scores`). HError 8626 where both hooks are given."""
+    if state_scores_list is not None and model_params is not None:
+        HError(8626, "%s: model_params adapt the Gaussians of a GMM set; "
+                     "hybrid state_scores_list take none", who)
+    T = ((max(lens) + pad_to - 1) // pad_to) * pad_to
+    if state_scores_list is None:
+        return pad_frames(feats_list, T)
+    return _pad_scores(state_scores_list, lens, T, device)
+
+
+def _outp_states(net, comp, x, state_mode, precision, device,
                  model_params=None):
-    """(1, T, Ns) network-state scores of one utterance: the hybrid
-    hook's (T, S_phys) `state_scores` gathered on the network's states,
-    or the GMM OutP of `feats` (under `model_params` if given)."""
-    if state_scores is None:
-        return _net_outp(net, comp, feats[None], precision, device,
-                         model_params)
-    return _state_outp(net, _as_scores(state_scores, device)[None])
+    """(B, T, Ns) network-state scores of a padded bucket `x`: its hybrid
+    scores gathered under `state_mode`, else the GMM OutP of its frames
+    (under `model_params` if given)."""
+    if state_mode:
+        return _state_outp(net, x)
+    return _net_outp(net, comp, x, precision, device, model_params)
 
 
 def _state_outp(net, scores: torch.Tensor) -> torch.Tensor:
@@ -949,29 +1005,12 @@ def _decode_uniform(net, comp, x, t_reals, lm_scale, word_pen, beam,
         _BEAM_OFF if beam is None else float(beam), max_active, precision,
         state_mode, model_params)
     p = packed.cpu().numpy()  # (B, 3, T): one transfer for all planes
-    return _format_uniform_results(net, p[:, 0], p[:, 1], p[:, 2],
-                                   scores.cpu().numpy())
-
-
-def _format_uniform_results(net, nodes_b, t0_b, t1_b, scores_b):
     out: List[Optional[DecodeResult]] = []
-    for b in range(nodes_b.shape[0]):
-        if scores_b[b] <= LSMALL:
-            out.append(None)
-            continue
-        words, nds, times, wscores = [], [], [], []
-        valid = nodes_b[b] >= 0
-        for k in range(int(valid.sum()) - 1, -1, -1):  # reverse order
-            node = int(nodes_b[b, k])
-            sym = net.node_out[node]
-            sym = net.node_words[node] if sym is None else sym
-            if sym:
-                words.append(sym)
-                nds.append(node)
-                times.append((int(t0_b[b, k]), int(t1_b[b, k])))
-                wscores.append(0.0)
-        out.append(DecodeResult(words=words, word_nodes=nds, times=times,
-                                score=float(scores_b[b]), scores=wscores))
+    for pb, sc in zip(p, scores.cpu().numpy()):
+        # each path plane's valid steps, in reverse order, as a chain
+        n = int((pb[0] >= 0).sum())
+        out.append(None if sc <= LSMALL else _result_from_chain(
+            net, pb[:, :n][:, ::-1].T.tolist(), float(sc)))
     return out
 
 
@@ -1053,37 +1092,16 @@ def decode(
     *,
     device,
 ) -> Optional[DecodeResult]:
-    """Decode one utterance on `device`; returns None if no complete path
-    survives. On uniform-row nets an utterance longer than the packed
-    record's frame range (REC_TMASK) is decoded in chunks.
-
-    `state_scores` (T, S_phys), numpy or a tensor, replaces the GMM
-    observation model: the hybrid-decoding hook (ANN log-posterior minus
-    log-prior scores, HVite -N). `model_params` {means, variances,
-    gconsts} replaces the set's Gaussians: the speaker-adaptation hook
-    (HDecode -J)."""
-    T = feats.shape[0]
-    if net.uniform_width:
-        if T > REC_TMASK:
-            return _decode_chunked(net, comp, feats, lm_scale, word_pen,
-                                   precision, beam, max_active, device,
-                                   state_scores, model_params)
-        state_mode = state_scores is not None
-        x = (_as_scores(state_scores, device) if state_mode else feats)[None]
-        return _decode_uniform(net, comp, x, [T], lm_scale, word_pen, beam,
-                               max_active, precision, device,
-                               state_mode, model_params)[0]
-    outp_states = _outp_states(net, comp, feats, state_scores, precision,
-                               device, model_params)
-    (vb, wnb, wtb), (WEs, pwns, pwts) = run_decode_batch(
-        outp_states, net, lm_scale, word_pen,
+    """Decode one utterance on `device`, as a bucket of one
+    (`decode_batch` at `pad_to`=1); returns None if no complete path
+    survives. `state_scores` (T, S_phys), numpy or a tensor, is the hybrid
+    hook (HVite -N) and `model_params` the adaptation hook (HDecode -J),
+    as `decode_batch` takes them."""
+    return decode_batch(
+        net, comp, [feats], lm_scale, word_pen, precision, pad_to=1,
         beam=beam, max_active=max_active,
-    )
-    WE_fin, pwn_fin, pwt_fin = _final_records(
-        net, vb[0].cpu().numpy(), wnb[0].cpu().numpy(), wtb[0].cpu().numpy())
-    return _finalize(net, WEs[0].cpu().numpy(), pwns[0].cpu().numpy(),
-                     pwts[0].cpu().numpy(), WE_fin, pwn_fin, pwt_fin, T,
-                     lm_scale)
+        state_scores_list=None if state_scores is None else [state_scores],
+        model_params=model_params, device=device)[0]
 
 
 def decode_batch(
@@ -1096,57 +1114,71 @@ def decode_batch(
     pad_to: int = 128,
     beam: Optional[float] = None,
     max_active: Optional[int] = None,
+    state_scores_list=None,
+    model_params: Optional[dict] = None,
     *,
     device,
 ) -> List[Optional[DecodeResult]]:
     """Decode a batch of utterances together on `device`: one decode
     launch on general nets, one uniform-row scan on lvnet nets (one
     maxplus launch a frame on the dense exact leg, one segmax launch a
-    frame on the factored exact and adaptive legs).
+    frame on the factored exact and adaptive legs). Each result is None
+    where no complete path survives.
 
     Utterances are zero-padded to a common frame count rounded up to
     `pad_to`. Padding never affects results: the recursion is causal and
     each utterance finalises from the word-end plane at its own t_real
-    (WEs[t] holds the ends at time t-1). Identical output to `decode`
-    per utterance. On uniform-row nets, utterances longer than REC_TMASK
-    frames go through `decode` (chunked) one by one, the rest batch.
+    (WEs[t] holds the ends at time t-1), or from the final carry where
+    t_real is the padded count. On uniform-row nets an utterance longer
+    than REC_TMASK frames is decoded in chunks (`_decode_chunked`) on its
+    own, the rest batch.
+
+    `state_scores_list` (each utterance's (T_b, S_phys) scores, numpy or
+    tensors, or one padded (B, T', S_phys) tensor; `feats_list` then
+    gives only the lengths) and `model_params` (the whole bucket's) are
+    the hybrid and adaptation hooks; HError 8626 where both are given.
     """
     with span("htk.decode.batch"):
         return _decode_batch(net, comp, feats_list, lm_scale, word_pen,
-                             precision, pad_to, beam, max_active, device)
+                             precision, pad_to, beam, max_active,
+                             state_scores_list, model_params, device)
 
 
 def _decode_batch(net, comp, feats_list, lm_scale, word_pen, precision,
-                  pad_to, beam, max_active, device):
+                  pad_to, beam, max_active, state_scores_list, model_params,
+                  device):
     B = len(feats_list)
     lens = [int(f.shape[0]) for f in feats_list]
+    state_mode = state_scores_list is not None
     if net.uniform_width and max(lens) > REC_TMASK:
         out: List[Optional[DecodeResult]] = [None] * B
         short = [b for b in range(B) if lens[b] <= REC_TMASK]
         for b in range(B):
             if lens[b] > REC_TMASK:
-                out[b] = decode(net, comp, feats_list[b], lm_scale,
-                                word_pen, precision, beam=beam,
-                                max_active=max_active, device=device)
+                out[b] = _decode_chunked(
+                    net, comp, feats_list[b], lm_scale, word_pen, precision,
+                    beam, max_active, device,
+                    state_scores_list[b][:lens[b]] if state_mode else None,
+                    model_params)
         if short:
-            rs = decode_batch(net, comp, [feats_list[b] for b in short],
-                              lm_scale, word_pen, precision, pad_to, beam,
-                              max_active, device=device)
+            rs = _decode_batch(
+                net, comp, [feats_list[b] for b in short], lm_scale,
+                word_pen, precision, pad_to, beam, max_active,
+                [state_scores_list[b] for b in short] if state_mode
+                else None, model_params, device)
             for b, r in zip(short, rs):
                 out[b] = r
         return out
     with span("htk.decode.pad"):
-        T = ((max(lens) + pad_to - 1) // pad_to) * pad_to
-        D = feats_list[0].shape[1]
-        fb = np.zeros((B, T, D), np.float32)
-        for b, f in enumerate(feats_list):
-            fb[b, : lens[b]] = f
-
+        x = _bucket_input("decode_batch", feats_list, lens,
+                          state_scores_list, model_params, pad_to, device)
     if net.uniform_width:
-        return _decode_uniform(net, comp, fb, lens, lm_scale, word_pen,
-                               beam, max_active, precision, device)
+        return _decode_uniform(net, comp, x, lens, lm_scale, word_pen,
+                               beam, max_active, precision, device,
+                               state_mode, model_params)
     with span("htk.decode.outp"):
-        outp = _net_outp(net, comp, fb, precision, device)
+        outp = _outp_states(net, comp, x, state_mode, precision, device,
+                            model_params)
     with span("htk.decode.scan"):
         (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
             outp, net, lm_scale, word_pen, beam=beam, max_active=max_active)
@@ -1157,18 +1189,10 @@ def _decode_batch(net, comp, feats_list, lm_scale, word_pen, precision,
 
     out: List[Optional[DecodeResult]] = []
     with span("htk.decode.finalize"):
-        for b in range(B):
-            tr = lens[b]
-            if tr == T:
-                WE_fin, pwn_fin, pwt_fin = _final_records(
-                    net, vb[b], wnb[b], wtb[b])
-            else:
-                # ends at time tr-1 were emitted by scan step tr
-                WE_fin = WEb[b, tr].astype(np.float64)
-                pwn_fin = pwnb[b, tr].astype(np.int64)
-                pwt_fin = pwtb[b, tr].astype(np.int64)
-            out.append(_finalize(net, WEb[b], pwnb[b], pwtb[b], WE_fin,
-                                 pwn_fin, pwt_fin, tr, lm_scale))
+        for b, tr in enumerate(lens):
+            fin = _last_ends(net, (vb, wnb, wtb), (WEb, pwnb, pwtb), b, tr)
+            out.append(_finalize(net, WEb[b], pwnb[b], pwtb[b], *fin, tr,
+                                 lm_scale))
     return out
 
 
@@ -1346,66 +1370,49 @@ def generate_lattice(
     below the best record at the same frame are dropped. `max_preds` > 1
     adds alternative-predecessor arcs (HLVRec semantics, see
     `_lattice_from_rec`); HDecode's lattices use it. General and
-    uniform-row (LV) networks alike: the planes of the whole utterance
-    come to the host.
+    uniform-row (LV) networks alike: a bucket of one whose planes come to
+    the host whole (`_planes_lattices`, the general-net branch of
+    `generate_lattice_batch`).
 
     `want_result=True` additionally returns the 1-best DecodeResult from
     the same recursion, so HVite -z needs one decode, not two.
     `state_scores` and `model_params` are the hybrid and adaptation
     hooks, as in `decode`.
     """
-    T = feats.shape[0]
-    outp_states = _outp_states(net, comp, feats, state_scores, precision,
-                               device, model_params)
-    (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
-        outp_states, net, lm_scale, word_pen,
-        beam=beam, max_active=max_active,
-    )
-    return _lattice_from_host_planes(
-        net, WEb[0].cpu().numpy(), pwnb[0].cpu().numpy(),
-        pwtb[0].cpu().numpy(),
-        (vb[0].cpu().numpy(), wnb[0].cpu().numpy(), wtb[0].cpu().numpy()),
-        None, T, lattice_beam, frame_period_s, lm_scale, word_pen,
-        want_result, max_preds)
+    x = _bucket_input(
+        "generate_lattice", [feats], [feats.shape[0]],
+        None if state_scores is None else [state_scores], model_params, 1,
+        device)
+    return _planes_lattices(
+        net, comp, x, [feats.shape[0]], state_scores is not None,
+        model_params, lm_scale, word_pen, lattice_beam, frame_period_s,
+        precision, beam, max_active, want_result, max_preds, device)[0]
 
 
-def _lattice_from_host_planes(net, WEs, pwns, pwts, carry, fin, T,
-                              lattice_beam, frame_period_s, lm_scale,
-                              word_pen, want_result, max_preds=1):
+def _planes_lattices(net, comp, x, lens, state_mode, model_params, lm_scale,
+                     word_pen, lattice_beam, frame_period_s, precision, beam,
+                     max_active, want_results, max_preds, device):
+    """Each utterance's lattice (with its 1-best under `want_results`)
+    from one decode of the padded bucket `x` (`_bucket_input`), its planes
+    walked whole on the host (`lattices_from_planes`)."""
+    outp = _outp_states(net, comp, x, state_mode, precision, device,
+                        model_params)
+    carry, planes = run_decode_batch(outp, net, lm_scale, word_pen,
+                                     beam=beam, max_active=max_active)
+    return lattices_from_planes(net, carry, planes, lens, lattice_beam,
+                                frame_period_s, lm_scale, word_pen,
+                                want_results, max_preds)
+
+
+def _lattice_from_host_planes(net, WEs, pwns, pwts, fin, T, lattice_beam,
+                              frame_period_s, lm_scale, word_pen,
+                              want_result, max_preds=1):
     """Lattice (+ optional 1-best) from host-fetched word-end planes.
 
     `WEs/pwns/pwts` cover scan steps 0..T-1 (step t holds ends at time
-    t-1). Final-frame (T-1) records come from `fin` =
-    (WE_fin, pwn_fin, pwt_fin) when given — the padded-batch case, where
-    they are plane T of the full scan — else from `carry` = (v, wn, wt),
-    the final state vector of an unpadded scan. Shared by the sequential
-    and generic-batched generators (identical output, tested)."""
-    if fin is not None:
-        WE_fin = np.asarray(fin[0], np.float64)
-        pwn_fin = np.asarray(fin[1], np.int64)
-        pwt_fin = np.asarray(fin[2], np.int64)
-    else:
-        v, wn, wt = carry
-        # final-frame records
-        v = np.asarray(v)
-        wn = np.asarray(wn)
-        wt = np.asarray(wt)
-        nos = np.asarray(net.node_of_chain[net.chain_of])
-        e_state = np.asarray(v + np.asarray(net.aE), np.float64)
-        Nn = net.n_nodes
-        WE_fin = np.full(Nn, LZERO, np.float64)
-        pwn_fin = np.full(Nn, -1, np.int64)
-        pwt_fin = np.full(Nn, -1, np.int64)
-        # per-node max over states; stable sort keeps the FIRST state
-        # among equal scores, matching the former strict-greater scan
-        s_ord = np.argsort(-e_state, kind="stable")
-        i_ord = nos[s_ord]
-        _uniq, first = np.unique(i_ord, return_index=True)
-        sel = s_ord[first]
-        win = e_state[sel] > LZERO
-        WE_fin[i_ord[first][win]] = e_state[sel][win]
-        pwn_fin[i_ord[first][win]] = np.asarray(wn, np.int64)[sel][win]
-        pwt_fin[i_ord[first][win]] = np.asarray(wt, np.int64)[sel][win]
+    t-1); `fin` = (WE_fin float64, pwn_fin, pwt_fin int64) holds the
+    final-frame (T-1) records (`_last_ends`)."""
+    WE_fin, pwn_fin, pwt_fin = fin
 
     # the records, columnar (see _lattice_from_rec): the in-beam ends of
     # the (T-1, Nn) plane in np.nonzero's row-major (t asc, node asc)
@@ -1432,9 +1439,8 @@ def _lattice_from_host_planes(net, WEs, pwns, pwts, carry, fin, T,
                 np.int64))
     res = None
     if want_result:
-        res = _finalize(net, WEs, pwns, pwts, WE_fin.astype(np.float64),
-                        pwn_fin.astype(np.int64), pwt_fin.astype(np.int64),
-                        T, lm_scale)
+        res = _finalize(net, WEs, pwns, pwts, WE_fin, pwn_fin, pwt_fin, T,
+                        lm_scale)
     if not recs[0].size:
         return (None, res) if want_result else None
 
@@ -1738,9 +1744,8 @@ def _lv_lattice_pipeline(net, comp, x, t_reals, lm_scale, word_pen, beam,
     holds the hybrid hook's state scores (B, T, S_phys), gathered a chunk
     at a time), then on the device
 
-      - the final word ends of each utterance: plane t_real when
-        t_real < T (ends at t_real-1 are emitted by scan step t_real),
-        else the final carry, as `_traceback_device` takes them;
+      - the final word ends of each utterance (`_final_ends`, as
+        `_traceback_device` takes them);
       - each frame's K = min(k_lat, C) best word ends;
       - all of those inside the lattice beam, selected strongest-first
         into M = min(T*K, k_rec) slots, with each utterance's in-beam
@@ -1763,22 +1768,9 @@ def _lv_lattice_pipeline(net, comp, x, t_reals, lm_scale, word_pen, beam,
     B, T, C = WEs.shape
     dev = x.device
     with span("htk.lattice.compact"):
-        ev = (v + d["aE"][None]).reshape(B, C, S)
-        best_s = torch.argmax(ev, dim=2, keepdim=True)  # the first maximum
-        WEl = ev.gather(2, best_s)[..., 0]
-        okl = WEl > LSMALL
-        wn, wt = _unpack(rec)
-        pwnl = torch.where(
-            okl, wn.reshape(B, C, S).gather(2, best_s)[..., 0], -1)
-        pwtl = torch.where(
-            okl, wt.reshape(B, C, S).gather(2, best_s)[..., 0], -1)
         tr = torch.as_tensor(np.asarray(t_reals, np.int64), device=dev)
-        use_last = (tr >= T)[:, None]
-        trc = tr.clamp(0, T - 1)
-        bi = torch.arange(B, device=dev)
-        WE_fin = torch.where(use_last, WEl, WEs[bi, trc])
-        pwn_fin = torch.where(use_last, pwnl, pwns[bi, trc])
-        pwt_fin = torch.where(use_last, pwtl, pwts[bi, trc])
+        WE_fin, pwn_fin, pwt_fin = _final_ends(
+            v, *_unpack(rec), (WEs, pwns, pwts), d["aE"], tr, S)
 
         K = min(k_lat, C)
         sc_k, ix_k = _ranked(WEs, K)  # (B, T, K)
@@ -1875,10 +1867,6 @@ def generate_lattice_batch(
     host. It takes no `model_params`.
     """
     state_mode = state_scores_list is not None
-    if state_mode and model_params is not None:
-        HError(8626, "generate_lattice_batch: model_params adapt the "
-                     "Gaussians of a GMM set; hybrid state_scores_list "
-                     "take none")
     with span("htk.lattice.batch"):
         B = len(feats_list)
         lens = [int(f.shape[0]) for f in feats_list]
@@ -1887,29 +1875,18 @@ def generate_lattice_batch(
                          "packed record's 15-bit frame field (max %d) — "
                          "chunk the utterance", max(lens), REC_TMASK)
         with span("htk.lattice.pad"):
-            T = ((max(lens) + pad_to - 1) // pad_to) * pad_to
-            if state_mode:
-                x = _pad_scores(state_scores_list, lens, T, device)
-            else:
-                D = feats_list[0].shape[1]
-                fb = np.zeros((B, T, D), np.float32)
-                for b, f in enumerate(feats_list):
-                    fb[b, : lens[b]] = f
+            x = _bucket_input("generate_lattice_batch", feats_list, lens,
+                              state_scores_list, model_params, pad_to,
+                              device)
         if not net.uniform_width:
-            outp = (_state_outp(net, x) if state_mode else
-                    _net_outp(net, comp, fb, precision, device,
-                              model_params))
-            (vb, wnb, wtb), (WEb, pwnb, pwtb) = run_decode_batch(
-                outp, net, lm_scale, word_pen, beam=beam,
-                max_active=max_active)
-            return lattices_from_planes(
-                net, (vb, wnb, wtb), (WEb, pwnb, pwtb), lens, lattice_beam,
-                frame_period_s, lm_scale, word_pen, want_results, max_preds)
+            return _planes_lattices(
+                net, comp, x, lens, state_mode, model_params, lm_scale,
+                word_pen, lattice_beam, frame_period_s, precision, beam,
+                max_active, want_results, max_preds, device)
 
-        if not state_mode:
-            x = torch.as_tensor(fb, device=device)
         r, (WEs_d, pwns_d, pwts_d) = _lv_lattice_pipeline(
-            net, comp, x, lens, float(lm_scale), float(word_pen),
+            net, comp, torch.as_tensor(x, device=device), lens,
+            float(lm_scale), float(word_pen),
             _BEAM_OFF if beam is None else float(beam), float(lattice_beam),
             max_active, precision,
             LAT_TOPK if k_lat is None else int(k_lat), int(k_rec),
@@ -2046,26 +2023,22 @@ def _chain(recs, node, t, pn, pt):
 def lattices_from_planes(net, carry, planes, lens, lattice_beam,
                          frame_period_s, lm_scale, word_pen,
                          want_results=False, max_preds=1):
-    """Per-utterance lattices from one padded scan's output on a general
-    net: `carry` = (v, wn, wt) (B, Ns) and `planes` = (WE, pwn, pwt)
+    """Per-utterance lattices from one padded scan's output:
+    `carry` = (v, wn, wt) (B, Ns) and `planes` = (WE, pwn, pwt)
     (B, T, Nn), as `run_decode_batch` returns them, and each utterance's
     real frame count in `lens` (htk_tpu/algo/decode.py : the walk of
     `_generate_lattice_batch_generic`). The plane slices at each
     utterance's own t_real are exactly the unpadded planes."""
-    vb, wnb, wtb = (x.cpu().numpy() for x in carry)
-    WEb, pwnb, pwtb = (x.cpu().numpy() for x in planes)
-    T = WEb.shape[1]
+    carry = [x.cpu().numpy() for x in carry]
+    planes = [x.cpu().numpy() for x in planes]
+    WEb, pwnb, pwtb = planes
     out = []
     for b, tr in enumerate(lens):
-        if tr == T:
-            carry_b, fin = (vb[b], wnb[b], wtb[b]), None
-        else:
-            # ends at time tr-1 were emitted by scan step tr
-            carry_b, fin = None, (WEb[b, tr], pwnb[b, tr], pwtb[b, tr])
         r = _lattice_from_host_planes(
-            net, WEb[b, :tr], pwnb[b, :tr], pwtb[b, :tr], carry_b, fin,
-            tr, lattice_beam, frame_period_s, lm_scale, word_pen,
-            want_results, max_preds)
+            net, WEb[b, :tr], pwnb[b, :tr], pwtb[b, :tr],
+            _last_ends(net, carry, planes, b, tr, kind="stable"), tr,
+            lattice_beam, frame_period_s, lm_scale, word_pen, want_results,
+            max_preds)
         out.append((r if isinstance(r, tuple) else (r, None))
                    if want_results else r)
     return out

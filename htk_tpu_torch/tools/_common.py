@@ -1,4 +1,5 @@
-"""Shared tool plumbing: data-file opening, precision, device.
+"""Shared tool plumbing: data-file opening, precision, device, the
+decoders' retry ladder.
 
 The port's tools run on the CUDA card. The environment variable
 `HTK_TPU_TORCH_DEVICE=cpu` asks for the CPU instead (the tests do); with
@@ -44,6 +45,18 @@ def outp_precision(cfg: Config) -> str:
         HError(1019, "HTKTPU: PRECISION must be highest|high|default "
                "(got %s)", p)
     return p
+
+
+def _retry_ladder(gen_beam, max_act, cfg: Config):
+    """The HFB.c-style retry escalation, decoder side, as (beam, max
+    active) steps for an utterance whose pruned decode found no path: the
+    beam widened by HREC: PRUNERETRYINC (default 200) twice, then
+    unpruned."""
+    inc = cfg.flt_("PRUNERETRYINC", 200.0, module="HREC")
+    ladder = ([(gen_beam + inc, max_act), (gen_beam + 2 * inc, max_act)]
+              if gen_beam is not None and inc > 0 else [])
+    ladder.append((None, None))
+    return ladder
 
 
 DEVICE_ENV = "HTK_TPU_TORCH_DEVICE"

@@ -76,7 +76,8 @@ from typing import List
 import numpy as np
 
 from ..algo.adapt import load_tmf_text, speaker_from_mask
-from ..algo.decode import generate_lattice, generate_lattice_batch
+from ..algo.decode import (generate_lattice, generate_lattice_batch,
+                           pad_frames)
 from ..algo.latops import best_path_trigram
 from ..algo.lvnet import compile_lv_loop
 from ..algo.nnet import check_targets, hybrid_outp
@@ -93,7 +94,7 @@ from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
 from ..utils.metrics import maybe_profile
 from ._common import (default_device, open_speech_file, outp_precision,
-                      preload_corpus)
+                      preload_corpus, _retry_ladder)
 from ._xfcli import (chain_feature_data, chain_model_params,
                      load_input_transforms, resolve_chain)
 
@@ -339,10 +340,7 @@ def run(argv: List[str]) -> int:
                     # one ANN pass over the batch's padded frames; the
                     # score plane stays on the device
                     lens = [f.shape[0] for f in fl]
-                    fb = np.zeros((len(fl), -(-max(lens) // 128) * 128,
-                                   fl[0].shape[1]), np.float32)
-                    for b, f in enumerate(fl):
-                        fb[b, :lens[b]] = f
+                    fb = pad_frames(fl, -(-max(lens) // 128) * 128)
                     scores = hybrid_outp(ann, fb, device=device, model=model,
                                          lengths=lens, precision=prec)
                 ls = generate_lattice_batch(
@@ -378,16 +376,10 @@ def run(argv: List[str]) -> int:
     # being reported as failed. The beam rides the scan as a traced
     # operand, so widening does not recompile.
     if main_beam is not None or max_active is not None:
-        inc = cfg.flt_("PRUNERETRYINC", 200.0, module="HREC")
         for j, lt in enumerate(lats):
             if lt is not None:
                 continue
-            ladder = []
-            if main_beam is not None and inc > 0:
-                ladder = [(main_beam + inc, max_active),
-                          (main_beam + 2 * inc, max_active)]
-            ladder.append((None, None))
-            for b, ma in ladder:
+            for b, ma in _retry_ladder(main_beam, max_active, cfg):
                 HRError(8525, "HDecode: no path for %s under pruning; "
                               "retrying at %s",
                         entries[j].logical,

@@ -44,11 +44,11 @@ the device scorer cached on the set, so the next decode scores the
 adapted Gaussians. A set loaded full-covariance adapts with MLLRMEAN and
 plain CMLLR only (HError 7450 otherwise), as in the reference.
 
-A discrete set (DISCRETE or _V feature files) recognises each file on
-its own: its codewords read as int64 columns, their table-lookup scores
-(algo/fb_discrete.discrete_state_scores, a device tensor) fed through
-the decoder's `state_scores` hook, one decode launch an utterance, as in
-the reference.
+A discrete set (DISCRETE or _V feature files) reads its codewords as
+int64 columns; their table-lookup scores (algo/fb_discrete.
+discrete_state_scores, a device tensor, one utterance at a time) feed
+the decoder's `state_scores_list` hook in place of OutP, as the ANN's
+do under -N.
 
 Live mode (HVite.c with SOURCEKIND = HAUDIO and no files): samples
 stream from the audio source (io/audio.py; HAUDIO: AUDIOSOURCE = <file>
@@ -59,14 +59,14 @@ after each 0.25 s read, -T 1 the final `live:` line.
 
 Config: HNET: FORCECXTEXP/ALLOWXWRDEXP/CFPHONES/SHAREINTERIORS,
 HREC: DECODEBATCH (recognition batch size, default 8), LATTICEBEAM,
-PRUNERETRYINC, HTKTPU: PRECISION, HTKTPU: PROFILE. Several files decode
-in length-sorted buckets of DECODEBATCH utterances, one decode launch per
-bucket, and with -z each bucket's lattices and 1-best come from that one
-launch; feature-space (CMLLR) transform chains batch too. A single file,
--n, -N, discrete sets and model-space transform chains take the
-per-utterance path. The
-device is the CUDA card, or the CPU when HTK_TPU_TORCH_DEVICE=cpu asks for
-it (tools/_common.py).
+PRUNERETRYINC, HTKTPU: PRECISION, HTKTPU: PROFILE. Files decode in
+length-sorted buckets of DECODEBATCH utterances, one decode launch per
+bucket, and with -z or -n each bucket's lattices and 1-bests come from
+that one launch; -N, discrete sets and feature-space (CMLLR) transform
+chains batch too. Under model-space transform chains, which change the
+set before each decode, a bucket is one utterance; so is each retry of
+the ladder. The device is the CUDA card, or the CPU when
+HTK_TPU_TORCH_DEVICE=cpu asks for it (tools/_common.py).
 """
 
 from __future__ import annotations
@@ -78,8 +78,7 @@ import numpy as np
 
 from ..algo import adapt
 from ..algo.composite import build_composite
-from ..algo.decode import (decode, decode_batch, generate_lattice,
-                           generate_lattice_batch)
+from ..algo.decode import decode_batch, generate_lattice_batch
 from ..algo.fb_discrete import discrete_state_scores
 from ..algo.latops import nbest_paths
 from ..algo.nnet import hybrid_outp
@@ -99,7 +98,7 @@ from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
 from ..utils.metrics import maybe_profile
 from ._common import (default_device, open_speech_file, outp_precision,
-                      preload_corpus)
+                      preload_corpus, _retry_ladder)
 from ._xfcli import load_input_transforms, resolve_chain
 
 USAGE = ("Usage: python -m htk_tpu_torch.tools.hvite [options] dictFile "
@@ -138,16 +137,6 @@ def _out_label_path(logical: str, out_dir: Optional[str], ext: str) -> str:
     stem = os.path.splitext(os.path.basename(logical))[0]
     name = f"{stem}.{ext}"
     return os.path.join(out_dir, name) if out_dir else name
-
-
-def _retry_ladder(gen_beam, max_act, cfg):
-    """The HFB.c-style retry escalation, decoder side: the beam widened
-    twice, then unpruned."""
-    inc = cfg.flt_("PRUNERETRYINC", 200.0, module="HREC")
-    ladder = ([(gen_beam + inc, max_act), (gen_beam + 2 * inc, max_act)]
-              if gen_beam is not None and inc > 0 else [])
-    ladder.append((None, None))
-    return ladder
 
 
 def _transcription(res, period) -> Transcription:
@@ -434,8 +423,6 @@ def run(argv: List[str]) -> int:
     scores: dict = {}
 
     def state_scores(j):
-        if ann is None and not comp.discrete:
-            return None
         if j not in scores:
             scores[j] = (discrete_state_scores(comp, featl[j], device=device)
                          if ann is None else hybrid_outp(
@@ -447,56 +434,43 @@ def run(argv: List[str]) -> int:
         lt.utterance = stem
         write_slf(lt, os.path.join(out_dir or ".", f"{stem}.{lat_ext}"))
 
-    def decode_one(j, b, ma, first):
-        """One utterance's decode (with its lattice under -z/-n)."""
+    def recognise(idx, b, ma, first):
+        """The 1-bests of the utterances `idx`, decoded as one bucket at
+        beam `b` and max active `ma`, with their lattices under -z/-n; a
+        retry (`first` False) writes a lattice only with a recovered
+        1-best. The hybrid and discrete scores go in each utterance's
+        own, through the decoder's `state_scores_list` hook."""
         if model_xf:
-            adapted(j)
+            adapted(idx[0])
+        fl = [featl[j] for j in idx]
+        ss = ([state_scores(j) for j in idx]
+              if ann is not None or comp.discrete else None)
         if not want_lat:
-            return decode(net, comp, featl[j], lm_scale, word_pen,
-                          precision=prec, beam=b, max_active=ma,
-                          state_scores=state_scores(j), device=device)
-        lt, r = generate_lattice(
-            net, comp, featl[j], lm_scale, word_pen, lattice_beam=lat_beam,
-            frame_period_s=period / 1e7, precision=prec, want_result=True,
-            beam=b, max_active=ma, state_scores=state_scores(j),
+            return decode_batch(net, comp, fl, lm_scale, word_pen,
+                                precision=prec, beam=b, max_active=ma,
+                                state_scores_list=ss, device=device)
+        prs = generate_lattice_batch(
+            net, comp, fl, lm_scale, word_pen, lattice_beam=lat_beam,
+            frame_period_s=period / 1e7, precision=prec, beam=b,
+            max_active=ma, want_results=True, state_scores_list=ss,
             device=device)
-        lats[j] = lt
-        # a retry writes its lattice only with a recovered 1-best
-        if lat_ext and lt is not None and (first or r is not None):
-            write_lat(j, lt)
-        return r
+        for j, (lt, r) in zip(idx, prs):
+            lats[j] = lt
+            if lat_ext and lt is not None and (first or r is not None):
+                write_lat(j, lt)
+        return [r for _lt, r in prs]
 
+    # length-sorted buckets of DECODEBATCH, one decode launch a bucket;
+    # under model-space transforms the set changes before each decode, so
+    # a bucket is one utterance
+    order = sorted(range(len(featl)), key=lambda i: featl[i].shape[0])
+    bsz = (1 if model_xf else
+           int(cfg.int_("DECODEBATCH", 8, module="HREC") or 8))
     with maybe_profile(cfg, "HVite"):
-        if (len(featl) > 1 and not ta.has("n") and ann is None
-                and not comp.discrete and not model_xf):
-            # batched recognition: one decode launch per length-sorted
-            # bucket, identical results to the per-utterance path; with
-            # -z the bucket's lattices come from the same launch
-            order = sorted(range(len(featl)),
-                           key=lambda i: featl[i].shape[0])
-            bsz = int(cfg.int_("DECODEBATCH", 8, module="HREC") or 8)
-            for i0 in range(0, len(order), bsz):
-                idx = order[i0 : i0 + bsz]
-                fl = [featl[j] for j in idx]
-                if lat_ext:
-                    prs = generate_lattice_batch(
-                        net, comp, fl, lm_scale, word_pen,
-                        lattice_beam=lat_beam, frame_period_s=period / 1e7,
-                        precision=prec, beam=gen_beam, max_active=max_act,
-                        want_results=True, device=device)
-                    for j, (lt, r) in zip(idx, prs):
-                        results[j] = r
-                        if lt is not None:
-                            write_lat(j, lt)
-                else:
-                    rs = decode_batch(net, comp, fl, lm_scale, word_pen,
-                                      precision=prec, beam=gen_beam,
-                                      max_active=max_act, device=device)
-                    for j, r in zip(idx, rs):
-                        results[j] = r
-        else:
-            results = [decode_one(j, gen_beam, max_act, True)
-                       for j in range(len(featl))]
+        for i0 in range(0, len(order), bsz):
+            idx = order[i0:i0 + bsz]
+            for j, r in zip(idx, recognise(idx, gen_beam, max_act, True)):
+                results[j] = r
     if gen_beam is not None or max_act is not None:
         for j, r in enumerate(results):
             if r is not None:
@@ -505,7 +479,7 @@ def run(argv: List[str]) -> int:
                 HRError(8525, "HVite: no tokens for %s under pruning; "
                               "retrying at %s", entries[j].logical,
                         "unpruned" if b is None else f"beam {b:.0f}")
-                r = decode_one(j, b, ma, False)
+                r = recognise([j], b, ma, False)[0]
                 if r is not None:
                     results[j] = r
                     break

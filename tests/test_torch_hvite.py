@@ -19,6 +19,7 @@ from htk_tpu.io.mmf import save_mmf as j_save_mmf
 from htk_tpu.tools import hvite as jax_hvite
 from htk_tpu_torch.synth import word_accuracy, write_system
 from htk_tpu_torch.tools import hvite as torch_hvite
+from htk_tpu_torch.utils.logmath import LZERO
 
 from _torch_compare import one_torch_thread  # noqa: F401
 from test_discrete import discrete_set
@@ -107,6 +108,124 @@ def test_decode_batch_equals_per_utterance(system):
         assert abs(r.score - one.score) < 1e-3
 
 
+@pytest.mark.parametrize("hook", ["hybrid", "discrete", "model_params"])
+def test_decode_batch_hooks_equal_reference(system, hook):
+    """decode_batch's hybrid hook (`state_scores_list`: ANN-style scores
+    of either sign, and a discrete set's table lookups) and adaptation
+    hook (`model_params`) on a general net: every utterance of a padded
+    bucket decodes as htk_tpu's own `decode` of it under the same hook."""
+    from htk_tpu.algo import decode as jdec
+    from htk_tpu.algo.net import compile_network as j_net
+    from htk_tpu.algo.net import word_internal_phone_map as j_pmap
+    from htk_tpu.io.dictionary import read_dict as j_dict
+    from htk_tpu.io.mmf import load_mmf as j_mmf
+    from htk_tpu.io.slf import read_slf as j_slf
+    from htk_tpu.models.hmmset import compile_hmmset as j_comp
+    from htk_tpu_torch.algo.decode import decode_batch
+    from htk_tpu_torch.algo.net import compile_network, word_internal_phone_map
+    from htk_tpu_torch.io.dictionary import read_dict
+    from htk_tpu_torch.io.htkfeat import read_htk_file
+    from htk_tpu_torch.io.mmf import load_mmf
+    from htk_tpu_torch.io.slf import read_slf
+    from htk_tpu_torch.models.hmmset import compile_hmmset
+    from htk_tpu_torch.tools._xfcli import recomputed_gconsts
+
+    s, _cfg = system
+    jc = j_comp(j_mmf([s.hmmdefs]))
+    jn = j_net(j_slf(s.wdnet), j_dict(s.dict), jc,
+               phone_map=j_pmap(jc.names))
+    pc = compile_hmmset(load_mmf([s.hmmdefs]))
+    pn = compile_network(read_slf(s.wdnet), read_dict(s.dict), pc,
+                         phone_map=word_internal_phone_map(pc.names))
+    feats = [read_htk_file(p).data for p in s.feats[:4]]
+    rng = np.random.default_rng(3)
+    if hook == "model_params":
+        mp = {"means": pc.means + 0.3, "variances": pc.variances * 0.8}
+        mp["gconsts"] = recomputed_gconsts(pc, mp["variances"])
+        got = decode_batch(pn, pc, feats, 2.0, -3.0, pad_to=64,
+                           model_params=mp, device="cpu")
+        kws = [{"model_params": mp}] * len(feats)
+    else:
+        if hook == "hybrid":
+            scores = [rng.normal(0.0, 3.0, (len(f), pc.n_states)).astype(
+                np.float32) for f in feats]
+        else:
+            table = np.log(rng.dirichlet(np.ones(16), pc.n_states)).astype(
+                np.float32)
+            scores = [np.ascontiguousarray(
+                table[:, rng.integers(0, 16, len(f))].T) for f in feats]
+        got = decode_batch(pn, pc, feats, 2.0, -3.0, pad_to=64,
+                           state_scores_list=scores, device="cpu")
+        kws = [{"state_scores": sc} for sc in scores]
+    for f, r, kw in zip(feats, got, kws):
+        ref = jdec.decode(jn, jc, f, 2.0, -3.0, **kw)
+        assert r is not None and ref is not None
+        assert (r.words, r.times) == (list(ref.words), list(ref.times))
+        assert r.score == pytest.approx(ref.score, rel=1e-5)
+
+
+def _final_records_loop(net, v, wn, wt, kind=None):
+    """The Python loop `_final_records` was, over a sort of `kind`: each
+    state in descending order of v + aE, taken where it beats its node's
+    best so far (LZERO at the start)."""
+    nos = np.asarray(net.node_of_chain[net.chain_of])
+    e_state = np.asarray(v) + np.asarray(net.aE)
+    WE_fin = np.full(net.n_nodes, LZERO, np.float64)
+    pwn_fin = np.full(net.n_nodes, -1, np.int64)
+    pwt_fin = np.full(net.n_nodes, -1, np.int64)
+    for st in np.argsort(-e_state, kind=kind):
+        i = nos[st]
+        if e_state[st] > WE_fin[i]:
+            WE_fin[i] = e_state[st]
+            pwn_fin[i] = wn[st]
+            pwt_fin[i] = wt[st]
+    return WE_fin, pwn_fin, pwt_fin
+
+
+@pytest.mark.parametrize("kind", [None, "stable"])
+def test_final_records_equal_the_loop(kind):
+    """The vectorised word-end finals against the loop they replaced, on
+    a net with planted ties (states of one node at the same v + aE with
+    different records), states at and below LZERO, and nodes with no
+    live state; under the stable sort a tie goes to the lowest state."""
+    from types import SimpleNamespace
+
+    from htk_tpu_torch.algo.decode import _final_records
+
+    rng = np.random.default_rng(11)
+    Nc, Nn = 300, 60
+    chain_of = np.repeat(np.arange(Nc), 4)
+    Ns = chain_of.size
+    net = SimpleNamespace(
+        node_of_chain=rng.integers(0, Nn - 3, Nc), chain_of=chain_of,
+        aE=np.where(rng.random(Ns) < 0.2, LZERO,
+                    rng.integers(-2, 1, Ns)).astype(np.float32),
+        n_nodes=Nn)
+    v = rng.integers(-6, 0, Ns).astype(np.float32)  # ties galore
+    v[rng.random(Ns) < 0.15] = LZERO
+    # node Nn - 3: one chain, its states at v + aE == LZERO exactly
+    net.node_of_chain[0] = Nn - 3
+    v[:4], net.aE[:4] = LZERO, 0.0
+    wn = rng.permutation(Ns).astype(np.int32)
+    wt = rng.integers(0, 500, Ns).astype(np.int32)
+    got = _final_records(net, v, wn, wt, kind=kind)
+    ref = _final_records_loop(net, v, wn, wt, kind=kind)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype
+        np.testing.assert_array_equal(g, r)
+    nos = net.node_of_chain[chain_of]
+    e = v + net.aE
+    live = [i for i in range(Nn) if (e[nos == i] > LZERO).any()]
+    assert live and Nn - 3 not in live
+    tied = [i for i in live
+            if (e[nos == i] == e[nos == i].max()).sum() > 1]
+    assert tied
+    if kind == "stable":
+        for i in live:
+            first = np.flatnonzero((nos == i) & (e == e[nos == i].max()))[0]
+            assert got[1][i] == wn[first]
+
+
 def test_convert_carries_jax_objects(system):
     """convert.py rebuilds the JAX package's compiled set and network as
     the port's, equal to the port's own compilation of the same files."""
@@ -151,7 +270,8 @@ def test_unported_options_raise_numbered_error(system, tmp_path, opt,
     """Recognition with a discrete set, refused with HError 3290 until
     the discrete module was ported, now decodes as the reference does:
     tests/test_torch_discrete.py's codeword files over a word loop of
-    A and B, each file on its own, rec.mlf byte-identical. Input
+    A and B, each file's table-lookup scores through the decoder's
+    state_scores_list hook, rec.mlf byte-identical. Input
     transforms (-J, and -k), refused until the adaptation module was
     ported, now decode as the reference does: a global MLLRMEAN TMF under
     -J (-k adds nothing, the MMF has no ~a), rec.mlf byte-identical."""
@@ -165,9 +285,10 @@ def test_unported_options_raise_numbered_error(system, tmp_path, opt,
         mmf = os.path.join(root, "discrete")
         j_save_mmf(discrete_set(), mmf)
         calls = []
-        real = pdec.decode
-        monkeypatch.setattr(torch_hvite, "decode", lambda *a, **k: (
-            calls.append(k["state_scores"].shape), real(*a, **k))[1])
+        real = pdec.decode_batch
+        monkeypatch.setattr(torch_hvite, "decode_batch", lambda *a, **k: (
+            calls.extend(x.shape for x in k["state_scores_list"]),
+            real(*a, **k))[1])
         outs = []
         for run, tag in ((jax_hvite.run, "j"), (torch_hvite.run, "p")):
             mlf = os.path.join(root, f"rec_{tag}.mlf")

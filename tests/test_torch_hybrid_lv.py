@@ -18,7 +18,7 @@ over utterances of unequal lengths:
       of the hook fed the GMM's own state scores, byte for byte.
 
 Also: the hook on a general net, the padded-tensor form, and
-`model_params` refused beside it.
+`model_params` refused beside it, by `decode_batch` too.
 """
 
 import numpy as np
@@ -240,6 +240,11 @@ def test_model_params_beside_the_hook_are_refused(case):
           "gconsts": pc.gconsts}
     with pytest.raises(HTKError) as e:
         _batch(case, case["single"], model_params=mp)
+    assert e.value.code == 8626
+    with pytest.raises(HTKError) as e:
+        pdec.decode_batch(case["pn"], pc, case["feats"], LM, PEN,
+                          state_scores_list=case["single"], model_params=mp,
+                          device="cpu")
     assert e.value.code == 8626
 
 

@@ -551,6 +551,35 @@ def test_long_utterance_chunks_as_reference():
     assert got[1].times[-1][1] > pdec.CHUNK_T
 
 
+@pytest.mark.parametrize("hook", ["state_scores", "model_params"])
+def test_long_utterance_keeps_its_hooks(hook):
+    """Over 32,767 frames under a hook: decode_batch hands the long
+    utterance to the chunked decode with its own hybrid scores (cut at
+    their low-norm frames) or the bucket's adapted Gaussians, and each
+    utterance decodes as htk_tpu's `decode` of it under the same hook."""
+    jc, jn, pc, pn = nets(SMALL, silent=("S",))
+    unit = emit_frames(["aa", "iy", "sil"], frames_per=8, seed=3)
+    reps = (pdec.REC_TMASK + 2000) // unit.shape[0] + 1
+    feats = [emit_frames(["sil", "aa", "iy", "sil"], seed=5),
+             np.tile(unit, (reps, 1)).astype(np.float32)]
+    mp = {"means": pc.means + 0.05, "variances": pc.variances * 1.1,
+          "gconsts": pc.gconsts + np.float32(pc.dim * np.log(1.1))}
+    if hook == "state_scores":
+        scorer = pdec.scorer_with(pc, "cpu", model_params=mp)
+        scores = [scorer(torch.as_tensor(f)).numpy() for f in feats]
+        got = pdec.decode_batch(pn, pc, feats, pad_to=16,
+                                state_scores_list=scores, device="cpu")
+        kws = [{"state_scores": sc} for sc in scores]
+    else:
+        got = pdec.decode_batch(pn, pc, feats, pad_to=16, model_params=mp,
+                                device="cpu")
+        kws = [{"model_params": mp}] * 2
+    for f, rp, kw in zip(feats, got, kws):
+        assert_results(rp, jdec.decode(jn, jc, f, **kw))
+    assert len(got[1].words) == 2 * reps
+    assert got[1].times[-1][1] > pdec.CHUNK_T
+
+
 def test_unported_legs_raise_8527():
     """The factored and trigram-guided legs, which raised HError 8527
     before they were ported, now equal htk_tpu's through decode,
