@@ -81,10 +81,7 @@ on: a call, a stage or an OutP chunk each, never a frame.
 
 from __future__ import annotations
 
-import contextlib
-import gc
 from dataclasses import dataclass
-from itertools import repeat
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -1539,22 +1536,6 @@ def _resurrect(b, recs, fetch):
     return (cols[0], tuple(cols[1:])), fetches, appended
 
 
-@contextlib.contextmanager
-def _gc_paused():
-    """The cyclic garbage collector paused inside, as it was after. The
-    walk builds a lattice's nodes and arcs under it: tens of thousands of
-    objects that form no reference cycle, whose allocations would
-    otherwise trigger collections that pass over the objects alive
-    (about half the walk's time on 16,000-record lattices)."""
-    was = gc.isenabled()
-    gc.disable()
-    try:
-        yield
-    finally:
-        if was:
-            gc.enable()
-
-
 def _lattice_from_rec(net, recs, T_real, frame_period_s, lm_scale,
                       word_pen, resolve=None, max_preds=1, arc_beam=None):
     """Build a Lattice from beam-kept word-end records.
@@ -1578,10 +1559,14 @@ def _lattice_from_rec(net, recs, T_real, frame_period_s, lm_scale,
     `arc_beam` prunes alternatives scoring worse than the record's own
     path by more than the beam (default: keep all that max_preds allows).
 
-    The open span's counts get `records` (the records walked), `arcs`
-    (every arc) and `alt_arcs` (the alternatives among them).
+    The lattice comes back as columns (`Lattice.from_columns`): node 0
+    the start and node 1 the end (!NULL), then a node a record in (t, i)
+    order; the arcs record by record (its primary arc unless severed,
+    then its final arc), then the alternatives. The open span's counts
+    get `records` (the records walked), `arcs` (every arc) and
+    `alt_arcs` (the alternatives among them).
     """
-    from ..io.slf import Lattice, LArc, LNode, NULL_WORD
+    from ..io.slf import Lattice, LatticeColumns
 
     def _keys(recs):
         pk = _rec_key(recs[0], recs[1])
@@ -1601,15 +1586,12 @@ def _lattice_from_rec(net, recs, T_real, frame_period_s, lm_scale,
     pq = _rec_key(pn_a[m_int], pt_a[m_int])
     n = ii.size
 
-    lat = Lattice(lmscale=lm_scale, wdpenalty=word_pen)
     start_id = 0
     end_id = 1
     # nodes in (t, i) order, the keys' order, ids assigned by rank;
     # node_id lookups become array indexing
     nid_a = np.empty(n, np.int64)
     nid_a[srt] = 2 + np.arange(n, dtype=np.int64)
-    times = ((tt_[srt] + 1) * frame_period_s).tolist()
-    words = list(map(net.node_words.__getitem__, ii[srt].tolist()))
 
     # each record's primary arc (from its best predecessor) and final arc
     end_exit = np.asarray(net.end_exit, np.float64)
@@ -1705,18 +1687,15 @@ def _lattice_from_rec(net, recs, T_real, frame_period_s, lm_scale,
 
     a_src, a_dst, a_ac, a_lm = (np.concatenate(x)
                                 for x in (a_src, a_dst, a_ac, a_lm))
-    cols = (a_src.tolist(), a_dst.tolist(), a_ac.tolist(), a_lm.tolist())
-    with _gc_paused():
-        lat.nodes = [LNode(id=0, time=0.0, word=NULL_WORD),
-                     LNode(id=1, time=T_real * frame_period_s,
-                           word=NULL_WORD)]
-        lat.nodes.extend(map(LNode, range(2, n + 2), times, words))
-        lat.arcs = list(map(LArc, range(a_src.size), cols[0], cols[1],
-                            repeat(None), cols[2], cols[3]))
     add("records", n)
     add("arcs", a_src.size)
     add("alt_arcs", n_alt)
-    return lat
+    return Lattice.from_columns(LatticeColumns(
+        time=np.concatenate([[0.0, T_real * frame_period_s],
+                             (tt_[srt] + 1) * frame_period_s]),
+        word=np.concatenate([[-1, -1], ii[srt]]), words=net.node_words,
+        start=a_src, end=a_dst, aclike=a_ac, lmlike=a_lm),
+        lmscale=lm_scale, wdpenalty=word_pen)
 
 
 # the per-frame top-K width of the batched lattice compaction on

@@ -12,17 +12,25 @@ Mirrors `HTKLib/HLat.c : ReadLattice()/WriteLattice()`:
 Words may sit on nodes (W= on I lines) or on arcs (W= on J lines); both
 forms round-trip. Times are seconds; scores are natural-log.
 
-Copied from `htk_tpu/io/slf.py` into the PyTorch port: host code, numpy
-only, behaviour unchanged. The port cannot use htk_tpu, whose
-utils package pulls in JAX.
+Copied from `htk_tpu/io/slf.py` into the PyTorch port: host code, the
+same SLF bytes. The port cannot use htk_tpu, whose utils package pulls
+in JAX. A lattice may also be held as arrays (`LatticeColumns`, the
+decoders' lattice walk emits them): `write_slf` writes those directly,
+and its `nodes`/`arcs` lists are built on their first read.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from itertools import repeat
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
 
 from ..utils.errors import HError, contained
+from ..utils.metrics import span
 
 NULL_WORD = "!NULL"
 
@@ -46,14 +54,88 @@ class LArc:
     var: int = 0
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """The cyclic garbage collector paused inside, as it was after. A
+    lattice's nodes and arcs are built under it: tens of thousands of
+    objects that form no reference cycle, whose allocations would
+    otherwise trigger collections that pass over the objects alive
+    (about half the build's time on 16,000-record lattices)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
+@dataclass(frozen=True, eq=False)
+class LatticeColumns:
+    """A lattice as arrays. Node k has id k, `time[k]` (float64 seconds)
+    and the word `words[word[k]]` (int64 indices; !NULL where negative);
+    arc k has id k, runs from node `start[k]` to node `end[k]` (int64)
+    and scores `aclike[k]` and `lmlike[k]` (float64). No variants and no
+    words on arcs."""
+
+    time: np.ndarray
+    word: np.ndarray
+    words: Sequence[str]
+    start: np.ndarray
+    end: np.ndarray
+    aclike: np.ndarray
+    lmlike: np.ndarray
+
+    def names(self) -> List[str]:
+        """Each node's word."""
+        words = self.words
+        return [NULL_WORD if k < 0 else words[k] for k in self.word.tolist()]
+
+    def lists(self):
+        """The `LNode` and `LArc` lists, in the span `htk.lattice.views`."""
+        n, m = self.time.size, self.start.size
+        with span("htk.lattice.views", nodes=n, arcs=m), _gc_paused():
+            nodes = list(map(LNode, range(n), self.time.tolist(),
+                             self.names()))
+            arcs = list(map(LArc, range(m), self.start.tolist(),
+                            self.end.tolist(), repeat(None),
+                            self.aclike.tolist(), self.lmlike.tolist()))
+        return nodes, arcs
+
+
 @dataclass
 class Lattice:
+    """A lattice as `LNode`/`LArc` lists, or (`from_columns`) as arrays
+    whose lists are built on the first read of `nodes` or `arcs`; from
+    then on the lists are the lattice, and an edit through them is what
+    `write_slf` writes."""
+
     nodes: List[LNode] = field(default_factory=list)
     arcs: List[LArc] = field(default_factory=list)
     utterance: Optional[str] = None
     lmscale: float = 1.0
     wdpenalty: float = 0.0
     header: Dict[str, str] = field(default_factory=dict)
+
+    _columns = None  # a LatticeColumns until the lists are built
+
+    @classmethod
+    def from_columns(cls, columns: LatticeColumns, **kw) -> "Lattice":
+        """A lattice held as `columns` (`kw`: the other fields)."""
+        lat = cls(**kw)
+        del lat.nodes, lat.arcs
+        lat._columns = columns
+        return lat
+
+    def __getattr__(self, name):
+        # reached only for an attribute that is not set: `nodes` or
+        # `arcs` of a lattice from columns, before their first read
+        if name not in ("nodes", "arcs") or self._columns is None:
+            raise AttributeError(name)
+        for k, v in zip(("nodes", "arcs"), self._columns.lists()):
+            vars(self).setdefault(k, v)  # a list set before stays
+        self._columns = None
+        return vars(self)[name]
 
     @property
     def word_on_nodes(self) -> bool:
@@ -148,20 +230,42 @@ def _parse_slf(lines, lat, n_nodes, n_arcs, path) -> Lattice:
     return lat
 
 
+# %s formats as str() and %.2f as format(x, ".2f"), the bytes of HTK's
+# writer, whichever form the lattice is held in
+_NODE_LINE = "I=%s t=%.2f%s%s\n"
+_ARC_LINE = "J=%s S=%s E=%s%s a=%.2f l=%.4f\n"
+
+
+def _line_fields(lat: Lattice):
+    """The fields of `lat`'s node lines (id, time, word, variant) and arc
+    lines (id, start, end, word, aclike, lmlike), each a sequence: from
+    its columns while neither list has been read or set, else from its
+    lists."""
+    cols = getattr(lat, "_columns", None)
+    if cols is not None and not {"nodes", "arcs"} & vars(lat).keys():
+        none = repeat("")
+        return ((range(cols.time.size), cols.time.tolist(),
+                 list(map(" W=".__add__, cols.names())), none),
+                (range(cols.start.size), cols.start.tolist(),
+                 cols.end.tolist(), none, cols.aclike.tolist(),
+                 cols.lmlike.tolist()))
+    nodes, arcs = lat.nodes, lat.arcs
+    return (([n.id for n in nodes], [n.time for n in nodes],
+             [f" W={n.word}" if n.word is not None else "" for n in nodes],
+             [f" v={n.var}" if n.var else "" for n in nodes]),
+            ([a.id for a in arcs], [a.start for a in arcs],
+             [a.end for a in arcs],
+             [f" W={a.word}" if a.word is not None else "" for a in arcs],
+             [a.aclike for a in arcs], [a.lmlike for a in arcs]))
+
+
 def write_slf(lat: Lattice, path: str) -> None:
+    nodes, arcs = _line_fields(lat)
     with open(path, "w") as f:
         f.write("VERSION=1.0\n")
         if lat.utterance:
             f.write(f"UTTERANCE={lat.utterance}\n")
         f.write(f"lmscale={lat.lmscale:.2f} wdpenalty={lat.wdpenalty:.2f}\n")
-        f.write(f"N={len(lat.nodes)} L={len(lat.arcs)}\n")
-        for n in lat.nodes:
-            w = f" W={n.word}" if n.word is not None else ""
-            v = f" v={n.var}" if n.var else ""
-            f.write(f"I={n.id} t={n.time:.2f}{w}{v}\n")
-        for a in lat.arcs:
-            w = f" W={a.word}" if a.word is not None else ""
-            f.write(
-                f"J={a.id} S={a.start} E={a.end}{w} "
-                f"a={a.aclike:.2f} l={a.lmlike:.4f}\n"
-            )
+        f.write(f"N={len(nodes[0])} L={len(arcs[0])}\n")
+        f.write("".join(map(_NODE_LINE.__mod__, zip(*nodes))))
+        f.write("".join(map(_ARC_LINE.__mod__, zip(*arcs))))

@@ -13,7 +13,10 @@ them; some LM scores sit 30 below the rest, so that the arc beam of 250
 drops alternatives. Each case must give byte-identical SLF and the same
 nodes and arcs, float for float, under LATPREDS 1, 2 and 8 and with the
 arc beam off and at 250; the `resolve` cases bring some missing
-predecessors back (a chain of them) and sever the rest.
+predecessors back (a chain of them) and sever the rest. The walk returns
+its lattice as columns and builds no `LNode`/`LArc` (no
+`htk.lattice.views` span while it runs): its SLF is written from the
+columns, and the lists, once read, write the same bytes.
 """
 
 import os
@@ -27,6 +30,7 @@ from htk_tpu.algo import decode as jdec
 from htk_tpu.io import slf as jslf
 from htk_tpu_torch.algo import decode as pdec
 from htk_tpu_torch.io.slf import write_slf
+from htk_tpu_torch.utils import metrics
 from htk_tpu_torch.utils.logmath import LZERO
 
 R, T = 160, 90  # rows (word nodes) and frames of an utterance
@@ -162,14 +166,20 @@ def test_columnar_walk_equals_the_dict_walk(lm, max_preds, arc_beam,
     kw = dict(max_preds=max_preds, arc_beam=arc_beam)
     ref = jdec._lattice_from_rec(net, dict(rec), resolve_one, T, 0.01,
                                  LM_SCALE, PEN, **kw)
-    got = pdec._lattice_from_rec(net, cols, T, 0.01, LM_SCALE, PEN,
-                                 resolve=resolve_cols if resolve else None,
-                                 **kw)
-    assert _slf(got) == _slf(ref)
+    with metrics.recording():
+        got = pdec._lattice_from_rec(
+            net, cols, T, 0.01, LM_SCALE, PEN,
+            resolve=resolve_cols if resolve else None, **kw)
+        names = {r.name for r in metrics.RECORDER.records}
+    assert "htk.lattice.views" not in names
+    assert got._columns is not None and "arcs" not in vars(got)
+    slf = _slf(got)
+    assert slf == _slf(ref) and got._columns is not None
     assert [(n.id, n.time, n.word) for n in got.nodes] == [
         (n.id, n.time, n.word) for n in ref.nodes]
     assert [(a.id, a.start, a.end, a.aclike, a.lmlike) for a in got.arcs] == [
         (a.id, a.start, a.end, a.aclike, a.lmlike) for a in ref.arcs]
+    assert got._columns is None and _slf(got) == slf
     n_alt = len(ref.arcs) - len(jdec._lattice_from_rec(
         net, dict(rec), resolve_one, T, 0.01, LM_SCALE, PEN,
         arc_beam=arc_beam).arcs)
