@@ -31,9 +31,9 @@ big-vocabulary row, factored cross-word legs) and at 5,000 words with a
 trigram LM (its `triguide_5k` row). Phases, each raising on failure:
 
   1. device: a CUDA card is required; its name and power limit are
-     printed; the five kernels (htk_tpu_torch/csrc/decode_scan.cu,
-     fb_scans.cu, maxplus.cu, xw_gather.cu and lv_step.cu) are built from
-     source with nvcc, and the two host libraries
+     printed; the six kernels (htk_tpu_torch/csrc/decode_scan.cu,
+     fb_scans.cu, maxplus.cu, xw_gather.cu, lv_step.cu and lstmp_cell.cu)
+     are built from source with nvcc, and the two host libraries
      (htk_tpu_torch/native/htkio.cpp and htknative.cpp) with g++, in
      parallel
   2. the decode kernel against its plain torch version on random nets
@@ -346,6 +346,20 @@ trigram LM (its `triguide_5k` row). Phases, each raising on failure:
      the plain step a frame with segmax's output given (the same
      function), and the whole frame loop's time a frame (a whole batch,
      segmax and the kernel against the plain step with segmax)
+ 34. (after 33) the LSTMP cell's kernel (csrc/lstmp_cell.cu,
+     ops/lstmp.py) against its plain version at the hybrid LSTMP cell's
+     shape (B = 13 rows, n_c = 832 cells; also B = 8, the last batch, and
+     B = 1) on seeded operands, bit for bit; in turns plain/kernel/
+     kernel/plain, its device time a launch (CUDA events over 100
+     launches) against its byte floor and the plain cell's time; then one
+     whole LSTMP layer (832 cells, 512 projection, from 512 inputs) over
+     a batch of 13 at T = 1,280 + 5 steps (`algo/nnet._lstmp_layer`: a
+     cell launch a step, the step GEMMs on cuBLAS), its time a step; then
+     HDecode -N's OutP, `algo/nnet.hybrid_outp`, on an LSTMP net of the
+     cell's widths (39 inputs, 3 x 832 cells, 512 projection, 9,304
+     outputs, delay 5) over a padded batch of 13 at T = 1,280: its cell
+     launches counted from zero (3 x 1,285, the kernels line's count) and
+     its scores against the same call with the plain cell stepping
  20. one JSON line of kernels, then the device line last
 
 Phase 19 also runs the demo's trigram HDecode stage (LBuild, HDecode
@@ -436,11 +450,12 @@ from htk_tpu_torch.io.mlf import MLF
 from htk_tpu_torch.io.mmf import load_mmf, save_mmf
 from htk_tpu_torch.io.slf import read_slf, write_slf
 from htk_tpu_torch.io.wavefile import read_wave
-from htk_tpu_torch.models.ann import load_ann
+from htk_tpu_torch.models.ann import ANNModule, init_ann, load_ann
 from htk_tpu_torch.models.hmmset import compile_hmmset
 from htk_tpu_torch.models.proto import make_proto
 from htk_tpu_torch.ops import decode_scan as ds
 from htk_tpu_torch.ops import fb_scans as fbs
+from htk_tpu_torch.ops import lstmp as lo
 from htk_tpu_torch.ops import lv_step as lvs
 from htk_tpu_torch.ops import maxplus as mp
 from htk_tpu_torch.ops import tropical as trop
@@ -479,7 +494,8 @@ FORCED_GRIDS = (1, 2, 3, 7, None)  # decode_scan blocks; None: the full grid
 TIMING_B, TIMING_T = 8, 512
 LM_SCALE, WORD_PEN = 8.0, -10.0
 FRAME_S = 0.01
-KERNELS = (ds.KERNEL, fbs.KERNEL, mp.KERNEL, xg.KERNEL, lvs.KERNEL)
+KERNELS = (ds.KERNEL, fbs.KERNEL, mp.KERNEL, xg.KERNEL, lvs.KERNEL,
+           lo.KERNEL)
 # tropical launches the maxplus kernel; xw_gather counts its two entries
 COUNTS = KERNELS + (trop.LAUNCHES, xg.SEGMAX, xg.GATHER_ADD)
 # each profiled kernel's launch count, for a profile timed with CUDA events
@@ -511,6 +527,8 @@ HBM_BPS, FP32_OPS = 3.35e12, 67e12  # H100 SXM data sheet
 BIG = dict(n_words=20000, seed=11)
 BIG_LM_SCALE, BIG_WORD_PEN = 12.0, 0.0
 LV_STEP_B = 13  # phase 33: the hdecode cells' batch of utterances
+LSTMP = dict(B=13, n_c=832, n_r=512, T=1280, delay=5, dim=39,
+             K=9304)  # phase 34
 TRI = dict(n_words=5000, lm_order=3, seed=7)
 ADAPTIVE = -TOPA  # adaptive-exact top-A
 XW_CASE = dict(C=2000, n_slots=80000)  # random segmax / gather-add operands
@@ -1771,6 +1789,147 @@ def phase_lv_step(big, net, card, dev):
         + " ".join(f"{y:.6f}" for y in kf) + " | "
         + " ".join(f"{y:.6f}" for y in pf))
     return T, 0.0, (k, p), bnd
+
+
+def lstmp_cell_bound(B, n_c):
+    """lstmp_cell: the two gate rows (4 n_c a batch row each), c_{t-1},
+    the peepholes (3 n_c) and the bias (4 n_c) in, c_t and m_t out; about
+    29 operations a (batch row, cell) (hbench/metrics/_lstmp_bounds.py
+    holds the benchmark's frozen copy)."""
+    return bound("lstmp_cell", 4 * (8 * B * n_c + 3 * B * n_c + 7 * n_c),
+                 29 * B * n_c)
+
+
+def phase_lstmp(card, dev):
+    """The LSTMP cell's kernel against its plain version, its time a
+    launch, a whole layer's time a step, and the main path's launches and
+    scores (phase 34). Returns the cell launches of one `hybrid_outp`
+    call at the cell's shape, its scores' max |d| from the plain cell's
+    (0: equal bits), (kernel ms a launch, plain ms a step) and the
+    bound."""
+    B, n_c, n_r = LSTMP["B"], LSTMP["n_c"], LSTMP["n_r"]
+    g = torch.Generator(device=dev).manual_seed(34)
+
+    def normal(*shape, sd=1.0):
+        return torch.randn(shape, generator=g, device=dev) * sd
+
+    reset_counts()
+    cells = {}
+    for b in (B, 8, 1):
+        gx, gr, c = normal(2, b, 4 * n_c, sd=3.0), normal(b, 4 * n_c), \
+            normal(b, n_c)
+        peep, bias = normal(3, n_c, sd=0.5), normal(4 * n_c)
+        cell = lo.CellSteps(gx, peep, bias)
+        cell.gr.copy_(gr)
+        cell.c[1].copy_(c)
+        cell.step(1)  # c_{t-1} in c[1], c_t into c[0]
+        ct, m = lo.lstmp_cell_plain(gx[1], gr, c, peep, bias)
+        torch.cuda.synchronize(dev)
+        for name, a, want in (("c_t", cell.c[0], ct), ("m_t", cell.m, m)):
+            if not torch.equal(a.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(
+                    f"lstmp_cell B={b}: {name} differs from the plain "
+                    f"cell at {int((a != want).sum())} places")
+        cells[b] = (cell, (gx[1], gr, c, peep, bias))
+    launches = lo.KERNEL.launches
+    if launches != 3:
+        raise AssertionError(f"lstmp_cell: {launches} launches, expected 3")
+    log(f"lstmp_cell (n_c={n_c}; B={B}, 8, 1): kernel == plain bit for bit "
+        f"(c_t, m_t), one launch a step")
+    cell, ops = cells[B]
+    k, p, ks, ps = in_turns(time_launches, lambda: lo.lstmp_cell_plain(*ops),
+                            lambda: cell.step(1), dev)
+    bnd = lstmp_cell_bound(B, n_c)
+    # one whole layer of the cell's shape (its layers 2-3: 512 inputs)
+    S = LSTMP["T"] + LSTMP["delay"]
+    h = normal(S, B, n_r)
+    w = (normal(4 * n_c, n_r, sd=4 / n_r ** 0.5),
+         normal(4 * n_c, n_r, sd=0.5 / n_r ** 0.5), normal(3, n_c, sd=0.1),
+         normal(4 * n_c, sd=0.1), normal(n_r, n_c, sd=0.75 / n_c ** 0.5))
+    before = lo.KERNEL.launches
+
+    def layer():
+        with torch.no_grad():
+            nnet._lstmp_layer(h, *w)
+
+    lay = [x / S for x in time_launches(layer, dev, 1, 3)]
+    layer_ms = statistics.median(lay)
+    if lo.KERNEL.launches - before != 4 * S:
+        raise AssertionError(f"lstmp layer: {lo.KERNEL.launches - before} "
+                             f"cell launches over 4 calls of {S} steps")
+    n, err = lstmp_main_path(dev)
+    log(f"lstmp_cell on {card}: {k:.6f} ms a launch (device, CUDA events "
+        f"over {LAUNCH_LOOP} launches; {100 * bnd[0] / k:.2f}% of its "
+        f"{bnd[0]:.6f}-ms bound by {bnd[1]}), the plain cell {p:.6f} ms a "
+        f"step; one LSTMP layer (B={B}, {n_r} in, {n_c} cells, {n_r} "
+        f"projection, {S} steps) {layer_ms:.6f} ms a step ({layer_ms * S:.1f} "
+        f"ms a layer); samples " + " ".join(f"{y:.6f}" for y in ks) + " | "
+        + " ".join(f"{y:.6f}" for y in ps) + " | "
+        + " ".join(f"{y:.6f}" for y in lay))
+    return n, err, (k, p), bnd
+
+
+class _PlainCellSteps(lo.CellSteps):
+    """CellSteps that steps with the plain cell on the card too."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.on_card = False
+
+
+def lstmp_main_path(dev):
+    """HDecode -N's OutP on an LSTMP net of the hybrid LSTMP cell's widths
+    (39 inputs, 3 layers of 832 cells and a 512 projection, 9,304 outputs,
+    delay 5): `hybrid_outp` on a padded batch of 13 at T = 1,280, its
+    cell launches counted from zero, against the same call with the plain
+    cell stepping on the card. Returns (launches, max |d|)."""
+    B, n_c, n_r, d = LSTMP["B"], LSTMP["n_c"], LSTMP["n_r"], LSTMP["delay"]
+    T = LSTMP["T"]
+    ann = init_ann("lstmp", LSTMP["dim"], [n_c] * 3, LSTMP["K"], context=0,
+                   activation="LSTMP", projection=n_r, out_delay=d, seed=34)
+    model = ANNModule(ann, dev)
+    lens = np.linspace(T // 3, T, B).astype(int).tolist()
+    rng = np.random.default_rng(34)
+    x = np.zeros((B, T, LSTMP["dim"]), np.float32)
+    for b, n in enumerate(lens):
+        x[b, :n] = rng.standard_normal((n, LSTMP["dim"]))
+
+    def outp():
+        return nnet.hybrid_outp(ann, x, device=dev, model=model,
+                                lengths=lens)
+
+    reset_counts()
+    got = outp()
+    torch.cuda.synchronize(dev)
+    n = lo.KERNEL.launches
+    if n != 3 * (T + d):
+        raise AssertionError(f"lstmp hybrid_outp: {n} cell launches, "
+                             f"expected {3 * (T + d)}")
+    real = nnet.CellSteps
+    nnet.CellSteps = _PlainCellSteps
+    try:
+        want = outp()
+    finally:
+        nnet.CellSteps = real
+    torch.cuda.synchronize(dev)
+    if lo.KERNEL.launches != n:
+        raise AssertionError("lstmp hybrid_outp: the plain cell launched "
+                             "the kernel")
+    rows = torch.cat([got[b, :m] - want[b, :m] for b, m in enumerate(lens)])
+    err = float(rows.abs().max())
+    # the kernel equals the plain cell bit for bit, so the scores do too
+    # where cuBLAS repeats its GEMMs exactly; a wrong cell moves them by
+    # far more than float32's rounding of the largest score
+    scale = float(want.abs().max())
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if not err <= 2.0 ** -16 * scale:
+        raise AssertionError(f"lstmp hybrid_outp: kernel and plain cell "
+                             f"differ by {err:.3e} (scores to {scale:.1f})")
+    log(f"lstmp hybrid_outp (B={B}, T={T}, delay {d}, 3 x {n_c}/{n_r}, "
+        f"{LSTMP['K']} outputs): {n} cell launches; scores "
+        f"{'equal bit for bit' if same else f'within {err:.3e}'} to the "
+        f"plain cell's (max |score| {scale:.1f})")
+    return n, err
 
 
 def certificate_failures(net, WEs, dev) -> int:
@@ -5263,6 +5422,8 @@ def main() -> int:
         done("20k factored LV decoder and xw paths")
         lv_step = phase_lv_step(big, bnet, card, dev)
         done("uniform step kernel")
+        lstmp = phase_lstmp(card, dev)
+        done("LSTMP cell kernel")
         phase_trigram(dev)
         done("5k trigram guidance")
         xt = phase_big_timing(big, bnet, bbatch, bWE, paths, lops, fails,
@@ -5384,6 +5545,8 @@ def main() -> int:
         kernel_entry("lv_step", "htk_tpu_torch/csrc/lv_step.cu",
                      "htk_tpu/algo/decode.py : _make_uniform_step (XLA, "
                      "no Pallas kernel)", *lv_step),
+        kernel_entry("lstmp_cell", "htk_tpu_torch/csrc/lstmp_cell.cu",
+                     "none (htk_tpu has no recurrent layer)", *lstmp),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

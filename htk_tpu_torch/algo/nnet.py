@@ -36,8 +36,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.ann import ANNDef, ANNModule, splice
+from ..models.ann import (LSTMP, ANNDef, ANNModule, ann_arrays, ann_out,
+                          forward, splice)
 from ..ops.fb_scans import fb_scans
+from ..ops.lstmp import CellSteps
 from ..ops.outp import matmul_precision
 from ..utils.errors import HError
 from ..utils.logmath import LZERO, exp_or_zero
@@ -270,35 +272,98 @@ def hybrid_outp(ann: ANNDef, feats, prior_scale: float = 1.0, *, device,
     prior subtraction are float32. `model` reuses `ANNModule(ann,
     device)` across calls.
 
-    One call is the span `htk.ann.forward`, counting the rows run through
-    the net (`frames`, padding included), `flops` (2 x weights x frames),
-    `weight_bytes` (the weights and biases, read once a call) and
-    `act_bytes` (each layer's input and output rows, once); the splice is
-    `htk.ann.splice`."""
+    A net with a recurrent layer or an output delay d (`_stepped_logits`)
+    runs T + d frame steps, in which the frames past an utterance's end
+    repeat its last real frame (the splice's clamp rule), so that row t
+    of an utterance depends on its own frames alone; row t of the scores
+    is the net's output at step t + d. A (T, D) call is a batch of one.
+
+    One call is the span `htk.ann.forward`, counting the rows scored
+    (`frames`, padding included), `flops` (2 x the matrices' weights x
+    the rows stepped, T + d a row of the batch), `weight_bytes` (the
+    weights, biases and peepholes, read once a call) and `act_bytes`
+    (each layer's input and output rows, once); the splice is
+    `htk.ann.splice`, each LSTMP layer's frame loop `htk.ann.recur`."""
     dev = torch.device(device)
     if model is None:
         model = ANNModule(ann, dev)
     shape = np.shape(feats)
     frames = int(np.prod(shape[:-1]))
-    weights = sum(l.weight.size for l in ann.layers)
-    widths = sum(sum(l.weight.shape) for l in ann.layers)
-    with span("htk.ann.forward", frames=frames, flops=2 * weights * frames,
-              weight_bytes=4 * (weights + sum(l.bias.size
-                                              for l in ann.layers)),
-              act_bytes=4 * widths * frames):
+    steps = frames // shape[-2] * (shape[-2] + ann.out_delay)
+    mats = [m for l in ann.layers
+            for m in ((l.weight, l.recur, l.proj) if l.activation == LSTMP
+                      else (l.weight,))]
+    widths = sum(l.weight.shape[1] + ann_out(l) for l in ann.layers)
+    with span("htk.ann.forward", frames=frames,
+              flops=2 * sum(m.size for m in mats) * steps,
+              weight_bytes=4 * sum(a.size for l in ann.layers
+                                   for a in ann_arrays(l)),
+              act_bytes=4 * widths * steps):
         x = torch.as_tensor(feats if torch.is_tensor(feats) else
                             np.asarray(feats, np.float32),
                             dtype=torch.float32, device=dev)
-        with span("htk.ann.splice"):
-            x = splice(x, ann.context, lengths)
         with torch.no_grad(), matmul_precision(precision):
-            logits = model(x.reshape(frames, -1))
+            if ann.recurrent or ann.out_delay:
+                logits = _stepped_logits(ann, model, x.reshape(
+                    -1, *shape[-2:]), lengths)
+            else:
+                with span("htk.ann.splice"):
+                    x = splice(x, ann.context, lengths)
+                logits = model(x.reshape(frames, -1))
             logpost = torch.log_softmax(logits, dim=-1)
             if ann.target_priors is not None:
                 pri = torch.as_tensor(np.asarray(ann.target_priors,
                                                  np.float32), device=dev)
                 logpost = logpost - prior_scale * torch.log(pri)[None, :]
     return logpost.reshape(*shape[:-1], -1)
+
+
+def _stepped_logits(ann: ANNDef, model, x, lengths) -> torch.Tensor:
+    """The logits (B, T, K) of a padded batch x (B, T, D) through a net
+    with recurrent layers or an output delay d: the frames extended to
+    S = T + d steps (past each utterance's last real frame, that frame),
+    spliced, then every layer in order over the S steps, time-major
+    (affine layers on all S x B rows at once, an LSTMP layer by
+    `_lstmp_layer`), and steps d..d + T - 1 kept."""
+    B, T = x.shape[:2]
+    d = ann.out_delay
+    dev = x.device
+    last = torch.as_tensor(np.maximum(np.asarray(
+        [T] * B if lengths is None else lengths, np.int64), 1) - 1,
+        device=dev)
+    idx = torch.minimum(torch.arange(T + d, device=dev)[None],
+                        last[:, None])
+    x = x[torch.arange(B, device=dev)[:, None], idx]
+    with span("htk.ann.splice"):
+        x = splice(x, ann.context, lengths)
+    h = x.transpose(0, 1).contiguous()  # (S, B, D')
+    for l, p in zip(ann.layers, model.params()):
+        if l.activation == LSTMP:
+            h = _lstmp_layer(h, *p)
+        else:
+            h = forward([p], [l.activation], h)
+    return h[d:].transpose(0, 1)
+
+
+def _lstmp_layer(h, wx, wr, peep, b, wrm) -> torch.Tensor:
+    """One LSTMP layer over a call's steps: h (S, B, n_in) time-major ->
+    r (S, B, n_r). One GEMM of W_x over all S x B rows, then a step a
+    frame (the span `htk.ann.recur`): the recurrent GEMM W_r r_{t-1}
+    into the cell's kept row (skipped at t = 0, where r is 0), the cell
+    (ops/lstmp: a kernel launch on the card, the plain version on the
+    CPU), and the projection r_t = W_rm m_t into row t of the output."""
+    S, B, _ = h.shape
+    gx = torch.mm(h.reshape(S * B, -1), wx.T).reshape(S, B, -1)
+    r = torch.empty((S, B, wrm.shape[0]), dtype=h.dtype, device=h.device)
+    cell = CellSteps(gx, peep, b)
+    with span("htk.ann.recur", frame_steps=S,
+              kernel_steps=S if cell.on_card else 0):
+        for t in range(S):
+            if t:
+                torch.mm(r[t - 1], wr.T, out=cell.gr)
+            cell.step(t)
+            torch.mm(cell.m, wrm.T, out=r[t])
+    return r
 
 
 def check_targets(ann: ANNDef, comp) -> None:

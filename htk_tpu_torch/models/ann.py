@@ -1,10 +1,17 @@
-"""Feed-forward ANN definitions (HTK v3.5 HANNet), in torch.
+"""ANN definitions (HTK v3.5 HANNet), in torch.
 
 The PyTorch counterpart of `htk_tpu/models/ann.py` (`HTKLib/HANNet.c`):
-layered feed-forward networks (~L layer macros, ~N network macro) with
-affine + activation layers and a feature-mix context window (FeaMix:
-splicing +/-C frames), used for hybrid decoding (log posterior - log
-prior replaces GMM OutP).
+layered networks (~L layer macros, ~N network macro) with affine +
+activation layers and a feature-mix context window (FeaMix: splicing
++/-C frames), used for hybrid decoding (log posterior - log prior
+replaces GMM OutP).
+
+The port adds one recurrent layer kind that htk_tpu lacks, `LSTMPLayer`:
+the projected LSTM of Sak, Senior and Beaufays (Interspeech 2014), with
+peephole connections and a recurrent projection r_t = W_rm m_t that
+feeds the gates and the next layer. A net that holds one scores frame t
+with its output at frame t + `ANNDef.out_delay` (algo/nnet.hybrid_outp
+runs it); training and live decoding refuse it (`require_feedforward`).
 
 `ANNDef`, `init_ann` (numpy `default_rng(seed)`, so both packages start
 from the same weights) and the text file I/O (`save_ann`, `load_ann`)
@@ -21,6 +28,19 @@ Storage uses HTK-style macro syntax inside an MMF-like text file:
   <BIAS> 512  ...
   ...
   <TARGETPRIORS> K  ...
+
+An LSTMP layer (`<ACTIVATION> LSTMP`, `<NUMUNITS>` its projection n_r)
+adds its recurrent, peephole and projection matrices between its
+weight and its bias, and a net with an output delay says so in its
+header (`<OUTDELAY> 5` after `<CONTEXT>`); a file without either reads
+and writes as before:
+
+  <LAYER> 1 <NUMUNITS> 512 <ACTIVATION> LSTMP
+  <WEIGHT> 3328 39  ...W_x rows: the gates i, f, c, o, n_c rows each...
+  <RECURRENT> 3328 512  ...W_r rows, the same gate order...
+  <PEEPHOLE> 3 832  ...p_i, p_f, p_o...
+  <PROJECTION> 512 832  ...W_rm rows...
+  <BIAS> 3328  ...
 """
 
 from __future__ import annotations
@@ -35,6 +55,7 @@ from torch import nn
 from ..utils.errors import HError
 
 ACTIVATIONS = ("SIGMOID", "RELU", "TANH", "SOFTMAX", "LINEAR")
+LSTMP = "LSTMP"
 
 
 @dataclass
@@ -45,12 +66,36 @@ class Layer:
 
 
 @dataclass
+class LSTMPLayer:
+    """A projected LSTM layer with peepholes (Sak, Senior and Beaufays
+    2014). The rows of `weight`, `recur` and `bias` are the gates i, f,
+    c, o in that order, n_c each. Step t, from r_{t-1} and c_{t-1} (both
+    0 before the first frame):
+
+      i = sigmoid(W_ix x + W_ir r + p_i * c_{t-1} + b_i)
+      f = sigmoid(W_fx x + W_fr r + p_f * c_{t-1} + b_f)
+      c_t = f * c_{t-1} + i * tanh(W_cx x + W_cr r + b_c)
+      o = sigmoid(W_ox x + W_or r + p_o * c_t + b_o)
+      m = o * tanh(c_t);   r_t = W_rm m
+
+    r_t is the layer's output."""
+
+    weight: np.ndarray  # W_x (4 n_c, n_in)
+    recur: np.ndarray  # W_r (4 n_c, n_r)
+    peep: np.ndarray  # (3, n_c): p_i, p_f, p_o
+    bias: np.ndarray  # (4 n_c,)
+    proj: np.ndarray  # W_rm (n_r, n_c)
+    activation: str = LSTMP
+
+
+@dataclass
 class ANNDef:
     name: str
-    layers: List[Layer] = field(default_factory=list)
+    layers: List = field(default_factory=list)  # Layer or LSTMPLayer
     context: int = 4  # FeaMix splice window: +/- context frames
     target_priors: Optional[np.ndarray] = None  # (K,) state priors
     target_names: Optional[List[str]] = None  # tied-state macro names
+    out_delay: int = 0  # frame t scores with the net's output at t + this
 
     @property
     def in_dim(self) -> int:
@@ -58,7 +103,20 @@ class ANNDef:
 
     @property
     def out_dim(self) -> int:
-        return self.layers[-1].weight.shape[0]
+        return ann_out(self.layers[-1])
+
+    @property
+    def recurrent(self) -> bool:
+        """Whether a layer carries state from frame to frame."""
+        return any(l.activation == LSTMP for l in self.layers)
+
+
+def require_feedforward(ann: ANNDef, what: str) -> None:
+    """HError 7713 where `ann` holds a recurrent layer: `what` (training,
+    live decoding) runs feed-forward nets only."""
+    if ann.recurrent:
+        HError(7713, "%s: ANN %s has a recurrent (LSTMP) layer; only "
+               "feed-forward nets are supported here", what, ann.name)
 
 
 def splice(feats: torch.Tensor, context: int,
@@ -111,29 +169,49 @@ def forward(params, activations: List[str], x: torch.Tensor,
     return h
 
 
+def ann_out(l) -> int:
+    """A layer's output width."""
+    return (l.proj if l.activation == LSTMP else l.weight).shape[0]
+
+
+def ann_arrays(l):
+    """A layer's arrays in the order `ann_params` gives them."""
+    if l.activation == LSTMP:
+        return (l.weight, l.recur, l.peep, l.bias, l.proj)
+    return (l.weight, l.bias)
+
+
 def ann_params(ann: ANNDef, device="cpu"):
     """The ANN's [(W, b), ...] as float32 tensors on `device` (copies:
-    updating them leaves `ann` as it is)."""
-    return [(torch.tensor(np.asarray(l.weight, np.float32), device=device),
-             torch.tensor(np.asarray(l.bias, np.float32), device=device))
-            for l in ann.layers]
+    updating them leaves `ann` as it is); an LSTMP layer's entry is
+    (W_x, W_r, peep, b, W_rm)."""
+    return [tuple(torch.tensor(np.asarray(a, np.float32), device=device)
+                  for a in ann_arrays(l)) for l in ann.layers]
 
 
 class ANNModule(nn.Module):
-    """An ANNDef as an `nn.Module` on `device`: its parameters are the
-    layers' W, b, W, b, ... in order; forward(x) gives `forward`'s
-    output (pre-softmax logits of a SOFTMAX output layer)."""
+    """An ANNDef as an `nn.Module` on `device`: its parameters are each
+    layer's `ann_params` tensors in order (W, b, W, b, ... for a
+    feed-forward net); forward(x) gives a feed-forward net's `forward`
+    output (pre-softmax logits of a SOFTMAX output layer). A recurrent
+    net runs through algo/nnet.hybrid_outp, on `params()`."""
 
     def __init__(self, ann: ANNDef, device="cpu"):
         super().__init__()
         self.acts = [l.activation for l in ann.layers]
+        groups = ann_params(ann, device)
+        self.sizes = [len(g) for g in groups]
         self.flat = nn.ParameterList(
-            [nn.Parameter(t) for pair in ann_params(ann, device)
-             for t in pair])
+            [nn.Parameter(t) for g in groups for t in g])
 
     def params(self):
-        """[(W, b), ...] of the layers."""
-        return list(zip(self.flat[0::2], self.flat[1::2]))
+        """Each layer's tensors: [(W, b), ...], an LSTMP layer's (W_x,
+        W_r, peep, b, W_rm)."""
+        flat, out, k = list(self.flat), [], 0
+        for n in self.sizes:
+            out.append(tuple(flat[k:k + n]))
+            k += n
+        return out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return forward(self.params(), self.acts, x, return_logits=True)
@@ -149,39 +227,65 @@ class ANNModule(nn.Module):
 def init_ann(
     name: str, in_dim: int, hidden: List[int], out_dim: int,
     context: int = 4, activation: str = "SIGMOID", seed: int = 0,
+    projection: int = 0, out_delay: int = 0,
 ) -> ANNDef:
+    """Hidden layers of `hidden` units and a SOFTMAX output layer, weights
+    uniform in +/-1/sqrt(fan-in), biases 0. With activation LSTMP each
+    hidden entry is an LSTMP layer of that many cells and a projection of
+    `projection` (its peepholes drawn as its W_x is, over n_c)."""
     rng = np.random.default_rng(seed)
-    dims = [in_dim * (2 * context + 1)] + hidden + [out_dim]
+
+    def draw(rows, cols, fan_in):
+        s = 1.0 / np.sqrt(fan_in)
+        return rng.uniform(-s, s, size=(rows, cols)).astype(np.float32)
+
+    width = in_dim * (2 * context + 1)
     layers = []
-    for i in range(len(dims) - 1):
-        fan_in = dims[i]
-        scale = 1.0 / np.sqrt(fan_in)
-        W = rng.uniform(-scale, scale, size=(dims[i + 1], dims[i]))
-        layers.append(
-            Layer(
-                weight=W.astype(np.float32),
-                bias=np.zeros(dims[i + 1], np.float32),
-                activation=activation if i < len(dims) - 2 else "SOFTMAX",
-            )
-        )
-    return ANNDef(name=name, layers=layers, context=context)
+    for n in hidden:
+        if activation == LSTMP:
+            layers.append(LSTMPLayer(
+                weight=draw(4 * n, width, width),
+                recur=draw(4 * n, projection, projection),
+                peep=draw(3, n, n), bias=np.zeros(4 * n, np.float32),
+                proj=draw(projection, n, n)))
+            width = projection
+            continue
+        layers.append(Layer(weight=draw(n, width, width),
+                            bias=np.zeros(n, np.float32),
+                            activation=activation))
+        width = n
+    layers.append(Layer(weight=draw(out_dim, width, width),
+                        bias=np.zeros(out_dim, np.float32),
+                        activation="SOFTMAX"))
+    return ANNDef(name=name, layers=layers, context=context,
+                  out_delay=out_delay)
 
 
 # -- text I/O ---------------------------------------------------------------
 
 
+def _write_matrix(f, tag: str, M: np.ndarray) -> None:
+    f.write(f"{tag} {M.shape[0]} {M.shape[1]}\n")
+    for row in M:
+        f.write(" " + " ".join("%.6e" % v for v in row) + "\n")
+
+
 def save_ann(ann: ANNDef, path: str) -> None:
     with open(path, "w") as f:
         f.write(f'~N "{ann.name}"\n')
-        f.write(f"<NUMLAYERS> {len(ann.layers)} <CONTEXT> {ann.context}\n")
+        f.write(f"<NUMLAYERS> {len(ann.layers)} <CONTEXT> {ann.context}"
+                + (f" <OUTDELAY> {ann.out_delay}" if ann.out_delay else "")
+                + "\n")
         for li, l in enumerate(ann.layers):
-            out_d, in_d = l.weight.shape
-            f.write(f"<LAYER> {li + 1} <NUMUNITS> {out_d} "
+            lstmp = l.activation == LSTMP
+            f.write(f"<LAYER> {li + 1} <NUMUNITS> {ann_out(l)} "
                     f"<ACTIVATION> {l.activation}\n")
-            f.write(f"<WEIGHT> {out_d} {in_d}\n")
-            for row in l.weight:
-                f.write(" " + " ".join("%.6e" % v for v in row) + "\n")
-            f.write(f"<BIAS> {out_d}\n")
+            _write_matrix(f, "<WEIGHT>", l.weight)
+            if lstmp:
+                _write_matrix(f, "<RECURRENT>", l.recur)
+                _write_matrix(f, "<PEEPHOLE>", l.peep)
+                _write_matrix(f, "<PROJECTION>", l.proj)
+            f.write(f"<BIAS> {len(l.bias)}\n")
             f.write(" " + " ".join("%.6e" % v for v in l.bias) + "\n")
         if ann.target_priors is not None:
             f.write(f"<TARGETPRIORS> {len(ann.target_priors)}\n")
@@ -191,11 +295,29 @@ def save_ann(ann: ANNDef, path: str) -> None:
             f.write(" ".join(ann.target_names) + "\n")
 
 
+def _lstmp_layer(path, W, b, parts) -> LSTMPLayer:
+    """An LSTMP entry's arrays, their shapes checked (HError 7711)."""
+    if set(parts) != {"<RECURRENT>", "<PEEPHOLE>", "<PROJECTION>"}:
+        HError(7711, "load_ann: %s: an LSTMP layer needs <RECURRENT>, "
+               "<PEEPHOLE> and <PROJECTION>, found %s", path,
+               " ".join(sorted(parts)) or "none")
+    R, P, M = (parts[k] for k in ("<RECURRENT>", "<PEEPHOLE>",
+                                  "<PROJECTION>"))
+    n_c = P.shape[1]
+    if (W.shape[0] != 4 * n_c or R.shape != (4 * n_c, M.shape[0])
+            or P.shape[0] != 3 or M.shape[1] != n_c or b.size != 4 * n_c):
+        HError(7711, "load_ann: %s: LSTMP shapes do not agree (weight %s, "
+               "recurrent %s, peephole %s, projection %s, bias %d)", path,
+               W.shape, R.shape, P.shape, M.shape, b.size)
+    return LSTMPLayer(weight=W, recur=R, peep=P, bias=b, proj=M)
+
+
 def load_ann(path: str) -> ANNDef:
     toks = open(path).read().split()
     i = 0
     ann = ANNDef(name="ann")
     n_layers = 0
+    parts = {}  # an LSTMP layer's matrices besides its weight
     try:
         while i < len(toks):
             t = toks[i]
@@ -208,24 +330,35 @@ def load_ann(path: str) -> ANNDef:
             elif t == "<CONTEXT>":
                 ann.context = int(toks[i + 1])
                 i += 2
+            elif t == "<OUTDELAY>":
+                ann.out_delay = int(toks[i + 1])
+                i += 2
             elif t == "<LAYER>":
+                parts = {}
                 i += 2  # index
             elif t == "<NUMUNITS>":
                 i += 2
             elif t == "<ACTIVATION>":
                 act = toks[i + 1]
                 i += 2
-            elif t == "<WEIGHT>":
+            elif t in ("<WEIGHT>", "<RECURRENT>", "<PEEPHOLE>",
+                       "<PROJECTION>"):
                 r, c = int(toks[i + 1]), int(toks[i + 2])
                 vals = [float(x) for x in toks[i + 3 : i + 3 + r * c]]
-                W = np.array(vals, np.float32).reshape(r, c)
+                M = np.array(vals, np.float32).reshape(r, c)
+                if t == "<WEIGHT>":
+                    W = M
+                else:
+                    parts[t] = M
                 i += 3 + r * c
             elif t == "<BIAS>":
                 n = int(toks[i + 1])
                 b = np.array([float(x) for x in toks[i + 2 : i + 2 + n]],
                              np.float32)
                 i += 2 + n
-                ann.layers.append(Layer(weight=W, bias=b, activation=act))
+                ann.layers.append(
+                    _lstmp_layer(path, W, b, parts) if act == LSTMP
+                    else Layer(weight=W, bias=b, activation=act))
             elif t == "<TARGETPRIORS>":
                 n = int(toks[i + 1])
                 ann.target_priors = np.array(

@@ -39,7 +39,7 @@ from ..algo.nnet import SGDConfig, make_cache, train_ann, train_ann_sequence
 from ..algo.viterbi import align
 from ..io.mlf import MLF, find_labels
 from ..io.mmf import load_hmm_list, load_mmf
-from ..models.ann import init_ann, load_ann, save_ann
+from ..models.ann import init_ann, load_ann, require_feedforward, save_ann
 from ..models.hmmset import compile_hmmset
 from ..utils.cli import Option, parse_args, tool_main
 from ..utils.errors import HError, HRError
@@ -117,6 +117,7 @@ def run(argv: List[str]) -> int:
             out_dim=comp.n_states, context=context,
             activation=cfg.str_("ACTIVATION", "SIGMOID", module=m),
         )
+    require_feedforward(ann, "HNTrainSGD")
     ann.target_names = [f"S{i}" for i in range(comp.n_states)]
 
     if ta.trace:

@@ -90,7 +90,7 @@ from ..io.dictionary import read_dict
 from ..io.mlf import MLF, Label, Transcription, find_labels, save_label_file
 from ..io.mmf import load_hmm_list, load_mmf
 from ..io.slf import NULL_WORD, LArc, Lattice, LNode, read_slf, write_slf
-from ..models.ann import ANNModule, load_ann
+from ..models.ann import ANNModule, load_ann, require_feedforward
 from ..models.hmmset import compile_hmmset, drop_device_caches, write_back
 from ..ops.dsp import FrontendConfig
 from ..ops.stream import StreamingFrontend
@@ -379,7 +379,11 @@ def run(argv: List[str]) -> int:
             f"HVite: network {net.n_nodes} nodes, {net.n_chains} chains, "
             f"{net.n_states} states"
         )
+    # hybrid decoding (-N): the ANN's scores replace OutP
+    ann = load_ann(ta.get("N")) if ta.has("N") else None
     if live:
+        if ann is not None:
+            require_feedforward(ann, "HVite live mode")
         return _run_live(ta, cfg, net, comp, lm_scale, word_pen, out_mlf,
                          out_mlf_path, out_dir, out_ext, period, device)
 
@@ -413,9 +417,8 @@ def run(argv: List[str]) -> int:
             adapted(j)
     results: List = [None] * len(featl)
     lats: List = [None] * len(featl)
-    # hybrid decoding (-N): the ANN's scores replace OutP, computed once
-    # an utterance on the device and kept for the retry ladder
-    ann = load_ann(ta.get("N")) if ta.has("N") else None
+    # the ANN's scores are computed once an utterance on the device and
+    # kept for the retry ladder
     if ann is not None:
         model = ANNModule(ann, device)
         if ta.trace:
